@@ -11,16 +11,32 @@ exits non-zero:
   1. device  — CUDA must be available; prints nvidia-smi's name and power
                limit of the card.
   2. build   — compiles the kernels in style_transfer2_tpu_torch/csrc with
-               nvcc and prints the seconds taken.
+               nvcc (one process per source, in parallel) and prints the
+               seconds taken.
   3. kernels — every hand-written kernel against its plain PyTorch version
-               on the card (TF32 off) at the 512px main-path shapes, float32
-               and bfloat16, within stated tolerances; median CUDA-event
-               times of both.
+               on the card (TF32 off), with median CUDA-event times of both:
+               the conv kernels at the 512px main-path shapes and at the
+               iterate shapes of the 1024px ladder's top rung and of its
+               odd 543x724 rung, float32 and bfloat16, within stated
+               tolerances; the style branch at the 512px taps; the image
+               kernels (preprocess from uint8 and float32, deprocess) at
+               every rung of the 1024px ladder, bit for bit.
   4. main    — the CLI's main() at --size 512 --optimizer lbfgs from the two
-               example images, once in float32 and once in bfloat16: finite,
-               falling loss, the PNG written, and every kernel launched.
-  5. parity  — the CUDA engine against the CPU engine (the plain versions)
-               on a small input: every trace key within the golden rtol.
+               example images, one step per dispatch (comparable with the
+               first slice's runs), once in float32 and once in bfloat16:
+               finite, falling loss, the PNG written, every kernel launched.
+  5. ladder  — the CLI's main() at --size 1024 --multi-scale --min-scale 96,
+               20 L-BFGS iterations a rung in the default chunked dispatch,
+               in float32 and in bfloat16 with a 20-iteration float32
+               polish: finite losses, falling over the first rung, each
+               warm-started rung starting at most WARM_START_RISE times
+               the rung below's last loss, a 1024x768 PNG, every kernel
+               launched; each rung's it/s, the polish's time and first and
+               last loss, the wall time, then a single-scale 1024px run of
+               the same iteration count for comparison.
+  6. parity  — the CUDA engine against the CPU engine (the plain versions)
+               on small inputs, 5 steps at one size and a 2-rung ladder:
+               every trace key within the golden rtol.
 
 The line before the last is one JSON object with each kernel's measured
 numbers; the last line is {"ok": true, "device": {...}}. Outputs go to
@@ -29,6 +45,7 @@ chiprun_out/chip_smoke/.
 
 import csv
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -42,28 +59,68 @@ OUT_DIR = ROOT / 'chiprun_out' / 'chip_smoke'
 CONTENT = ROOT / 'examples' / 'golden_gate.jpg'
 STYLE = ROOT / 'examples' / 'starry_night.jpg'
 ITERATIONS = 20
+LADDER_ITERATIONS = 20     # per rung
+POLISH = 20
+# A warm-started rung's first loss over the last loss of the rung below:
+# 0.897-1.032 on an H100 in float32 and bfloat16 (the content's new size
+# and the resampled iterate move it a little). A resample that lost the
+# optimized image would start near the random start's ~1e8.
+WARM_START_RISE = 1.25
 
 # Tolerances, as max |kernel - plain| / max(1, max |plain|), the plain
 # version run in float32 with TF32 off on the same inputs: float32 sums the
 # same products in another order; bfloat16 rounds the output to 8 mantissa
-# bits (tests/test_pallas_conv.py uses 3e-2).
+# bits (tests/test_pallas_conv.py uses 3e-2). The image kernels do the plain
+# version's one float32 add or subtract per element: tolerance 0.
 TOL = {'float32': 1e-4, 'bfloat16': 3e-2}
 STYLE_TOL = 1e-4          # float32 only: the taps are float32 in both modes
 PARITY_RTOL = 5e-3        # tests/test_golden.py's trace tolerance
 
-# (H, W, Cin, Cout) of every 3x3 conv the 512px main path runs: the
-# 384x512 iterate up to conv4_2, forward and backward every step, and the
-# 410x512 style image through conv5_4 (forward, once; odd H after pools).
-ITERATE_CONVS = [
-    (384, 512, 3, 64), (384, 512, 64, 64), (192, 256, 64, 128),
-    (192, 256, 128, 128), (96, 128, 128, 256), (96, 128, 256, 256),
-    (48, 64, 256, 512), (48, 64, 512, 512)]
+KERNELS = ('conv3x3_bias_relu_fwd', 'conv3x3_bias_relu_bwd',
+           'fused_style_branch', 'preprocess', 'deprocess')
+SOURCES = {
+    'conv3x3_bias_relu_fwd': ('style_transfer2_tpu_torch/csrc/conv3x3.cu',
+                              'style_transfer2_tpu/ops/pallas/conv.py:174'),
+    'conv3x3_bias_relu_bwd': ('style_transfer2_tpu_torch/csrc/conv3x3.cu',
+                              'style_transfer2_tpu/ops/pallas/conv.py:183'),
+    'fused_style_branch': ('style_transfer2_tpu_torch/csrc/style.cu',
+                           'style_transfer2_tpu/ops/pallas/'
+                           'style_kernel.py:35'),
+    'preprocess': ('style_transfer2_tpu_torch/csrc/image.cu',
+                   'style_transfer2_tpu/ops/pallas/preprocess.py:34'),
+    'deprocess': ('style_transfer2_tpu_torch/csrc/image.cu',
+                  'style_transfer2_tpu/ops/pallas/preprocess.py:40'),
+}
+
+# The ladder run's --size and --min-scale, and its rungs
+# (utils.scales((768, 1024), min_size=96)).
+LADDER_SIZE = 1024
+MIN_SCALE = 96
+LADDER_1024 = [(96, 128), (136, 181), (192, 256), (272, 362), (384, 512),
+               (543, 724), (768, 1024)]
+
+
+def trunk_convs(h, w):
+    """(H, W, Cin, Cout) of each 3x3 conv the iterate runs up to conv4_2 on
+    an h x w grid (ceil pools), forward and backward every step."""
+    shapes, cin = [], 3
+    for block, (n, cout) in enumerate(((2, 64), (2, 128), (4, 256),
+                                       (2, 512))):
+        if block:
+            h, w = -(-h // 2), -(-w // 2)
+        for _ in range(n):
+            shapes.append((h, w, cin, cout))
+            cin = cout
+    return shapes
+
+
+# The 512px main path: the 384x512 iterate, and the 410x512 style image
+# through conv5_4 (forward, once; odd H after pools).
+ITERATE_CONVS = trunk_convs(384, 512)
 STYLE_CONVS = [
     (410, 512, 3, 64), (410, 512, 64, 64), (205, 256, 64, 128),
     (205, 256, 128, 128), (103, 128, 128, 256), (103, 128, 256, 256),
     (52, 64, 256, 512), (52, 64, 512, 512), (26, 32, 512, 512)]
-# How many times each iterate conv shape runs per forward up to conv4_2.
-ITERATE_REPEATS = [1, 1, 1, 1, 1, 3, 1, 1]
 # (H, W, C) of the four style taps of the iterate: conv1_1 .. conv4_1.
 STYLE_TAPS = [(384, 512, 64), (192, 256, 128), (96, 128, 256), (48, 64, 512)]
 
@@ -100,6 +157,38 @@ def rel_err(got, want):
     return err, err / max(1.0, float(want.abs().max()))
 
 
+def counters():
+    """Every kernel's launch count, by name."""
+    from style_transfer2_tpu_torch.ops import conv, image, style
+    return {'conv3x3_bias_relu_fwd': conv.fwd_launches,
+            'conv3x3_bias_relu_bwd': conv.bwd_launches,
+            'fused_style_branch': style.launches,
+            'preprocess': image.preprocess_launches,
+            'deprocess': image.deprocess_launches}
+
+
+def reset_counters():
+    from style_transfer2_tpu_torch.ops import conv, image, style
+    conv.fwd_launches = conv.bwd_launches = style.launches = 0
+    image.preprocess_launches = image.deprocess_launches = 0
+
+
+class CliLog(logging.Handler):
+    """Keeps the CLI's log records, to read its per-rung and polish
+    timings."""
+
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def args_of(self, msg):
+        """The args of every kept record with this format string."""
+        return [r.args for r in self.records if r.msg == msg]
+
+
 def phase_device(torch):
     require(torch.cuda.is_available(), 'CUDA is not available')
     smi = subprocess.run(
@@ -126,134 +215,221 @@ def phase_build():
         say('build', line)
 
 
-def phase_kernels(torch):
+def check_conv(torch, rng, shape, dtype_name, where):
+    """Holds the conv kernels against the plain version at one shape and
+    times both. Returns the row for kernels.json."""
     import torch.nn.functional as F
-    from style_transfer2_tpu_torch.engine import apply_precision
-    from style_transfer2_tpu_torch.ops import conv, style
-    apply_precision('float32')     # TF32 off for the plain versions
+    from style_transfer2_tpu_torch.ops import conv
+    h, w, cin, cout = shape
+    dtype = {'float32': torch.float32, 'bfloat16': torch.bfloat16}[
+        dtype_name]
     dev = torch.device('cuda')
-    rng = np.random.RandomState(0)
-    rows = []
-    worst = {'conv3x3_bias_relu_fwd': 0.0, 'conv3x3_bias_relu_bwd': 0.0,
-             'fused_style_branch': 0.0}
-    step_ms = {k: [0.0, 0.0] for k in worst}   # float32 [kernel, plain]
 
-    def as_t(a, dtype):
+    def as_t(a):
         return torch.as_tensor(np.float32(a), device=dev).to(dtype)
 
-    for dtype_name, dtype in (('float32', torch.float32),
-                              ('bfloat16', torch.bfloat16)):
-        shapes = ([(s, 'iterate', r) for s, r in
-                   zip(ITERATE_CONVS, ITERATE_REPEATS)]
-                  + [(s, 'style', 0) for s in STYLE_CONVS])
-        for (h, w, cin, cout), where, repeats in shapes:
-            x = as_t(rng.randn(1, h, w, cin), dtype)
-            wt = as_t(rng.normal(0, np.sqrt(2.0 / (9 * cin)),
-                                 (3, 3, cin, cout)), dtype)
-            b = as_t(rng.randn(cout) * 0.1, dtype)
-            g = as_t(rng.randn(1, h, w, cout), dtype)
+    x = as_t(rng.randn(1, h, w, cin))
+    wt = as_t(rng.normal(0, np.sqrt(2.0 / (9 * cin)), (3, 3, cin, cout)))
+    b = as_t(rng.randn(cout) * 0.1)
+    g = as_t(rng.randn(1, h, w, cout))
 
-            # The reference is the plain version in float32 on the same
-            # (for bf16: bf16-valued) inputs, TF32 off: the kernel computes
-            # that sum and rounds once. The backward reference is autograd
-            # of the plain conv with the cotangent masked by the kernel's
-            # own forward output: an activation within rounding of zero can
-            # fall on either side of the ReLU in two implementations, and
-            # each such flip moves a few dx entries by a whole g*w term. The
-            # flips are counted, and the plain bf16 version's own distance
-            # from the reference is printed beside.
-            xr = x.detach().requires_grad_(True)
-            x32 = x.float().requires_grad_(True)
-            w32, b32, g32 = wt.float(), b.float(), g.float()
-            y_k = conv.conv3x3_bias_relu(x, wt, b)
-            y_r = conv.conv3x3_bias_relu_plain(x32, w32, b32)
-            dx_k = torch.autograd.grad(conv.conv3x3_bias_relu(xr, wt, b),
-                                       xr, g)[0]
-            pre_r = F.conv2d(x32.permute(0, 3, 1, 2), w32.permute(3, 2, 0, 1),
-                             b32, padding=1).permute(0, 2, 3, 1)
-            dx_r = torch.autograd.grad(pre_r, x32,
-                                       g32 * (y_k > 0).float())[0]
-            flips = int(((y_k > 0) != (y_r > 0)).sum())
-            torch.cuda.synchronize()
-            fe, fr = rel_err(y_k, y_r)
-            be, br = rel_err(dx_k, dx_r)
-            plain_note = ' (%d ReLU flips)' % flips
-            if dtype != torch.float32:
-                y_p = conv.conv3x3_bias_relu_plain(x, wt, b)
-                dx_p = torch.autograd.grad(
-                    conv.conv3x3_bias_relu_plain(xr, wt, b), xr, g)[0]
-                plain_note += ' (plain bf16 err %.2g/%.2g)' % (
-                    rel_err(y_p, y_r)[1], rel_err(dx_p, dx_r)[1])
-                del y_p, dx_p
-            require(math.isfinite(fr) and fr <= TOL[dtype_name],
-                    'conv fwd %s %s: rel err %.3g' % (
-                        dtype_name, (h, w, cin, cout), fr))
-            require(math.isfinite(br) and br <= TOL[dtype_name],
-                    'conv bwd %s %s: rel err %.3g' % (
-                        dtype_name, (h, w, cin, cout), br))
-            worst['conv3x3_bias_relu_fwd'] = max(
-                worst['conv3x3_bias_relu_fwd'], fe)
-            worst['conv3x3_bias_relu_bwd'] = max(
-                worst['conv3x3_bias_relu_bwd'], be)
+    # The reference is the plain version in float32 on the same (for bf16:
+    # bf16-valued) inputs, TF32 off: the kernel computes that sum and
+    # rounds once. The backward reference is autograd of the plain conv
+    # with the cotangent masked by the kernel's own forward output: an
+    # activation within rounding of zero can fall on either side of the
+    # ReLU in two implementations, and each such flip moves a few dx
+    # entries by a whole g*w term. The flips are counted, and the plain
+    # bf16 version's own distance from the reference is printed beside.
+    xr = x.detach().requires_grad_(True)
+    x32 = x.float().requires_grad_(True)
+    w32, b32, g32 = wt.float(), b.float(), g.float()
+    y_k = conv.conv3x3_bias_relu(x, wt, b)
+    y_r = conv.conv3x3_bias_relu_plain(x32, w32, b32)
+    dx_k = torch.autograd.grad(conv.conv3x3_bias_relu(xr, wt, b), xr, g)[0]
+    pre_r = F.conv2d(x32.permute(0, 3, 1, 2), w32.permute(3, 2, 0, 1), b32,
+                     padding=1).permute(0, 2, 3, 1)
+    dx_r = torch.autograd.grad(pre_r, x32, g32 * (y_k > 0).float())[0]
+    flips = int(((y_k > 0) != (y_r > 0)).sum())
+    torch.cuda.synchronize()
+    fe, fr = rel_err(y_k, y_r)
+    be, br = rel_err(dx_k, dx_r)
+    plain_note = ' (%d ReLU flips)' % flips
+    if dtype != torch.float32:
+        y_p = conv.conv3x3_bias_relu_plain(x, wt, b)
+        dx_p = torch.autograd.grad(
+            conv.conv3x3_bias_relu_plain(xr, wt, b), xr, g)[0]
+        plain_note += ' (plain bf16 err %.2g/%.2g)' % (
+            rel_err(y_p, y_r)[1], rel_err(dx_p, dx_r)[1])
+        del y_p, dx_p
+    require(math.isfinite(fr) and fr <= TOL[dtype_name],
+            'conv fwd %s %s: rel err %.3g' % (dtype_name, shape, fr))
+    require(math.isfinite(br) and br <= TOL[dtype_name],
+            'conv bwd %s %s: rel err %.3g' % (dtype_name, shape, br))
+    del x32, w32, b32, g32, y_r, pre_r, dx_k, dx_r
 
-            y = y_k.detach()
-            fwd_k = median_ms(lambda: conv._launch_fwd(x, wt, b), torch)
-            fwd_p = median_ms(
-                lambda: conv.conv3x3_bias_relu_plain(x, wt, b), torch)
-            bwd_k = median_ms(lambda: conv._launch_bwd(g, y, wt), torch)
-            bwd_p = median_ms(lambda: torch.autograd.grad(
-                conv.conv3x3_bias_relu_plain(xr, wt, b), xr, g), torch)
-            # The plain backward's time includes its forward (autograd
-            # needs it); report its backward alone.
-            bwd_p = max(bwd_p - fwd_p, 0.0)
-            gflop = 2 * 9 * h * w * cin * cout / 1e9
-            rows.append({'kernel': 'conv3x3', 'dtype': dtype_name,
-                         'where': where, 'shape': [h, w, cin, cout],
-                         'fwd_ms': fwd_k, 'fwd_plain_ms': fwd_p,
-                         'bwd_ms': bwd_k, 'bwd_plain_ms': bwd_p,
-                         'fwd_tflops': gflop / fwd_k,
-                         'fwd_rel_err': fr, 'bwd_rel_err': br})
-            say('kernels', 'conv %-8s %-7s %-21s fwd %.3f ms (plain %.3f, '
-                '%.1f TFLOP/s) bwd %.3f ms (plain %.3f) err %.2g/%.2g%s' % (
-                    dtype_name, where, (h, w, cin, cout), fwd_k, fwd_p,
-                    gflop / fwd_k, bwd_k, bwd_p, fr, br, plain_note))
-            if dtype_name == 'float32' and where == 'iterate':
-                step_ms['conv3x3_bias_relu_fwd'][0] += repeats * fwd_k
-                step_ms['conv3x3_bias_relu_fwd'][1] += repeats * fwd_p
-                step_ms['conv3x3_bias_relu_bwd'][0] += repeats * bwd_k
-                step_ms['conv3x3_bias_relu_bwd'][1] += repeats * bwd_p
-            del x, wt, b, g, xr, x32, w32, b32, g32, y_k, y_r, pre_r, dx_k
-            del dx_r, y
+    y = y_k.detach()
+    fwd_k = median_ms(lambda: conv._launch_fwd(x, wt, b), torch)
+    fwd_p = median_ms(lambda: conv.conv3x3_bias_relu_plain(x, wt, b), torch)
+    bwd_k = median_ms(lambda: conv._launch_bwd(g, y, wt), torch)
+    bwd_p = median_ms(lambda: torch.autograd.grad(
+        conv.conv3x3_bias_relu_plain(xr, wt, b), xr, g), torch)
+    # The plain backward's time includes its forward (autograd needs it);
+    # report its backward alone.
+    bwd_p = max(bwd_p - fwd_p, 0.0)
+    gflop = 2 * 9 * h * w * cin * cout / 1e9
+    say('kernels', 'conv %-8s %-8s %-21s fwd %.3f ms (plain %.3f, %.1f '
+        'TFLOP/s) bwd %.3f ms (plain %.3f) err %.2g/%.2g%s' % (
+            dtype_name, where, shape, fwd_k, fwd_p, gflop / fwd_k, bwd_k,
+            bwd_p, fr, br, plain_note))
+    return {'kernel': 'conv3x3', 'dtype': dtype_name, 'where': where,
+            'shape': list(shape), 'fwd_ms': fwd_k, 'fwd_plain_ms': fwd_p,
+            'bwd_ms': bwd_k, 'bwd_plain_ms': bwd_p,
+            'fwd_tflops': gflop / fwd_k, 'fwd_rel_err': fr,
+            'bwd_rel_err': br, 'fwd_abs_err': fe, 'bwd_abs_err': be}
 
-    for h, w, c in STYLE_TAPS:
-        feat = torch.relu(as_t(rng.randn(1, h, w, c), torch.float32))
-        other = torch.relu(as_t(rng.randn(1, h, w, c), torch.float32))
-        flat = other.reshape(-1, c)
-        gram_style = flat.T @ flat / flat.numel()
-        s_k, gd_k = style.fused_style_branch(feat, gram_style)
-        s_p, gd_p = style.fused_style_branch_plain(feat, gram_style)
+
+def check_style(torch, rng, tap):
+    from style_transfer2_tpu_torch.ops import style
+    h, w, c = tap
+    dev = torch.device('cuda')
+    feat = torch.relu(torch.as_tensor(np.float32(rng.randn(1, h, w, c)),
+                                      device=dev))
+    other = torch.relu(torch.as_tensor(np.float32(rng.randn(1, h, w, c)),
+                                       device=dev))
+    flat = other.reshape(-1, c)
+    gram_style = flat.T @ flat / flat.numel()
+    s_k, gd_k = style.fused_style_branch(feat, gram_style)
+    s_p, gd_p = style.fused_style_branch_plain(feat, gram_style)
+    torch.cuda.synchronize()
+    # s_grad is ~1e-9 in magnitude: its error is relative to its own max;
+    # gram_diff's to the larger of its and the target's max.
+    se = float((s_k - s_p).abs().max())
+    sr = se / float(s_p.abs().max())
+    ge = float((gd_k - gd_p).abs().max())
+    gr = ge / max(float(gd_p.abs().max()), float(gram_style.abs().max()))
+    require(math.isfinite(sr) and sr <= STYLE_TOL,
+            'style s_grad %s: rel err %.3g' % (tap, sr))
+    require(math.isfinite(gr) and gr <= STYLE_TOL,
+            'style gram_diff %s: rel err %.3g' % (tap, gr))
+    t_k = median_ms(lambda: style._launch(feat, gram_style), torch)
+    t_p = median_ms(
+        lambda: style.fused_style_branch_plain(feat, gram_style), torch)
+    say('kernels', 'style float32 %-16s %.3f ms (plain %.3f) err %.2g/%.2g'
+        % (tap, t_k, t_p, sr, gr))
+    return {'kernel': 'fused_style_branch', 'dtype': 'float32',
+            'shape': list(tap), 'ms': t_k, 'plain_ms': t_p,
+            's_grad_rel_err': sr, 'gram_diff_rel_err': gr,
+            'abs_err': max(se, ge)}
+
+
+def check_image(torch, rng, hw):
+    """Preprocess from uint8 and from float32 and deprocess at one rung,
+    bit for bit against the plain versions. Times: the kernel alone on a
+    device tensor against the plain version's device op, and preprocess
+    end to end from the host array (the kernel's input crosses in its own
+    dtype, the plain version's as float32)."""
+    from style_transfer2_tpu_torch.ops import image
+    dev = torch.device('cuda')
+    mean = torch.as_tensor(image.MEAN_RGB, device=dev)
+    rows = []
+    for dtype_name in ('uint8', 'float32'):
+        img = (rng.randint(0, 256, hw + (3,)).astype(np.uint8)
+               if dtype_name == 'uint8'
+               else np.float32(rng.uniform(-20, 275, hw + (3,))))
+        x_k = image.preprocess(img, dev)
+        x_p = image.preprocess_plain(img, dev)
+        y_k = image.deprocess_on_device(x_k)
+        y_p = image.deprocess_plain(x_k)
         torch.cuda.synchronize()
-        # s_grad is ~1e-9 in magnitude: its error is relative to its own
-        # max; gram_diff's to the larger of its and the target's max.
-        se = float((s_k - s_p).abs().max())
-        sr = se / float(s_p.abs().max())
-        ge = float((gd_k - gd_p).abs().max())
-        gr = ge / max(float(gd_p.abs().max()), float(gram_style.abs().max()))
-        require(math.isfinite(sr) and sr <= STYLE_TOL,
-                'style s_grad %s: rel err %.3g' % ((h, w, c), sr))
-        require(math.isfinite(gr) and gr <= STYLE_TOL,
-                'style gram_diff %s: rel err %.3g' % ((h, w, c), gr))
-        worst['fused_style_branch'] = max(worst['fused_style_branch'], se, ge)
-        t_k = median_ms(lambda: style._launch(feat, gram_style), torch)
-        t_p = median_ms(
-            lambda: style.fused_style_branch_plain(feat, gram_style), torch)
-        step_ms['fused_style_branch'][0] += t_k
-        step_ms['fused_style_branch'][1] += t_p
-        rows.append({'kernel': 'fused_style_branch', 'dtype': 'float32',
-                     'shape': [h, w, c], 'ms': t_k, 'plain_ms': t_p,
-                     's_grad_rel_err': sr, 'gram_diff_rel_err': gr})
-        say('kernels', 'style float32 %-16s %.3f ms (plain %.3f) err '
-            '%.2g/%.2g' % ((h, w, c), t_k, t_p, sr, gr))
+        pre_err = float((x_k - x_p).abs().max())
+        de_err = float((y_k - y_p).abs().max())
+        require(torch.equal(x_k, x_p), 'preprocess %s %s: max abs err %.3g'
+                % (dtype_name, hw, pre_err))
+        require(torch.equal(y_k, y_p), 'deprocess %s: max abs err %.3g'
+                % (hw, de_err))
+        src = torch.from_numpy(img).to(dev)
+        src32 = src.float()
+        pre_k = median_ms(lambda: image._launch_preprocess(src), torch)
+        pre_p = median_ms(lambda: src32[None] - mean, torch)
+        e2e_k = median_ms(lambda: image.preprocess(img, dev), torch)
+        e2e_p = median_ms(lambda: image.preprocess_plain(img, dev), torch)
+        de_k = median_ms(lambda: image._launch_deprocess(x_k), torch)
+        de_p = median_ms(lambda: image.deprocess_plain(x_k), torch)
+        say('kernels', 'image %-7s %-12s preprocess %.4f ms (plain %.4f), '
+            'from host %.3f ms (plain %.3f); deprocess %.4f ms (plain '
+            '%.4f); bitwise equal' % (dtype_name, hw, pre_k, pre_p, e2e_k,
+                                      e2e_p, de_k, de_p))
+        rows.append({'kernel': 'image', 'dtype': dtype_name,
+                     'shape': list(hw), 'preprocess_ms': pre_k,
+                     'preprocess_plain_ms': pre_p,
+                     'preprocess_from_host_ms': e2e_k,
+                     'preprocess_from_host_plain_ms': e2e_p,
+                     'deprocess_ms': de_k, 'deprocess_plain_ms': de_p,
+                     'preprocess_abs_err': pre_err,
+                     'deprocess_abs_err': de_err})
+    return rows
+
+
+def phase_kernels(torch):
+    rng = np.random.RandomState(0)
+    rows = []
+    worst = dict.fromkeys(KERNELS, 0.0)
+    # float32 [kernel, plain] ms: the convs and the style branch summed
+    # over one 512px step's shapes, the image kernels over the 7 rungs.
+    step_ms = {k: [0.0, 0.0] for k in KERNELS}
+    sums_1024 = {}                 # dtype -> [fwd, plain, bwd, plain]
+
+    for dtype_name in ('float32', 'bfloat16'):
+        cases = ([(s, '512') for s in ITERATE_CONVS]
+                 + [(s, 'style') for s in STYLE_CONVS]
+                 + [(s, '543x724') for s in trunk_convs(543, 724)]
+                 + [(s, '1024') for s in trunk_convs(768, 1024)])
+        seen = {}
+        for shape, where in cases:
+            key = (shape, where)
+            if key not in seen:
+                seen[key] = check_conv(torch, rng, shape, dtype_name, where)
+                rows.append(seen[key])
+            row = seen[key]
+            worst['conv3x3_bias_relu_fwd'] = max(
+                worst['conv3x3_bias_relu_fwd'], row['fwd_abs_err'])
+            worst['conv3x3_bias_relu_bwd'] = max(
+                worst['conv3x3_bias_relu_bwd'], row['bwd_abs_err'])
+            times = [row['fwd_ms'], row['fwd_plain_ms'], row['bwd_ms'],
+                     row['bwd_plain_ms']]
+            if dtype_name == 'float32' and where == '512':
+                for i, name in enumerate(('conv3x3_bias_relu_fwd',) * 2
+                                         + ('conv3x3_bias_relu_bwd',) * 2):
+                    step_ms[name][i % 2] += times[i]
+            if where == '1024':
+                sums = sums_1024.setdefault(dtype_name, [0.0] * 4)
+                for i in range(4):
+                    sums[i] += times[i]
+        say('kernels', 'conv %s summed over one 1024px (768x1024) step\'s '
+            'shapes: fwd %.3f ms (plain %.3f), bwd %.3f ms (plain %.3f)'
+            % ((dtype_name,) + tuple(sums_1024[dtype_name])))
+
+    for tap in STYLE_TAPS:
+        row = check_style(torch, rng, tap)
+        rows.append(row)
+        worst['fused_style_branch'] = max(worst['fused_style_branch'],
+                                          row['abs_err'])
+        step_ms['fused_style_branch'][0] += row['ms']
+        step_ms['fused_style_branch'][1] += row['plain_ms']
+
+    for hw in LADDER_1024:
+        for row in check_image(torch, rng, hw):
+            rows.append(row)
+            worst['preprocess'] = max(worst['preprocess'],
+                                      row['preprocess_abs_err'])
+            worst['deprocess'] = max(worst['deprocess'],
+                                     row['deprocess_abs_err'])
+            if row['dtype'] == 'uint8':
+                step_ms['preprocess'][0] += row['preprocess_ms']
+                step_ms['preprocess'][1] += row['preprocess_plain_ms']
+                step_ms['deprocess'][0] += row['deprocess_ms']
+                step_ms['deprocess'][1] += row['deprocess_plain_ms']
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / 'kernels.json').write_text(json.dumps(rows, indent=1))
@@ -265,31 +441,36 @@ def read_trace(path):
         return list(csv.DictReader(f))
 
 
+def require_all_launched(counts, what):
+    for name, n in counts.items():
+        require(n > 0, '%s: kernel %s never launched' % (what, name))
+
+
 def phase_main(torch):
+    """The 512px single-scale measurement, one step per dispatch: every
+    trace row carries its own time, and the steady-state rate stays
+    comparable with runs from before the chunked dispatch."""
     from style_transfer2_tpu_torch import cli
-    from style_transfer2_tpu_torch.ops import conv, style
     from PIL import Image
-    launches = {'conv3x3_bias_relu_fwd': 0, 'conv3x3_bias_relu_bwd': 0,
-                'fused_style_branch': 0}
+    launches = dict.fromkeys(KERNELS, 0)
     rates = {}
     for precision in ('float32', 'bfloat16'):
         png = OUT_DIR / ('main_%s.png' % precision)
         trace_csv = OUT_DIR / ('main_%s.csv' % precision)
         png.unlink(missing_ok=True)
-        conv.fwd_launches = conv.bwd_launches = style.launches = 0
+        reset_counters()
         t0 = time.perf_counter()
         rc = cli.main([str(CONTENT), str(STYLE), '-o', str(png),
                        '--size', '512', '--iterations', str(ITERATIONS),
                        '--optimizer', 'lbfgs', '--precision', precision,
+                       '--steps-per-dispatch', '1', '--pipeline-depth', '1',
                        '--trace-csv', str(trace_csv)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {'conv3x3_bias_relu_fwd': conv.fwd_launches,
-                  'conv3x3_bias_relu_bwd': conv.bwd_launches,
-                  'fused_style_branch': style.launches}
+        counts = counters()
         require(rc == 0, 'cli.main returned %r' % (rc,))
+        require_all_launched(counts, 'main ' + precision)
         for name, n in counts.items():
-            require(n > 0, '%s: kernel %s never launched' % (precision, name))
             launches[name] += n
 
         rows = read_trace(trace_csv)
@@ -311,13 +492,151 @@ def phase_main(torch):
     return launches, rates
 
 
+def split_rungs(rows):
+    """Trace rows split at each L-BFGS prime row (no fevals): one list per
+    rung, since every rung's resample and set_content re-prime."""
+    rungs = []
+    for row in rows:
+        if not row.get('fevals'):
+            rungs.append([])
+        rungs[-1].append(row)
+    return rungs
+
+
+def phase_ladder(torch, log):
+    """The coarse-to-fine 1024px CLI run, in float32 and in bfloat16 with
+    a float32 polish, each against a single-scale 1024px run of as many
+    iterations."""
+    from style_transfer2_tpu_torch import cli
+    from PIL import Image
+    launches = dict.fromkeys(KERNELS, 0)
+    summary = {}
+    common = [str(CONTENT), str(STYLE), '--size', str(LADDER_SIZE),
+              '--optimizer', 'lbfgs']
+    top_wh = LADDER_1024[-1][::-1]
+    for precision, extra in (('float32', []),
+                             ('bfloat16', ['--polish', str(POLISH)])):
+        png = OUT_DIR / ('ladder_%s.png' % precision)
+        trace_csv = OUT_DIR / ('ladder_%s.csv' % precision)
+        png.unlink(missing_ok=True)
+        reset_counters()
+        log.records.clear()
+        t0 = time.perf_counter()
+        rc = cli.main(common + [
+            '-o', str(png), '--multi-scale', '--min-scale', str(MIN_SCALE),
+            '--iterations', str(LADDER_ITERATIONS), '--precision', precision,
+            '--trace-csv', str(trace_csv)] + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = counters()
+        require(rc == 0, 'cli.main returned %r' % (rc,))
+        require_all_launched(counts, 'ladder ' + precision)
+        for name, n in counts.items():
+            launches[name] += n
+        rung_logs = log.args_of('scale %dx%d: %d iters in %.2fs '
+                                '(%.2f it/s)')
+
+        rungs = split_rungs(read_trace(trace_csv))
+        require(len(rungs) == len(LADDER_1024), '%d rungs in the trace'
+                % len(rungs))
+        require([tuple(a[:2]) for a in rung_logs] == LADDER_1024,
+                'rungs logged: %s' % ([a[:2] for a in rung_logs],))
+        # The loss must fall over the first rung, from the random start.
+        # A warm-started rung optimizes a new objective (the content at the
+        # new size, the first rung's norms), and the reference's fixed-step
+        # L-BFGS overshoots at its first step and need not get back below
+        # the rung's first evaluation within 20 iterations (the JAX CLI
+        # does the same); what the ladder must show there is that the warm
+        # start carries the optimized image up: each rung's first
+        # evaluation at most WARM_START_RISE times the last of the rung
+        # below.
+        last = None
+        for rung, (hw, rows, args) in enumerate(zip(LADDER_1024, rungs,
+                                                    rung_logs)):
+            losses = [float(r['loss']) for r in rows]
+            require(len(rows) == LADDER_ITERATIONS + 1,
+                    'rung %s: %d trace rows' % (hw, len(rows)))
+            require(all(math.isfinite(v) for v in losses),
+                    'rung %s: non-finite loss' % (hw,))
+            if rung == 0:
+                require(losses[-1] < losses[0], 'rung %s: loss did not '
+                        'fall: %.6g -> %.6g' % (hw, losses[0], losses[-1]))
+            else:
+                require(losses[0] <= WARM_START_RISE * last, 'rung %s: '
+                        'warm start at loss %.6g, the rung below ended at '
+                        '%.6g' % (hw, losses[0], last))
+            last = losses[-1]
+            say('ladder', '%s rung %dx%d: %d iterations in %.3f s, %.2f '
+                'it/s, loss %.6g -> %.6g' % (precision, hw[0], hw[1],
+                                             args[2], args[3], args[4],
+                                             losses[0], losses[-1]))
+        with Image.open(png) as img:
+            require(img.size == top_wh, 'PNG size %s' % (img.size,))
+        entry = {'wall_s': wall, 'rungs': [
+            {'hw': list(hw), 'it_s': a[4], 's': a[3]}
+            for hw, a in zip(LADDER_1024, rung_logs)]}
+        if extra:
+            polish = read_trace(OUT_DIR / ('ladder_%s.polish.csv'
+                                           % precision))
+            losses = [float(r['loss']) for r in polish]
+            require(len(polish) == POLISH + 1, '%d polish rows'
+                    % len(polish))
+            require(all(math.isfinite(v) for v in losses),
+                    'non-finite polish loss')
+            polish_s = [a[1] for a in
+                        log.args_of('polish: %d iters in %.2fs')]
+            require(len(polish_s) == 1, 'polish time not logged')
+            entry['polish'] = {'s': polish_s[0], 'first_loss': losses[0],
+                               'last_loss': losses[-1]}
+            say('ladder', '%s polish: %d float32 iterations at %dx%d in '
+                '%.3f s, loss %.6g -> %.6g' % (
+                    precision, POLISH, top_wh[1], top_wh[0], polish_s[0],
+                    losses[0], losses[-1]))
+        say('ladder', '%s: %d rungs x %d iterations%s, %.2f s wall; '
+            'launches %s' % (precision, len(LADDER_1024), LADDER_ITERATIONS,
+                             ' + %d polish' % POLISH if extra else '', wall,
+                             counts))
+
+        # The single-scale run of as many iterations, for the first
+        # benchmark's comparison (a measurement, not a checked path).
+        png1 = OUT_DIR / ('single_%s.png' % precision)
+        csv1 = OUT_DIR / ('single_%s.csv' % precision)
+        t0 = time.perf_counter()
+        rc = cli.main(common + [
+            '-o', str(png1), '--precision', precision, '--iterations',
+            str(LADDER_ITERATIONS * len(LADDER_1024)),
+            '--trace-csv', str(csv1)] + extra)
+        torch.cuda.synchronize()
+        entry['single_scale_wall_s'] = time.perf_counter() - t0
+        require(rc == 0, 'single-scale cli.main returned %r' % (rc,))
+        single = [float(r['loss']) for r in read_trace(csv1)]
+        entry['single_scale_loss'] = [single[0], single[-1]]
+        entry['ladder_final_loss'] = float(rungs[-1][-1]['loss'])
+        with Image.open(png1) as img:
+            require(img.size == top_wh, 'PNG size %s' % (img.size,))
+        say('ladder', '%s single-scale %dx%d, %d iterations%s: %.2f s '
+            'wall (ladder %.2f s); loss %.6g -> %.6g before any polish '
+            '(ladder ends at %.6g)' % (
+                precision, top_wh[1], top_wh[0],
+                LADDER_ITERATIONS * len(LADDER_1024),
+                ' + %d polish' % POLISH if extra else '',
+                entry['single_scale_wall_s'], wall, single[0], single[-1],
+                entry['ladder_final_loss']))
+        summary[precision] = entry
+    (OUT_DIR / 'ladder.json').write_text(json.dumps(summary, indent=1))
+    return launches
+
+
 def phase_parity(torch):
-    """The CUDA engine against the CPU engine on a small input."""
+    """The CUDA engine against the CPU engine on small inputs: 5 steps at
+    48x64, and a 2-rung ladder 24x32 -> 34x45 in chunks."""
     from style_transfer2_tpu_torch.engine import StyleTransfer
     from style_transfer2_tpu_torch.models import random_params
     rng = np.random.RandomState(0)
     content, style_img, inp = (rng.randint(0, 256, (48, 64, 3)).astype(
         np.uint8) for _ in range(3))
+    rung1, rung2 = (rng.randint(0, 256, hw + (3,)).astype(np.uint8)
+                    for hw in ((24, 32), (34, 45)))
     weights = {'content': {'conv4_2': 0.08},
                'style': {n: 1.0 for n in
                          ('conv1_1', 'conv2_1', 'conv3_1', 'conv4_1')}}
@@ -331,45 +650,62 @@ def phase_parity(torch):
         st.set_style(style_img)
         st.set_input(inp)
         require(st.start(), 'parity engine did not start')
-        traces[device] = [st.step(fetch_image=False)[1] for _ in range(5)]
-    worst = 0.0
-    for i, (want, got) in enumerate(zip(traces['cpu'], traces['cuda'])):
-        for key, value in want.items():
-            if key in ('time', 'fevals'):
-                continue
-            err = abs(got[key] - value) / max(abs(value), 1e-30)
-            worst = max(worst, err)
-            require(err <= PARITY_RTOL, 'trace %s at step %d: cuda %.6g '
-                    'cpu %.6g' % (key, i, got[key], value))
+        steps = [st.step(fetch_image=False)[1] for _ in range(5)]
+
+        lad = StyleTransfer(params, 'float32', device=device)
+        lad.set_weights(weights, scalars)
+        lad.set_content(rung1)
+        lad.set_style(style_img)
+        lad.set_input(inp[:24, :32])
+        require(lad.start(), 'ladder parity engine did not start')
+        lad.run_steps(3)
+        lad.resample_input((34, 45))
+        lad.set_content(rung2)
+        require(lad.start(), 'ladder parity engine did not restart')
+        lad.run_steps(3)
+        traces[device] = (steps, [t.data for t in lad.traces])
+    worst = [0.0, 0.0]
+    for which in (0, 1):
+        want_rows, got_rows = traces['cpu'][which], traces['cuda'][which]
+        require(len(want_rows) == len(got_rows), 'parity: row counts')
+        for i, (want, got) in enumerate(zip(want_rows, got_rows)):
+            for key, value in want.items():
+                if key in ('time', 'fevals'):
+                    continue
+                err = abs(got[key] - value) / max(abs(value), 1e-30)
+                worst[which] = max(worst[which], err)
+                require(err <= PARITY_RTOL, 'trace %s at row %d: cuda %.6g '
+                        'cpu %.6g' % (key, i, got[key], value))
     say('parity', '5 float32 L-BFGS steps at 48x64, CUDA vs CPU engine: '
-        'worst trace rel err %.3g (rtol %g)' % (worst, PARITY_RTOL))
+        'worst trace rel err %.3g (rtol %g)' % (worst[0], PARITY_RTOL))
+    say('parity', '2-rung float32 L-BFGS ladder 24x32 -> 34x45, 3 steps a '
+        'rung: worst trace rel err %.3g (rtol %g)' % (worst[1],
+                                                      PARITY_RTOL))
 
 
 def main():
     import torch
     phase_device(torch)
     phase_build()
-    worst, step_ms = phase_kernels(torch)
+    from style_transfer2_tpu_torch.utils import tf32
+    with tf32(False):              # TF32 off for the plain versions
+        worst, step_ms = phase_kernels(torch)
+    log = CliLog()
+    logging.getLogger('cli').addHandler(log)
     launches, rates = phase_main(torch)
+    for name, n in phase_ladder(torch, log).items():
+        launches[name] += n
     phase_parity(torch)
 
-    sources = {'conv3x3_bias_relu_fwd': (
-                   'style_transfer2_tpu_torch/csrc/conv3x3.cu',
-                   'style_transfer2_tpu/ops/pallas/conv.py:174'),
-               'conv3x3_bias_relu_bwd': (
-                   'style_transfer2_tpu_torch/csrc/conv3x3.cu',
-                   'style_transfer2_tpu/ops/pallas/conv.py:183'),
-               'fused_style_branch': (
-                   'style_transfer2_tpu_torch/csrc/style.cu',
-                   'style_transfer2_tpu/ops/pallas/style_kernel.py:35')}
-    kernels = [{'name': name, 'route': 'cuda', 'source': src,
-                'replaces': rep, 'launches': launches[name],
+    kernels = [{'name': name, 'route': 'cuda', 'source': SOURCES[name][0],
+                'replaces': SOURCES[name][1], 'launches': launches[name],
                 'max_abs_err': worst[name], 'ms': step_ms[name][0],
-                'plain_ms': step_ms[name][1]}
-               for name, (src, rep) in sources.items()]
-    say('summary', 'ms / plain_ms: float32, summed over one 512px step\'s '
-        'shapes; it/s float32 %.3f, bfloat16 %.3f' % (
-            rates['float32'], rates['bfloat16']))
+                'plain_ms': step_ms[name][1]} for name in KERNELS]
+    say('summary', 'ms / plain_ms, float32: the convs and the style branch '
+        'summed over one 512px step\'s shapes, the image kernels (uint8 '
+        'preprocess, deprocess) over the 7 rungs of the 1024px ladder; '
+        'launches over the main and ladder runs; 512px it/s float32 %.3f, '
+        'bfloat16 %.3f' % (rates['float32'], rates['bfloat16']))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -7,11 +7,14 @@ This package imports torch and never jax.
 
 Subpackages:
   models  — the truncated VGG-19 (NHWC, HWIO weights) and its weights
-  ops     — the hand-written CUDA kernels' wrappers (csrc/) beside their
-            plain PyTorch versions, Gram matrices, TV and p-norm losses
+  ops     — the hand-written CUDA kernels' wrappers (csrc/: conv, style
+            branch, image boundaries) beside their plain PyTorch versions,
+            Gram matrices, TV and p-norm losses, resampling
   optim   — the reference's Adam variant and fixed-step L-BFGS
-  engine  — the objective, the steps and the StyleTransfer state machine
-  cli     — the single-image command line
+  engine  — the objective, the steps, the StyleTransfer state machine and
+            its checkpoints
+  cli     — the single-image command line, single-scale or up the
+            coarse-to-fine ladder
 """
 
 __version__ = '0.1.0'

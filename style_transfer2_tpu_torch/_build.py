@@ -1,10 +1,12 @@
 """Builds the CUDA kernels in csrc/ and binds them with ctypes.
 
 The sources are compiled at first use, on the machine with the card, by
-nvcc into one shared library with a plain C interface:
+nvcc into one shared library with a plain C interface: one nvcc per
+source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-        -Xcompiler -fPIC -Xptxas -v -o libst2kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+        -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu  (each)
+    nvcc -shared -o libst2kernels.so *.o
 
 The library goes to build/kernels/<hash>/ under the repository root (listed
 in .gitignore), keyed by a hash of the sources and the flags, so an edited
@@ -28,16 +30,19 @@ CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parents[1] / 'build' / 'kernels'
 LIB_NAME = 'libst2kernels.so'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # Entry point -> argument types (every entry returns a cudaError_t as int).
 _SIGNATURES = {
     'st2_conv3x3_fwd': [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     'st2_conv3x3_bwd': [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     'st2_style_branch': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    'st2_preprocess': [_I, _P, _P, _L, _F, _F, _F, _P],
+    'st2_deprocess': [_P, _P, _L, _F, _F, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -78,19 +83,42 @@ def build():
         return lib_path
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    # Compile to a temporary name and rename, so that a concurrent or
-    # interrupted build never leaves a half-written library behind.
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, '-o', tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / 'build.log').write_text(
-        ' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError('nvcc failed (%d):\n%s%s' % (
-            proc.returncode, proc.stdout, proc.stderr))
-    os.replace(tmp, lib_path)
+    # Objects and the library go to temporary names first, so that a
+    # concurrent or interrupted build never leaves a half-written library
+    # behind.
+    obj_dir = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        jobs = []
+        for src in _sources():
+            cmd = [nvcc, *NVCC_FLAGS, '-c', '-o',
+                   str(obj_dir / (src.stem + '.o')), str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for cmd, proc in jobs:
+            output = proc.communicate()[0]
+            log.append(' '.join(cmd) + '\n' + output)
+            if proc.returncode != 0:
+                failed.append('%s (%d)' % (cmd[-1], proc.returncode))
+        if not failed:
+            fd, tmp = tempfile.mkstemp(suffix='.so', dir=out_dir)
+            os.close(fd)
+            cmd = [nvcc, '-shared', '-o', tmp,
+                   *map(str, sorted(obj_dir.glob('*.o')))]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append('link (%d)' % proc.returncode)
+            else:
+                os.replace(tmp, lib_path)
+        (out_dir / 'build.log').write_text(''.join(log))
+        if failed:
+            raise RuntimeError('nvcc failed: %s\n%s' % (', '.join(failed),
+                                                        ''.join(log)))
+    finally:
+        shutil.rmtree(obj_dir, ignore_errors=True)
     return lib_path
 
 

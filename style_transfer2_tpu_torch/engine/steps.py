@@ -4,10 +4,11 @@ steps.py).
 One step = one optimizer iteration: the VGG forward, the losses, the
 backward with injected cotangents and the update, all launched on the
 device with no host read-back. PyTorch runs eagerly, so a step is a plain
-closure and K steps are a Python loop (engine/transfer.py run_steps); a
-CUDA graph over K steps is later work. With nothing to compile,
-build_step_core stands for both the JAX package's build_step_core (the pure
-cores) and its build_step_fns (their jitted pair).
+closure and a K-step chunk is a Python loop that enqueues K steps before
+anything is read back (engine/transfer.py begin_steps); a CUDA graph over K
+steps is later work. With nothing to compile, build_step_core stands for
+both the JAX package's build_step_core (the pure cores) and its
+build_step_fns (their jitted pair).
 """
 
 import functools
@@ -15,6 +16,7 @@ import functools
 import torch
 
 from ..optim import adam, lbfgs
+from ..utils import tf32
 from .objective import make_objective
 
 # name -> (compute dtype, TF32 allowed for cuBLAS/cuDNN). float32 is the
@@ -34,15 +36,15 @@ def precision_config(name):
     return _PRECISIONS[name]
 
 
-def apply_precision(name):
-    """Sets the process-wide TF32 switches for a precision mode and returns
-    its compute dtype. Both torch.backends.cuda.matmul and
-    torch.backends.cudnn are set: cuDNN's default is TF32 on, which would
-    silently take float32 parity away on the card."""
-    compute_dtype, allow_tf32 = precision_config(name)
-    torch.backends.cuda.matmul.allow_tf32 = allow_tf32
-    torch.backends.cudnn.allow_tf32 = allow_tf32
-    return compute_dtype
+def precision_scope(name):
+    """A context manager that holds a precision mode's TF32 switches for
+    the work launched inside it and restores the caller's after, so that
+    two engines of different precisions in one process never change each
+    other's math (the JAX package binds precision to each program). Both
+    torch.backends.cuda.matmul and torch.backends.cudnn are set: cuDNN's
+    default is TF32 on, which would silently take float32 parity away on
+    the card."""
+    return tf32(precision_config(name)[1])
 
 
 @functools.lru_cache(maxsize=64)

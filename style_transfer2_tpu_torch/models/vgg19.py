@@ -11,7 +11,9 @@ The reference's Caffe network (worker.py:32-106) as a PyTorch module:
     bottom/right edge is padded with -inf and the 2x2 windows are reduced
     with torch.amax, whose backward splits the gradient evenly among ties,
     like the JAX reference's jnp.max (F.max_pool2d would send it to one).
-  * Preprocessing subtracts the RGB mean with NO channel reversal.
+  * Preprocessing subtracts the RGB mean with NO channel reversal:
+    preprocess and deprocess are ops.image's (the hand-written kernels on
+    the card, the plain versions on the CPU), re-exported here.
 
 Layout is NHWC throughout, with (1, H, W, 3) images and HWIO weights, as in
 the JAX package. Every 3x3 conv goes through ops.conv.conv3x3_bias_relu:
@@ -20,15 +22,12 @@ JAX package's TPU layout rewrites (block-1 space-to-depth, the Mosaic
 gates) have no counterpart here.
 """
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv import conv3x3_bias_relu
-
-# RGB channel means (reference worker.py:34).
-MEAN_RGB = np.float32([123.68, 116.779, 103.939])
+from ..ops.image import MEAN_RGB, deprocess, preprocess  # noqa: F401
 
 # (name, out_channels) for each conv layer, in network order.
 CONV_SPECS = (
@@ -68,23 +67,6 @@ def layer_channels(name):
     if name.startswith('conv'):
         return dict(CONV_SPECS)[name]
     return dict(CONV_SPECS)['conv%s_1' % name[4:]]
-
-
-def preprocess(image, device):
-    """HxWx3 (or 1xHxWx3) RGB uint8/float -> (1, H, W, 3) float32 on
-    device, mean subtracted, RGB order kept."""
-    arr = torch.as_tensor(np.asarray(image, np.float32), device=device)
-    if arr.dim() == 3:
-        arr = arr[None]
-    return arr - torch.as_tensor(MEAN_RGB, device=device)
-
-
-def deprocess(image):
-    """Inverse of preprocess: (1, H, W, 3) tensor -> HxWx3 float32 numpy."""
-    arr = image.detach().float()
-    if arr.dim() == 4:
-        arr = arr[0]
-    return arr.cpu().numpy() + MEAN_RGB
 
 
 def _max_pool_ceil(x):

@@ -13,6 +13,8 @@ The counters are host integers: they never depend on device values.
 import numpy as np
 import torch
 
+from ..ops.resample import resize_nhwc
+
 B1_DEFAULT = 0.9
 B2_DEFAULT = 0.999
 
@@ -72,10 +74,20 @@ def objective_changed(state):
 
 
 def resample(state, hw, new_x=None):
-    """Warm-starts at new_x, keeping the moments (optimizers.py:29-40).
-    Resizing the moments to another grid needs ops/resample, which is not
-    ported yet, so new_x must keep the current grid."""
-    if new_x is None or tuple(new_x.shape) != tuple(state['g1_mean'].shape):
-        raise NotImplementedError('Adam resample to a new size needs '
-                                  'ops/resample, which is not ported yet')
-    return dict(state, x=new_x.float())
+    """Warm-starts the state at a new resolution (optimizers.py:29-40):
+    lanczos3 for x (unless new_x is given) and the first moment, bilinear
+    clamped at 0 for the second moment; the counters are kept."""
+    if new_x is not None:
+        x = new_x.float()
+        hw = tuple(x.shape[1:3])
+    else:
+        x = resize_nhwc(state['x'], tuple(hw), 'lanczos3')
+    return {
+        'x': x,
+        'g1_mean': resize_nhwc(state['g1_mean'], tuple(hw), 'lanczos3'),
+        'g1_items': state['g1_items'],
+        'g2_mean': torch.clamp(
+            resize_nhwc(state['g2_mean'], tuple(hw), 'bilinear'), min=0.0),
+        'g2_items': state['g2_items'],
+        't': state['t'],
+    }

@@ -24,6 +24,8 @@ diverged (JAX package, optim/lbfgs.py:40-69,154-187).
 
 import torch
 
+from ..ops.resample import resize_nhwc
+
 N_CORR_DEFAULT = 10
 SY_MIN = 1e-10
 BF16_HISTORY_MIN_PIXELS = 160_000
@@ -174,11 +176,13 @@ def objective_changed(state, n_corr=None):
 
 
 def resample(state, hw, new_x=None):
-    """Warm-starts at a new iterate new_x and clears the optimizer state
-    (optimizers.py:110-119). Resizing the old iterate to hw needs
-    ops/resample, which is not ported yet."""
-    if new_x is None:
-        raise NotImplementedError('L-BFGS resample to a new size needs '
-                                  'ops/resample, which is not ported yet')
-    return init(new_x, state['sk'].shape[0],
-                history_dtype=state['sk'].dtype)
+    """Warm-starts x at a new resolution (new_x, or the iterate resized to
+    hw with lanczos3) and clears the optimizer state (optimizers.py:110-119).
+    The fresh history keeps the old one's dtype, so a ladder started below
+    BF16_HISTORY_MIN_PIXELS keeps float32 pairs all the way up, as in the
+    JAX package."""
+    if new_x is not None:
+        x = new_x.float()
+    else:
+        x = resize_nhwc(state['x'], tuple(hw), 'lanczos3')
+    return init(x, state['sk'].shape[0], history_dtype=state['sk'].dtype)

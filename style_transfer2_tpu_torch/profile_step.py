@@ -17,6 +17,7 @@ import json
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -42,7 +43,9 @@ def main(argv=None):
     args, cli_args = parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError('profile_step needs CUDA')
-    st, hw = cli.setup(cli_args)
+    st, inputs, hw = cli.setup(cli_args)
+    cli.start_first_rung(st, cli_args, cli.fit_content(inputs[2], hw), hw,
+                         np.random.RandomState(cli_args.seed))
     st.run_steps(args.warmup, fetch_image=False)
     torch.cuda.synchronize()
 

@@ -1,14 +1,23 @@
-"""Host-side helpers: the trace record and the image fitting the CLI uses.
+"""Host-side helpers: the trace record, the image fitting and resolution
+ladder the CLI uses, the precision ranks, and a scoped TF32 switch.
 
-The same behaviour as style_transfer2_tpu/utils/tracing.py:Trace and
-utils/images.py (reference utils.py:210-223,257-282,307-309), kept here so
-that the port imports nothing of the JAX package.
+The same behaviour as style_transfer2_tpu/utils/tracing.py:Trace,
+utils/images.py (reference utils.py:193-223,257-282,307-309) and
+serve/session.py:PRECISION_RANK, kept here so that the port imports nothing
+of the JAX package.
 """
 
+import contextlib
+import math
 from collections import OrderedDict
 
 import numpy as np
+import torch
 from PIL import Image
+
+# Precision modes ordered by exactness: a polish phase runs only when its
+# precision ranks above the main run's (style_transfer2_tpu/cli.py:447-453).
+PRECISION_RANK = {'bfloat16': 0, 'float32_fast': 1, 'float32': 2}
 
 
 class Trace:
@@ -23,6 +32,41 @@ class Trace:
             name += '_'
         self.data[name] = value
         return value
+
+
+@contextlib.contextmanager
+def tf32(allowed):
+    """Sets the TF32 switches of cuBLAS and cuDNN for the duration of the
+    block and restores them after. torch reads them at each launch, so work
+    enqueued inside the block runs at the block's precision."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = allowed
+    torch.backends.cudnn.allow_tf32 = allowed
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def scales(size, min_size=1, factor=math.sqrt(2)):
+    """(h, w) sizes increasing from about min_size up to size by the given
+    factor: the coarse-to-fine resolution ladder (reference
+    utils.py:193-207)."""
+    size = np.float64(size)
+    min_size = int(min_size)
+    assert min_size >= 1
+
+    sizes = [tuple(int(round(x)) for x in size)]
+    while True:
+        size = size / factor
+        size_int = tuple(int(round(x)) for x in size)
+        if max(size_int) < min_size or min(size_int) < 1:
+            break
+        sizes.append(size_int)
+    sizes.reverse()
+    return sizes
 
 
 def fit_into_square(current_size, size, scale_up=False):

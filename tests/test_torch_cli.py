@@ -55,6 +55,9 @@ def test_port_imports_no_jax(tmp_path):
         'import style_transfer2_tpu_torch.cli as cli\n'
         'import style_transfer2_tpu_torch.engine, '
         'style_transfer2_tpu_torch.ops, style_transfer2_tpu_torch.optim\n'
+        'import style_transfer2_tpu_torch.engine.checkpoint, '
+        'style_transfer2_tpu_torch.ops.resample, '
+        'style_transfer2_tpu_torch.ops.image\n'
         'cli.main(sys.argv[1:])\n'
         'print(json.dumps(sorted(m for m in sys.modules\n'
         '    if m.split(".")[0] in\n'

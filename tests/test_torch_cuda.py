@@ -11,8 +11,13 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from style_transfer2_tpu_torch.engine import apply_precision
-from style_transfer2_tpu_torch.ops import conv, style
+from style_transfer2_tpu_torch.ops import conv, image, style
+from style_transfer2_tpu_torch.ops.resample import resize_nhwc
+from style_transfer2_tpu_torch.utils import tf32
+
+# The 1024px ladder's rungs (utils.scales((768, 1024), min_size=96)).
+LADDER_1024 = [(96, 128), (136, 181), (192, 256), (272, 362), (384, 512),
+               (543, 724), (768, 1024)]
 
 
 def _conv_case(seed, shape, cout):
@@ -28,8 +33,8 @@ def _conv_case(seed, shape, cout):
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU (CUDA is not available here)')
-    apply_precision('float32')
-    return torch.device('cuda')
+    with tf32(False):           # the plain versions in full float32
+        yield torch.device('cuda')
 
 
 @pytest.mark.cuda
@@ -99,3 +104,58 @@ def test_style_kernel_matches_plain_on_card(cuda, shape):
     torch.testing.assert_close(gd, gd_ref, rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(s, s_ref, rtol=1e-4,
                                atol=1e-4 * float(s_ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [np.uint8, np.float32])
+@pytest.mark.parametrize('hw', LADDER_1024 + [(37, 41), (1, 1)])
+def test_image_kernels_equal_plain_bitwise(cuda, hw, dtype):
+    rng = np.random.RandomState(hw[0])
+    img = (rng.randint(0, 256, hw + (3,)).astype(np.uint8)
+           if dtype == np.uint8
+           else np.float32(rng.uniform(-20, 275, hw + (3,))))
+    before = (image.preprocess_launches, image.deprocess_launches)
+    x = image.preprocess(img, cuda)
+    assert x.is_cuda and x.shape == (1,) + hw + (3,)
+    assert x.dtype == torch.float32
+    torch.testing.assert_close(x, image.preprocess_plain(img, cuda),
+                               rtol=0, atol=0)
+    y = image.deprocess_on_device(x)
+    assert y.is_cuda and y.data_ptr() != x.data_ptr()
+    torch.testing.assert_close(y, image.deprocess_plain(x), rtol=0, atol=0)
+    assert (image.preprocess_launches, image.deprocess_launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_image_wrappers_never_take_the_plain_path_on_cuda(cuda, monkeypatch):
+    def refuse(*args):
+        raise AssertionError('plain version called for a CUDA tensor')
+
+    monkeypatch.setattr(image, 'preprocess_plain', refuse)
+    monkeypatch.setattr(image, 'deprocess_plain', refuse)
+    before = (image.preprocess_launches, image.deprocess_launches)
+    img = np.random.RandomState(0).randint(0, 256, (9, 11, 3)).astype(
+        np.uint8)
+    out = image.deprocess(image.preprocess(img, cuda))
+    np.testing.assert_allclose(out, img, atol=1e-4)
+    assert (image.preprocess_launches, image.deprocess_launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('method', ['lanczos3', 'bilinear'])
+@pytest.mark.parametrize('src,dst', [((543, 724), (768, 1024)),
+                                     ((17, 23), (24, 33)),
+                                     ((136, 181), (96, 128))])
+def test_resize_on_card_keeps_tf32_off(cuda, src, dst, method):
+    """float32_fast turns TF32 on around an engine's work; resize_nhwc must
+    still contract in full float32, as jax.image.resize does at
+    Precision.HIGHEST. A TF32 contraction misses by ~0.1 on this scale."""
+    x = np.float32(np.random.RandomState(1).uniform(0, 255,
+                                                    (1,) + src + (3,)))
+    want = resize_nhwc(torch.from_numpy(x), dst, method)
+    with tf32(True):
+        got = resize_nhwc(torch.from_numpy(x).to(cuda), dst, method)
+    assert got.is_cuda
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-3)

@@ -1,4 +1,5 @@
-"""The kernel modules of the port (ops/conv.py, ops/style.py, _build.py).
+"""The kernel modules of the port (ops/conv.py, ops/style.py, _build.py;
+ops/image.py is in test_torch_image.py).
 
 On the CPU: each wrapper's plain version against the JAX package's Pallas
 kernel in interpret mode, at the shapes of tests/test_pallas_conv.py and
@@ -118,7 +119,8 @@ def test_build_dir_is_keyed_by_sources():
     d = _build.build_dir()
     assert d == _build.build_dir()
     assert d.parent == _build.BUILD_ROOT and len(d.name) == 16
-    assert {p.name for p in _build._sources()} == {'conv3x3.cu', 'style.cu'}
+    assert {p.name for p in _build._sources()} == {'conv3x3.cu', 'image.cu',
+                                                  'style.cu'}
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

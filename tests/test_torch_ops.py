@@ -148,11 +148,15 @@ def test_lbfgs_bf16_history_takes_sy_from_stored_pair(rng):
 
 
 def test_lbfgs_resample_needs_new_x():
+    """resample takes new_x as the iterate, or resizes the old one to hw;
+    either way the history restarts empty in the old history's dtype."""
     state = lbfgs.init(torch.zeros(SHAPE), 2)
     new = lbfgs.resample(state, None, new_x=torch.ones(1, 3, 4, 3))
     assert new['sk'].shape == (2, 1, 3, 4, 3) and int(new['count']) == 0
-    with pytest.raises(NotImplementedError):
-        lbfgs.resample(state, (3, 4))
+    resized = lbfgs.resample(state, (3, 4))
+    assert resized['x'].shape == (1, 3, 4, 3)
+    assert resized['sk'].shape == (2, 1, 3, 4, 3)
+    assert int(resized['count']) == 0 and resized['sk'].dtype == torch.float32
 
 
 def test_adam_matches_jax(rng):
@@ -176,5 +180,8 @@ def test_adam_matches_jax(rng):
                                        atol=1e-6, err_msg=key)
         for key in ('g1_items', 'g2_items', 't'):
             assert state[key] == int(jstate[key]), key
-    with pytest.raises(NotImplementedError):
-        adam.resample(state, None, new_x=torch.zeros(1, 3, 3, 3))
+    # A new_x of another size takes the moments with it.
+    moved = adam.resample(state, None, new_x=torch.zeros(1, 3, 3, 3))
+    assert moved['g1_mean'].shape == moved['g2_mean'].shape == (1, 3, 3, 3)
+    assert float(moved['g2_mean'].min()) >= 0.0
+    assert moved['g2_items'] == state['g2_items']
