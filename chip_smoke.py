@@ -18,9 +18,17 @@ exits non-zero:
                the conv kernels at the 512px main-path shapes and at the
                iterate shapes of the 1024px ladder's top rung and of its
                odd 543x724 rung, float32 and bfloat16, within stated
-               tolerances; the style branch at the 512px taps; the image
-               kernels (preprocess from uint8 and float32, deprocess) at
-               every rung of the 1024px ladder, bit for bit.
+               tolerances, the backward's path (narrow, split, tile) of
+               each shape recorded; the style branch at the taps of the
+               512px, 543x724 and 768x1024 iterates; the image kernels
+               (preprocess from uint8 and float32, deprocess) at every
+               rung of the 1024px ladder, bit for bit. The conv backward
+               and the style branch must give the same bits on a second
+               call. Each row prints its time beside the plain version's
+               (and their ratio), the least time the card could take (the
+               bound) and the share of it reached, and, where one PyTorch
+               call computes the same function, that call's time (cuDNN
+               for the convs, one elementwise op for the image kernels).
   4. main    — the CLI's main() at --size 512 --optimizer lbfgs from the two
                example images, one step per dispatch (comparable with the
                first slice's runs), once in float32 and once in bfloat16:
@@ -121,8 +129,51 @@ STYLE_CONVS = [
     (410, 512, 3, 64), (410, 512, 64, 64), (205, 256, 64, 128),
     (205, 256, 128, 128), (103, 128, 128, 256), (103, 128, 256, 256),
     (52, 64, 256, 512), (52, 64, 512, 512), (26, 32, 512, 512)]
-# (H, W, C) of the four style taps of the iterate: conv1_1 .. conv4_1.
-STYLE_TAPS = [(384, 512, 64), (192, 256, 128), (96, 128, 256), (48, 64, 512)]
+
+
+def style_taps(h, w):
+    """(H, W, C) of the four style taps of an h x w iterate: conv1_1 ..
+    conv4_1 (ceil pools)."""
+    taps = []
+    for c in (64, 128, 256, 512):
+        taps.append((h, w, c))
+        h, w = -(-h // 2), -(-w // 2)
+    return taps
+
+
+# The style taps of the 512px iterate, and of the 1024px ladder's odd
+# 543x724 rung and its 768x1024 top.
+STYLE_TAPS = {'512': style_taps(384, 512), '543x724': style_taps(543, 724),
+              '1024': style_taps(768, 1024)}
+
+# The least time the card could take: the larger of the operations over the peak rate of their type and the
+# bytes over the memory rate, each input read once and each output written
+# once. NVIDIA's H100 SXM data sheet: FP32 67 TFLOP/s outside the tensor
+# cores, bf16 dense 989 TFLOP/s, HBM3 3.35 TB/s.
+PEAK_FLOPS = {'float32': 67e12, 'bfloat16': 989e12}
+HBM_BYTES_S = 3.35e12
+ITEMSIZE = {'float32': 4, 'bfloat16': 2}
+
+
+def bound(flops, nbytes, dtype_name='float32'):
+    """(bound ms, 'operations' or 'bytes')."""
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_mem = nbytes / HBM_BYTES_S * 1e3
+    return (t_ops, 'operations') if t_ops >= t_mem else (t_mem, 'bytes')
+
+
+def conv_bounds(shape, dtype_name):
+    """Bounds (ms, kind) of the forward and the masked backward at (H, W,
+    Cin, Cout): 2*9*H*W*Cin*Cout operations each; the forward moves x, w,
+    b and y, the backward g, y, w and dx."""
+    h, w, cin, cout = shape
+    flops = 2 * 9 * h * w * cin * cout
+    size = ITEMSIZE[dtype_name]
+    fwd = bound(flops, size * (h * w * (cin + cout) + 9 * cin * cout + cout),
+                dtype_name)
+    bwd = bound(flops, size * (h * w * (2 * cout + cin) + 9 * cin * cout),
+                dtype_name)
+    return fwd, bwd
 
 
 def say(phase, msg):
@@ -244,9 +295,11 @@ def check_conv(torch, rng, shape, dtype_name, where):
     xr = x.detach().requires_grad_(True)
     x32 = x.float().requires_grad_(True)
     w32, b32, g32 = wt.float(), b.float(), g.float()
-    y_k = conv.conv3x3_bias_relu(x, wt, b)
+    w_bwd = conv.backward_weights(wt)
+    y_k = conv.conv3x3_bias_relu(x, wt, b, w_bwd)
     y_r = conv.conv3x3_bias_relu_plain(x32, w32, b32)
-    dx_k = torch.autograd.grad(conv.conv3x3_bias_relu(xr, wt, b), xr, g)[0]
+    dx_k = torch.autograd.grad(conv.conv3x3_bias_relu(xr, wt, b, w_bwd), xr,
+                               g)[0]
     pre_r = F.conv2d(x32.permute(0, 3, 1, 2), w32.permute(3, 2, 0, 1), b32,
                      padding=1).permute(0, 2, 3, 1)
     dx_r = torch.autograd.grad(pre_r, x32, g32 * (y_k > 0).float())[0]
@@ -269,27 +322,60 @@ def check_conv(torch, rng, shape, dtype_name, where):
     del x32, w32, b32, g32, y_r, pre_r, dx_k, dx_r
 
     y = y_k.detach()
+    # Determinism: the backward's split sums run in a fixed order, so two
+    # calls on the same inputs give the same bits.
+    require(torch.equal(conv._launch_bwd(g, y, w_bwd),
+                        conv._launch_bwd(g, y, w_bwd)),
+            'conv bwd %s %s: two calls differ' % (dtype_name, shape))
+    path, splits, _ = conv.bwd_plan(1, h, w, cout, cin, dtype,
+                                    torch.cuda.get_device_properties(
+                                        dev).multi_processor_count)
     fwd_k = median_ms(lambda: conv._launch_fwd(x, wt, b), torch)
     fwd_p = median_ms(lambda: conv.conv3x3_bias_relu_plain(x, wt, b), torch)
-    bwd_k = median_ms(lambda: conv._launch_bwd(g, y, wt), torch)
+    bwd_k = median_ms(lambda: conv._launch_bwd(g, y, w_bwd), torch)
+    # Where the narrow kernel is planned, the tile kernel it replaces, on
+    # the same inputs in the same run.
+    bwd_tile = None
+    if path == conv.NARROW:
+        bwd_tile = median_ms(lambda: conv._launch_bwd(
+            g, y, w_bwd, (conv.TILE, 1, cout)), torch)
     bwd_p = median_ms(lambda: torch.autograd.grad(
         conv.conv3x3_bias_relu_plain(xr, wt, b), xr, g), torch)
     # The plain backward's time includes its forward (autograd needs it);
     # report its backward alone.
     bwd_p = max(bwd_p - fwd_p, 0.0)
+    # One library call each (cuDNN), a yardstick the port never calls: the
+    # conv with its bias (no ReLU), and its input gradient of the masked
+    # cotangent (the mask not included).
+    x_c, w_c = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
+    g_c = (g * (y > 0).to(dtype)).permute(0, 3, 1, 2)
+    fwd_l = median_ms(lambda: F.conv2d(x_c, w_c, b, padding=1), torch)
+    bwd_l = median_ms(lambda: torch.nn.grad.conv2d_input(
+        x_c.shape, w_c, g_c, padding=1), torch)
+    (fwd_b, fwd_by), (bwd_b, bwd_by) = conv_bounds(shape, dtype_name)
     gflop = 2 * 9 * h * w * cin * cout / 1e9
-    say('kernels', 'conv %-8s %-8s %-21s fwd %.3f ms (plain %.3f, %.1f '
-        'TFLOP/s) bwd %.3f ms (plain %.3f) err %.2g/%.2g%s' % (
-            dtype_name, where, shape, fwd_k, fwd_p, gflop / fwd_k, bwd_k,
-            bwd_p, fr, br, plain_note))
+    say('kernels', 'conv %-8s %-8s %-21s fwd %.3f ms (plain %.3f, x%.2f; '
+        'cuDNN %.3f; %.1f TFLOP/s, %.0f%% of bound %.3f) bwd %s%s %.3f ms '
+        '(plain %.3f, x%.2f; cuDNN dgrad %.3f; %.0f%% of bound %.3f%s) err '
+        '%.2g/%.2g%s; bwd bitwise repeatable' % (
+            dtype_name, where, shape, fwd_k, fwd_p, fwd_k / fwd_p, fwd_l,
+            gflop / fwd_k, 100 * fwd_b / fwd_k, fwd_b, path,
+            '/%d' % splits if splits > 1 else '', bwd_k, bwd_p,
+            bwd_k / max(bwd_p, 1e-9), bwd_l, 100 * bwd_b / bwd_k, bwd_b,
+            '' if bwd_tile is None else '; tile kernel %.3f' % bwd_tile,
+            fr, br, plain_note))
     return {'kernel': 'conv3x3', 'dtype': dtype_name, 'where': where,
             'shape': list(shape), 'fwd_ms': fwd_k, 'fwd_plain_ms': fwd_p,
-            'bwd_ms': bwd_k, 'bwd_plain_ms': bwd_p,
+            'fwd_library_ms': fwd_l, 'fwd_bound_ms': fwd_b,
+            'fwd_bound_by': fwd_by, 'bwd_bound_by': bwd_by,
+            'bwd_ms': bwd_k, 'bwd_plain_ms': bwd_p, 'bwd_library_ms': bwd_l,
+            'bwd_bound_ms': bwd_b, 'bwd_path': path, 'bwd_splits': splits,
+            'bwd_tile_ms': bwd_tile,
             'fwd_tflops': gflop / fwd_k, 'fwd_rel_err': fr,
             'bwd_rel_err': br, 'fwd_abs_err': fe, 'bwd_abs_err': be}
 
 
-def check_style(torch, rng, tap):
+def check_style(torch, rng, tap, where):
     from style_transfer2_tpu_torch.ops import style
     h, w, c = tap
     dev = torch.device('cuda')
@@ -301,7 +387,10 @@ def check_style(torch, rng, tap):
     gram_style = flat.T @ flat / flat.numel()
     s_k, gd_k = style.fused_style_branch(feat, gram_style)
     s_p, gd_p = style.fused_style_branch_plain(feat, gram_style)
+    s_2, gd_2 = style.fused_style_branch(feat, gram_style)
     torch.cuda.synchronize()
+    require(torch.equal(s_k, s_2) and torch.equal(gd_k, gd_2),
+            'style %s: two calls differ' % (tap,))
     # s_grad is ~1e-9 in magnitude: its error is relative to its own max;
     # gram_diff's to the larger of its and the target's max.
     se = float((s_k - s_p).abs().max())
@@ -315,20 +404,30 @@ def check_style(torch, rng, tap):
     t_k = median_ms(lambda: style._launch(feat, gram_style), torch)
     t_p = median_ms(
         lambda: style.fused_style_branch_plain(feat, gram_style), torch)
-    say('kernels', 'style float32 %-16s %.3f ms (plain %.3f) err %.2g/%.2g'
-        % (tap, t_k, t_p, sr, gr))
+    # Operations: M*C*(C+1) for the Gram (symmetric: the upper triangle
+    # with its diagonal) and 2*M*C^2 for the gradient product; bytes: X and
+    # G_style read, and G_diff and s_grad written, once.
+    m = h * w
+    t_b, t_by = bound(m * c * (c + 1) + 2 * m * c * c,
+                      4 * (2 * m * c + 2 * c * c))
+    say('kernels', 'style float32 %-8s %-16s %.3f ms (plain, two cuBLAS '
+        'matmuls, %.3f; x%.2f; %.0f%% of bound %.3f) err %.2g/%.2g; '
+        'bitwise repeatable' % (where, tap, t_k, t_p, t_k / t_p,
+                                100 * t_b / t_k, t_b, sr, gr))
     return {'kernel': 'fused_style_branch', 'dtype': 'float32',
-            'shape': list(tap), 'ms': t_k, 'plain_ms': t_p,
-            's_grad_rel_err': sr, 'gram_diff_rel_err': gr,
+            'where': where, 'shape': list(tap), 'ms': t_k, 'plain_ms': t_p,
+            'bound_ms': t_b, 'bound_by': t_by, 's_grad_rel_err': sr, 'gram_diff_rel_err': gr,
             'abs_err': max(se, ge)}
 
 
 def check_image(torch, rng, hw):
     """Preprocess from uint8 and from float32 and deprocess at one rung,
     bit for bit against the plain versions. Times: the kernel alone on a
-    device tensor against the plain version's device op, and preprocess
-    end to end from the host array (the kernel's input crosses in its own
-    dtype, the plain version's as float32)."""
+    device tensor against the plain version's device op and against one
+    PyTorch call of the same function on the same device tensor (the
+    subtract with its dtype promotion; the add), and preprocess end to end
+    from the host array (the kernel's input crosses in its own dtype, the
+    plain version's as float32)."""
     from style_transfer2_tpu_torch.ops import image
     dev = torch.device('cuda')
     mean = torch.as_tensor(image.MEAN_RGB, device=dev)
@@ -356,28 +455,54 @@ def check_image(torch, rng, hw):
         e2e_p = median_ms(lambda: image.preprocess_plain(img, dev), torch)
         de_k = median_ms(lambda: image._launch_deprocess(x_k), torch)
         de_p = median_ms(lambda: image.deprocess_plain(x_k), torch)
-        say('kernels', 'image %-7s %-12s preprocess %.4f ms (plain %.4f), '
-            'from host %.3f ms (plain %.3f); deprocess %.4f ms (plain '
-            '%.4f); bitwise equal' % (dtype_name, hw, pre_k, pre_p, e2e_k,
-                                      e2e_p, de_k, de_p))
+        pre_l = median_ms(lambda: torch.sub(src, mean), torch)
+        de_l = median_ms(lambda: torch.add(x_k[0], mean), torch)
+        # Bytes: the image in its own dtype and 12 bytes a pixel out
+        # (preprocess); 12 in and 12 out (deprocess).
+        px = hw[0] * hw[1]
+        pre_b = bound(0, px * (3 * src.element_size() + 12))[0]
+        de_b = bound(0, px * 24)[0]
+        say('kernels', 'image %-7s %-12s preprocess %.4f ms (plain %.4f, '
+            'x%.2f; torch.sub %.4f; %.0f%% of bound %.4f), from host %.3f '
+            'ms (plain %.3f); deprocess %.4f ms (plain %.4f, x%.2f; '
+            'torch.add %.4f; %.0f%% of bound %.4f); bitwise equal' % (
+                dtype_name, hw, pre_k, pre_p, pre_k / pre_p, pre_l,
+                100 * pre_b / pre_k, pre_b, e2e_k, e2e_p, de_k, de_p,
+                de_k / de_p, de_l, 100 * de_b / de_k, de_b))
         rows.append({'kernel': 'image', 'dtype': dtype_name,
                      'shape': list(hw), 'preprocess_ms': pre_k,
                      'preprocess_plain_ms': pre_p,
                      'preprocess_from_host_ms': e2e_k,
                      'preprocess_from_host_plain_ms': e2e_p,
                      'deprocess_ms': de_k, 'deprocess_plain_ms': de_p,
+                     'preprocess_library_ms': pre_l,
+                     'deprocess_library_ms': de_l,
+                     'preprocess_bound_ms': pre_b,
+                     'deprocess_bound_ms': de_b,
+                     'preprocess_bound_by': 'bytes',
+                     'deprocess_bound_by': 'bytes',
                      'preprocess_abs_err': pre_err,
                      'deprocess_abs_err': de_err})
     return rows
+
+
+def add_bound(entry, kind, ms):
+    """Adds a shape's bound to a summed entry's share by kind: the sum's
+    bound_by is the kind that holds the larger share."""
+    entry['by'][kind] = entry['by'].get(kind, 0.0) + ms
 
 
 def phase_kernels(torch):
     rng = np.random.RandomState(0)
     rows = []
     worst = dict.fromkeys(KERNELS, 0.0)
-    # float32 [kernel, plain] ms: the convs and the style branch summed
-    # over one 512px step's shapes, the image kernels over the 7 rungs.
-    step_ms = {k: [0.0, 0.0] for k in KERNELS}
+    # float32 ms of each kernel, its plain version, its bound and its
+    # library call (None for the style branch, which no one call computes):
+    # the convs and the style branch summed over one 512px step's shapes,
+    # the image kernels over the 7 rungs of the 1024px ladder.
+    step = {k: {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
+                'library_ms': 0.0, 'by': {}} for k in KERNELS}
+    step['fused_style_branch']['library_ms'] = None
     sums_1024 = {}                 # dtype -> [fwd, plain, bwd, plain]
 
     for dtype_name in ('float32', 'bfloat16'):
@@ -396,27 +521,41 @@ def phase_kernels(torch):
                 worst['conv3x3_bias_relu_fwd'], row['fwd_abs_err'])
             worst['conv3x3_bias_relu_bwd'] = max(
                 worst['conv3x3_bias_relu_bwd'], row['bwd_abs_err'])
-            times = [row['fwd_ms'], row['fwd_plain_ms'], row['bwd_ms'],
-                     row['bwd_plain_ms']]
             if dtype_name == 'float32' and where == '512':
-                for i, name in enumerate(('conv3x3_bias_relu_fwd',) * 2
-                                         + ('conv3x3_bias_relu_bwd',) * 2):
-                    step_ms[name][i % 2] += times[i]
+                for name, pre in (('conv3x3_bias_relu_fwd', 'fwd_'),
+                                  ('conv3x3_bias_relu_bwd', 'bwd_')):
+                    for field in ('ms', 'plain_ms', 'bound_ms',
+                                  'library_ms'):
+                        step[name][field] += row[pre + field]
+                    add_bound(step[name], row[pre + 'bound_by'],
+                              row[pre + 'bound_ms'])
             if where == '1024':
                 sums = sums_1024.setdefault(dtype_name, [0.0] * 4)
-                for i in range(4):
-                    sums[i] += times[i]
+                for i, field in enumerate(('fwd_ms', 'fwd_plain_ms',
+                                           'bwd_ms', 'bwd_plain_ms')):
+                    sums[i] += row[field]
         say('kernels', 'conv %s summed over one 1024px (768x1024) step\'s '
             'shapes: fwd %.3f ms (plain %.3f), bwd %.3f ms (plain %.3f)'
             % ((dtype_name,) + tuple(sums_1024[dtype_name])))
 
-    for tap in STYLE_TAPS:
-        row = check_style(torch, rng, tap)
-        rows.append(row)
-        worst['fused_style_branch'] = max(worst['fused_style_branch'],
-                                          row['abs_err'])
-        step_ms['fused_style_branch'][0] += row['ms']
-        step_ms['fused_style_branch'][1] += row['plain_ms']
+    for where, taps in STYLE_TAPS.items():
+        total = [0.0, 0.0, 0.0]
+        for tap in taps:
+            row = check_style(torch, rng, tap, where)
+            rows.append(row)
+            worst['fused_style_branch'] = max(worst['fused_style_branch'],
+                                              row['abs_err'])
+            for i, field in enumerate(('ms', 'plain_ms', 'bound_ms')):
+                total[i] += row[field]
+                if where == '512':
+                    step['fused_style_branch'][field] += row[field]
+            if where == '512':
+                add_bound(step['fused_style_branch'], row['bound_by'],
+                          row['bound_ms'])
+        say('kernels', 'style float32 summed over the %s taps: %.3f ms '
+            '(plain %.3f, x%.2f; %.0f%% of bound %.3f)' % (
+                where, total[0], total[1], total[0] / total[1],
+                100 * total[2] / total[0], total[2]))
 
     for hw in LADDER_1024:
         for row in check_image(torch, rng, hw):
@@ -426,14 +565,16 @@ def phase_kernels(torch):
             worst['deprocess'] = max(worst['deprocess'],
                                      row['deprocess_abs_err'])
             if row['dtype'] == 'uint8':
-                step_ms['preprocess'][0] += row['preprocess_ms']
-                step_ms['preprocess'][1] += row['preprocess_plain_ms']
-                step_ms['deprocess'][0] += row['deprocess_ms']
-                step_ms['deprocess'][1] += row['deprocess_plain_ms']
+                for name in ('preprocess', 'deprocess'):
+                    for field in ('ms', 'plain_ms', 'bound_ms',
+                                  'library_ms'):
+                        step[name][field] += row[name + '_' + field]
+                    add_bound(step[name], row[name + '_bound_by'],
+                              row[name + '_bound_ms'])
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / 'kernels.json').write_text(json.dumps(rows, indent=1))
-    return worst, step_ms
+    return worst, step
 
 
 def read_trace(path):
@@ -689,7 +830,7 @@ def main():
     phase_build()
     from style_transfer2_tpu_torch.utils import tf32
     with tf32(False):              # TF32 off for the plain versions
-        worst, step_ms = phase_kernels(torch)
+        worst, step = phase_kernels(torch)
     log = CliLog()
     logging.getLogger('cli').addHandler(log)
     launches, rates = phase_main(torch)
@@ -699,11 +840,17 @@ def main():
 
     kernels = [{'name': name, 'route': 'cuda', 'source': SOURCES[name][0],
                 'replaces': SOURCES[name][1], 'launches': launches[name],
-                'max_abs_err': worst[name], 'ms': step_ms[name][0],
-                'plain_ms': step_ms[name][1]} for name in KERNELS]
-    say('summary', 'ms / plain_ms, float32: the convs and the style branch '
-        'summed over one 512px step\'s shapes, the image kernels (uint8 '
-        'preprocess, deprocess) over the 7 rungs of the 1024px ladder; '
+                'max_abs_err': worst[name], 'ms': step[name]['ms'],
+                'plain_ms': step[name]['plain_ms'],
+                'bound_ms': step[name]['bound_ms'],
+                'bound_by': max(step[name]['by'],
+                                key=step[name]['by'].get),
+                'library_ms': step[name]['library_ms']} for name in KERNELS]
+    say('summary', 'ms / plain_ms / bound_ms / library_ms, float32: the '
+        'convs and the style branch summed over one 512px step\'s shapes '
+        '(library: cuDNN conv, cuDNN dgrad), the image kernels (uint8 '
+        'preprocess, deprocess) over the 7 rungs of the 1024px ladder '
+        '(library: torch.sub, torch.add); '
         'launches over the main and ladder runs; 512px it/s float32 %.3f, '
         'bfloat16 %.3f' % (rates['float32'], rates['bfloat16']))
     print(json.dumps({'kernels': kernels}), flush=True)

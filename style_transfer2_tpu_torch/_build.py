@@ -39,8 +39,10 @@ _L = ctypes.c_longlong
 # Entry point -> argument types (every entry returns a cudaError_t as int).
 _SIGNATURES = {
     'st2_conv3x3_fwd': [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    'st2_conv3x3_bwd': [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    'st2_style_branch': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    'st2_conv3x3_bwd': [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _P],
+    'st2_style_branch': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                         _P],
     'st2_preprocess': [_I, _P, _P, _L, _F, _F, _F, _P],
     'st2_deprocess': [_P, _P, _L, _F, _F, _F, _P],
 }

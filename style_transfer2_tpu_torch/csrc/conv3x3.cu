@@ -32,9 +32,28 @@
 //             from the staged halo tile with ldmatrix, so im2col never
 //             exists. Bound by the unpipelined staging and the ldmatrix
 //             traffic; wgmma with a TMA-fed ring is later work.
+//
+// The backward takes one of three paths, chosen by shape
+// (ops/conv.py:bwd_plan), because the forward's tile loses to cuDNN at two
+// kinds of backward shape:
+//   narrow: dx with Cout <= 8 (conv1_1: 3 channels), float32 or bfloat16.
+//           A 64-channel tile would spend 61 of every 64 FMAs on zero
+//           weights; this kernel gives each thread 2 pixels x all Cout
+//           outputs and is bound by memory (g and y, read once).
+//   split:  float32 deep layers whose (pixel tile x 64 channels) grid ends in a
+//           wave that leaves much of the card idle (the tile kernel holds
+//           one block per SM). The cotangent channels are split across
+//           blocks into partial outputs, summed in split order by a
+//           second small pass (no atomics: two calls give the same bits).
+//   tile:   everything else.
+// The split and tile paths stage g and y 16 bytes at a time, mask in
+// registers and read the next channel slice into registers while the
+// current one is multiplied (the forward staged one element at a time,
+// with nothing in flight while it computed).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 
@@ -47,18 +66,14 @@ constexpr int THREADS = 256;
 
 // ---------------------------------------------------------------- float32
 
-constexpr int KC = 8;     // input channels staged per pass (FMA kernel)
+constexpr int KC = 8;     // input channels staged per pass (FMA kernels)
 
-// x: (N, H, W, Cin) input (BWD: the cotangent g); y: BWD only, the forward
-// output (N, H, W, Cin) whose sign masks g on load; w: (3, 3, Cin, Cout);
-// b: (Cout,) forward only; out: (N, H, W, Cout).
-// Grid: (ceil(H/TH) * ceil(W/TW), ceil(Cout/TC), N).
-template <bool BWD>
+// Forward. x: (N, H, W, Cin); w: (3, 3, Cin, Cout); b: (Cout,);
+// out: (N, H, W, Cout). Grid: (ceil(H/TH) * ceil(W/TW), ceil(Cout/TC), N).
 __global__ void __launch_bounds__(THREADS)
-conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                   const float* __restrict__ w, const float* __restrict__ b,
-                   float* __restrict__ out, int H, int W, int Cin,
-                   int Cout) {
+conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ b, float* __restrict__ out,
+                   int H, int W, int Cin, int Cout) {
   __shared__ float s_in[KC][TH + 2][TW + 2];
   __shared__ __align__(16) float s_w[9][KC][TC];
 
@@ -91,11 +106,8 @@ conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ y,
       const int gw = w0 + c - 1;
       const int gk = k0 + k;
       float v = 0.f;
-      if (gh >= 0 && gh < H && gw >= 0 && gw < W && gk < Cin) {
-        const size_t idx = (img + (size_t)gh * W + gw) * Cin + gk;
-        v = x[idx];
-        if (BWD && !(y[idx] > 0.f)) v = 0.f;
-      }
+      if (gh >= 0 && gh < H && gw >= 0 && gw < W && gk < Cin)
+        v = x[(img + (size_t)gh * W + gw) * Cin + gk];
       s_in[k][r][c] = v;
     }
     // Weight slice (9, KC, TC); consecutive threads take consecutive
@@ -143,15 +155,349 @@ conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ y,
   for (int j = 0; j < 4; ++j) {
     const int co = co0 + cg * 4 + j;
     if (co >= Cout) continue;
-    const float bias = BWD ? 0.f : b[co];
+    const float bias = b[co];
 #pragma unroll
     for (int p = 0; p < 8; ++p) {
       const int gw = w0 + pc + p;
       if (gw >= W) continue;
-      float v = acc[p][j] + bias;
-      if (!BWD) v = fmaxf(v, 0.f);
-      out[(img + (size_t)gh * W + gw) * Cout + co] = v;
+      out[(img + (size_t)gh * W + gw) * Cout + co] =
+          fmaxf(acc[p][j] + bias, 0.f);
     }
+  }
+}
+
+// g * [y > 0], four channels at a time.
+__device__ __forceinline__ float4 relu_mask4(float4 g, float4 y) {
+  return make_float4(y.x > 0.f ? g.x : 0.f, y.y > 0.f ? g.y : 0.f,
+                     y.z > 0.f ? g.z : 0.f, y.w > 0.f ? g.w : 0.f);
+}
+
+// Masked backward, the tile path. g, y: (N, H, W, K) cotangent and forward
+// output; wt: (3, 3, K, Cout) the flipped, transposed forward weights;
+// out: (S, N, H, W, Cout). Split s of S sums the cotangent channels
+// [s * kspan, min(K, (s + 1) * kspan)) into out[s] (kspan a multiple of
+// KC), so a grid that would not fill the card gets S times the blocks;
+// with S = 1, out is dx. Grid: (ceil(H/TH) * ceil(W/TW), ceil(Cout/TC),
+// N * S). The same 8-pixel x 4-channel register tile as the forward. The
+// next channel slice of g, y and wt is read into registers while the
+// current one is multiplied, and the ReLU mask is applied in registers on
+// its way to shared memory. VEC (K a multiple of 4): g and y are read 16
+// bytes at a time; otherwise one element at a time.
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+conv3x3_f32_bwd_kernel(const float* __restrict__ g,
+                       const float* __restrict__ y,
+                       const float* __restrict__ wt, float* __restrict__ out,
+                       int N, int H, int W, int K, int Cout, int kspan) {
+  constexpr int PIX = (TH + 2) * (TW + 2);
+  // Input items per thread and slice: float4 of 4 channels (VEC) or
+  // single channels, and single weights.
+  constexpr int IN_ITEMS = VEC ? (PIX * KC / 4 + THREADS - 1) / THREADS
+                               : (PIX * KC + THREADS - 1) / THREADS;
+  constexpr int W_ITEMS = 9 * KC * TC / THREADS;
+  static_assert(W_ITEMS * THREADS == 9 * KC * TC, "weights split evenly");
+  __shared__ float s_in[KC][TH + 2][TW + 2];
+  __shared__ __align__(16) float s_w[9][KC][TC];
+
+  const int tiles_w = (W + TW - 1) / TW;
+  const int h0 = (blockIdx.x / tiles_w) * TH;
+  const int w0 = (blockIdx.x % tiles_w) * TW;
+  const int co0 = blockIdx.y * TC;
+  const int n = blockIdx.z % N;
+  const int split = blockIdx.z / N;
+  const int kbeg = split * kspan;
+  const int kend = min(K, kbeg + kspan);
+  const size_t img = (size_t)n * H * W;
+  const int tid = threadIdx.x;
+  const int cg = tid % 16;
+  const int pg = tid / 16;
+  const int pr = pg >> 1;
+  const int pc = (pg & 1) * 8;
+
+  float4 rg[IN_ITEMS], ry[IN_ITEMS];
+  float rw[W_ITEMS];
+
+  // Global -> registers for the slice at k0. Item i of the input tile is
+  // (pixel, channel group) with the group fastest, as the channels of a
+  // pixel are contiguous in memory; out-of-image pixels and channels past
+  // K read as zeros.
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int it = 0; it < IN_ITEMS; ++it) {
+      const int i = tid + it * THREADS;
+      constexpr int GROUPS = VEC ? KC / 4 : KC;
+      const int q = i % GROUPS;
+      const int pix = i / GROUPS;
+      const int gh = h0 + pix / (TW + 2) - 1;
+      const int gw = w0 + pix % (TW + 2) - 1;
+      const int gk = k0 + (VEC ? 4 * q : q);
+      float4 gv = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 yv = gv;
+      if (pix < PIX && gh >= 0 && gh < H && gw >= 0 && gw < W && gk < K) {
+        const size_t idx = (img + (size_t)gh * W + gw) * K + gk;
+        if (VEC) {
+          gv = *reinterpret_cast<const float4*>(g + idx);
+          yv = *reinterpret_cast<const float4*>(y + idx);
+        } else {
+          gv.x = g[idx];
+          yv.x = y[idx];
+        }
+      }
+      rg[it] = gv;
+      ry[it] = yv;
+    }
+#pragma unroll
+    for (int it = 0; it < W_ITEMS; ++it) {
+      const int i = tid + it * THREADS;
+      const int co = i % TC;
+      const int k = (i / TC) % KC;
+      const int tap = i / (TC * KC);
+      const int gk = k0 + k;
+      const int gco = co0 + co;
+      rw[it] = (gk < K && gco < Cout)
+                   ? wt[((size_t)tap * K + gk) * Cout + gco] : 0.f;
+    }
+  };
+
+  // Registers -> shared memory, the mask applied on the way.
+  auto stash = [&]() {
+#pragma unroll
+    for (int it = 0; it < IN_ITEMS; ++it) {
+      const int i = tid + it * THREADS;
+      constexpr int GROUPS = VEC ? KC / 4 : KC;
+      const int q = i % GROUPS;
+      const int pix = i / GROUPS;
+      if (pix >= PIX) continue;
+      float* dst = &s_in[0][0][0] + pix;
+      constexpr int PLANE = PIX;
+      if (VEC) {
+        const float4 v = relu_mask4(rg[it], ry[it]);
+        dst[(4 * q) * PLANE] = v.x;
+        dst[(4 * q + 1) * PLANE] = v.y;
+        dst[(4 * q + 2) * PLANE] = v.z;
+        dst[(4 * q + 3) * PLANE] = v.w;
+      } else {
+        dst[q * PLANE] = ry[it].x > 0.f ? rg[it].x : 0.f;
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < W_ITEMS; ++it)
+      (&s_w[0][0][0])[tid + it * THREADS] = rw[it];
+  };
+
+  float acc[8][4];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[p][j] = 0.f;
+
+  if (kbeg < kend) fetch(kbeg);
+  for (int k0 = kbeg; k0 < kend; k0 += KC) {
+    stash();
+    __syncthreads();
+    if (k0 + KC < kend) fetch(k0 + KC);
+
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        float xin[10];
+#pragma unroll
+        for (int j = 0; j < 10; ++j) xin[j] = s_in[k][pr + dy][pc + j];
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const float4 wv =
+              *reinterpret_cast<const float4*>(&s_w[dy * 3 + dx][k][cg * 4]);
+#pragma unroll
+          for (int p = 0; p < 8; ++p) {
+            const float xv = xin[p + dx];
+            acc[p][0] = fmaf(xv, wv.x, acc[p][0]);
+            acc[p][1] = fmaf(xv, wv.y, acc[p][1]);
+            acc[p][2] = fmaf(xv, wv.z, acc[p][2]);
+            acc[p][3] = fmaf(xv, wv.w, acc[p][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const int gh = h0 + pr;
+  if (gh >= H) return;
+  float* dst = out + (size_t)split * N * H * W * Cout;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int co = co0 + cg * 4 + j;
+    if (co >= Cout) continue;
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const int gw = w0 + pc + p;
+      if (gw >= W) continue;
+      dst[(img + (size_t)gh * W + gw) * Cout + co] = acc[p][j];
+    }
+  }
+}
+
+// dx = sum over s of parts[s], in split order. parts: (S, n) floats.
+__global__ void sum_splits_kernel(const float* __restrict__ parts,
+                                  float* __restrict__ dx, long long n,
+                                  int splits) {
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < n; e += (long long)gridDim.x * blockDim.x) {
+    float v = parts[e];
+    for (int s = 1; s < splits; ++s) v += parts[s * n + e];
+    dx[e] = v;
+  }
+}
+
+// Masked backward, the narrow path (float32 and bfloat16): Cout <= 8 (conv1_1's dx: K = 64
+// cotangent channels, Cout = 3), where the tile path would multiply zero
+// weights in 61 of its 64 output channels. The work is 9*K*Cout FMAs per
+// pixel against 8*K bytes of g and y read, so it is bound by memory. Each
+// thread owns NR_RPT pixels of one column by all Cout outputs (padded to
+// 4*CO4); a block of NR_THREADS covers NR_ROWS x NR_COLS pixels and stages
+// the masked g tile with its 1-pixel halo, NR_KC channels at a time, as
+// float4 channel quads, beside that slice's weights. A thread reads each
+// staged quad once per column tap for NR_RPT + 2 rows, so the staged tile
+// is reused across the three row taps. g, y: (N, H, W, K), K a multiple of
+// 4; wt: (3, 3, K, Cout); dx: (N, H, W, Cout); all of element type T,
+// float or bfloat16 (bf16 values widen to float on load, the sums are
+// float, and dx is rounded once on store, as in the bf16 tile kernel).
+// Grid: (ceil(H/NR_ROWS) * ceil(W/NR_COLS), 1, N).
+constexpr int NR_COLS = 32;
+constexpr int NR_RPT = 2;
+constexpr int NR_THREADS = 128;
+constexpr int NR_ROWS = NR_RPT * NR_THREADS / NR_COLS;   // 8
+constexpr int NR_KC = 16;
+constexpr int NR_PIX = (NR_ROWS + 2) * (NR_COLS + 2);
+// Floats per channel-quad plane: NR_PIX quads, padded to 8 mod 32 so that
+// the staging stores of neighbouring lanes (4 quads of 2 pixels) fall in
+// distinct banks.
+constexpr int NR_PLANE = (NR_PIX * 4 + 31) / 32 * 32 + 8;
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);   // 8-byte aligned
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+template <int CO4, typename T>
+__global__ void __launch_bounds__(NR_THREADS)
+conv3x3_bwd_narrow_kernel(const T* __restrict__ g, const T* __restrict__ y,
+                          const T* __restrict__ wt, T* __restrict__ dx,
+                          int H, int W, int K, int Cout) {
+  constexpr int CP = 4 * CO4;
+  __shared__ __align__(16) float s_g[NR_KC / 4][NR_PLANE];
+  __shared__ __align__(16) float s_w[9][NR_KC][CP];
+
+  const int tiles_w = (W + NR_COLS - 1) / NR_COLS;
+  const int h0 = (blockIdx.x / tiles_w) * NR_ROWS;
+  const int w0 = (blockIdx.x % tiles_w) * NR_COLS;
+  const size_t img = (size_t)blockIdx.z * H * W;
+  const int tid = threadIdx.x;
+  const int cx = tid % NR_COLS;
+  const int r0 = (tid / NR_COLS) * NR_RPT;
+
+  float acc[NR_RPT][CP];
+#pragma unroll
+  for (int r = 0; r < NR_RPT; ++r)
+#pragma unroll
+    for (int j = 0; j < CP; ++j) acc[r][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += NR_KC) {
+    // Item i = (pixel, quad), quad fastest: four lanes read one pixel's
+    // 64 contiguous bytes of g (and of y).
+#pragma unroll 4
+    for (int i = tid; i < NR_PIX * (NR_KC / 4); i += NR_THREADS) {
+      const int q = i % (NR_KC / 4);
+      const int pix = i / (NR_KC / 4);
+      const int gh = h0 + pix / (NR_COLS + 2) - 1;
+      const int gw = w0 + pix % (NR_COLS + 2) - 1;
+      const int gk = k0 + 4 * q;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gh >= 0 && gh < H && gw >= 0 && gw < W && gk < K) {
+        const size_t idx = (img + (size_t)gh * W + gw) * K + gk;
+        v = relu_mask4(load4(g + idx), load4(y + idx));
+      }
+      *reinterpret_cast<float4*>(&s_g[q][4 * pix]) = v;
+    }
+    for (int i = tid; i < 9 * NR_KC * CP; i += NR_THREADS) {
+      const int co = i % CP;
+      const int k = (i / CP) % NR_KC;
+      const int tap = i / (CP * NR_KC);
+      const int gk = k0 + k;
+      s_w[tap][k][co] =
+          (gk < K && co < Cout)
+              ? widen(wt[((size_t)tap * K + gk) * Cout + co]) : 0.f;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int q = 0; q < NR_KC / 4; ++q) {
+#pragma unroll
+      for (int dxt = 0; dxt < 3; ++dxt) {
+        float4 v[NR_RPT + 2];
+#pragma unroll
+        for (int r = 0; r < NR_RPT + 2; ++r)
+          v[r] = *reinterpret_cast<const float4*>(
+              &s_g[q][4 * ((r0 + r) * (NR_COLS + 2) + cx + dxt)]);
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            float wv[CP];
+#pragma unroll
+            for (int c4 = 0; c4 < CO4; ++c4) {
+              const float4 w4 = *reinterpret_cast<const float4*>(
+                  &s_w[dy * 3 + dxt][4 * q + kk][4 * c4]);
+              wv[4 * c4] = w4.x;
+              wv[4 * c4 + 1] = w4.y;
+              wv[4 * c4 + 2] = w4.z;
+              wv[4 * c4 + 3] = w4.w;
+            }
+#pragma unroll
+            for (int r = 0; r < NR_RPT; ++r) {
+              const float4 s = v[r + dy];
+              const float xv = kk == 0 ? s.x : kk == 1 ? s.y
+                             : kk == 2 ? s.z : s.w;
+#pragma unroll
+              for (int j = 0; j < CP; ++j)
+                acc[r][j] = fmaf(xv, wv[j], acc[r][j]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const int gw = w0 + cx;
+  if (gw >= W) return;
+#pragma unroll
+  for (int r = 0; r < NR_RPT; ++r) {
+    const int gh = h0 + r0 + r;
+    if (gh >= H) continue;
+    T* dst = dx + (img + (size_t)gh * W + gw) * Cout;
+#pragma unroll
+    for (int j = 0; j < CP; ++j)
+      if (j < Cout) store1(dst + j, acc[r][j]);
   }
 }
 
@@ -406,19 +752,9 @@ int launch_bf16(const dim3& grid, cudaStream_t st, const void* x,
 }
 
 template <bool BWD>
-int launch(int dtype, const void* x, const void* y, const void* w,
-           const void* b, void* out, int n, int h, int wd, int cin,
-           int cout, void* stream) {
-  const dim3 grid(((h + TH - 1) / TH) * ((wd + TW - 1) / TW),
-                  (cout + TC - 1) / TC, n);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    conv3x3_f32_kernel<BWD><<<grid, THREADS, 0, st>>>(
-        (const float*)x, (const float*)y, (const float*)w, (const float*)b,
-        (float*)out, h, wd, cin, cout);
-    return (int)cudaGetLastError();
-  }
-  if (dtype != 1) return -1;
+int launch_bf16_any(const dim3& grid, cudaStream_t st, const void* x,
+                    const void* y, const void* w, const void* b, void* out,
+                    int h, int wd, int cin, int cout) {
   const bool vin = cin % 8 == 0;
   const bool vout = cout % 8 == 0;
   if (vin && vout)
@@ -434,6 +770,11 @@ int launch(int dtype, const void* x, const void* y, const void* w,
                                         cin, cout);
 }
 
+dim3 tile_grid(int n, int h, int wd, int cout) {
+  return dim3(((h + TH - 1) / TH) * ((wd + TW - 1) / TW),
+              (cout + TC - 1) / TC, n);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
@@ -441,15 +782,85 @@ int launch(int dtype, const void* x, const void* y, const void* w,
 extern "C" int st2_conv3x3_fwd(int dtype, const void* x, const void* w,
                                const void* b, void* y, int n, int h, int wd,
                                int cin, int cout, void* stream) {
-  return launch<false>(dtype, x, nullptr, w, b, y, n, h, wd, cin, cout,
-                       stream);
+  const dim3 grid = tile_grid(n, h, wd, cout);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    conv3x3_f32_kernel<<<grid, THREADS, 0, st>>>(
+        (const float*)x, (const float*)w, (const float*)b, (float*)y, h, wd,
+        cin, cout);
+    return (int)cudaGetLastError();
+  }
+  if (dtype != 1) return -1;
+  return launch_bf16_any<false>(grid, st, x, nullptr, w, b, y, h, wd, cin,
+                                cout);
 }
 
 // g, y: (n, h, wd, cin) cotangent and forward output; wt: (3, 3, cin, cout)
 // the flipped, in/out-transposed forward weights; dx: (n, h, wd, cout).
-extern "C" int st2_conv3x3_bwd(int dtype, const void* g, const void* y,
-                               const void* wt, void* dx, int n, int h,
-                               int wd, int cin, int cout, void* stream) {
-  return launch<true>(dtype, g, y, wt, nullptr, dx, n, h, wd, cin, cout,
-                      stream);
+// path (ops/conv.py:bwd_plan): 0 = the tile kernel (float32 or bfloat16);
+// 1 = the narrow kernel (float32 or bfloat16; cout <= 8, cin a multiple
+// of 4); 2 = the
+// float32 tile kernel split over `splits` ranges of kspan cotangent
+// channels into parts (splits, n, h, wd, cout), then summed in split order
+// into dx. Returns the first nonzero cudaGetLastError(), or -1 for a path,
+// dtype or shape the kernels do not take.
+extern "C" int st2_conv3x3_bwd(int dtype, int path, const void* g,
+                               const void* y, const void* wt, void* dx,
+                               void* parts, int n, int h, int wd, int cin,
+                               int cout, int splits, int kspan,
+                               void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (path == 1) {
+    if (cout > 8 || cin % 4 != 0 || dtype < 0 || dtype > 1) return -1;
+    const dim3 grid(((h + NR_ROWS - 1) / NR_ROWS) *
+                        ((wd + NR_COLS - 1) / NR_COLS), 1, n);
+    if (dtype == 1 && cout <= 4)
+      conv3x3_bwd_narrow_kernel<1, bf16><<<grid, NR_THREADS, 0, st>>>(
+          (const bf16*)g, (const bf16*)y, (const bf16*)wt, (bf16*)dx, h, wd,
+          cin, cout);
+    else if (dtype == 1)
+      conv3x3_bwd_narrow_kernel<2, bf16><<<grid, NR_THREADS, 0, st>>>(
+          (const bf16*)g, (const bf16*)y, (const bf16*)wt, (bf16*)dx, h, wd,
+          cin, cout);
+    else if (cout <= 4)
+      conv3x3_bwd_narrow_kernel<1, float><<<grid, NR_THREADS, 0, st>>>(
+          (const float*)g, (const float*)y, (const float*)wt, (float*)dx, h,
+          wd, cin, cout);
+    else
+      conv3x3_bwd_narrow_kernel<2, float><<<grid, NR_THREADS, 0, st>>>(
+          (const float*)g, (const float*)y, (const float*)wt, (float*)dx, h,
+          wd, cin, cout);
+    return (int)cudaGetLastError();
+  }
+  if (dtype == 1 && path == 0)
+    return launch_bf16_any<true>(tile_grid(n, h, wd, cout), st, g, y, wt,
+                                 nullptr, dx, h, wd, cin, cout);
+  if (dtype != 0) return -1;
+  const float* gf = (const float*)g;
+  const float* yf = (const float*)y;
+  const float* wf = (const float*)wt;
+  const bool vec = cin % 4 == 0;
+  if (path == 0) {
+    splits = 1;
+    kspan = cin;
+  } else if (path != 2 || splits < 2 || kspan % KC != 0 ||
+             (long long)(splits - 1) * kspan >= cin ||
+             (long long)splits * kspan < cin) {
+    return -1;
+  }
+  float* out = path == 2 ? (float*)parts : (float*)dx;
+  const dim3 grid = tile_grid(n * splits, h, wd, cout);
+  if (vec)
+    conv3x3_f32_bwd_kernel<true><<<grid, THREADS, 0, st>>>(
+        gf, yf, wf, out, n, h, wd, cin, cout, kspan);
+  else
+    conv3x3_f32_bwd_kernel<false><<<grid, THREADS, 0, st>>>(
+        gf, yf, wf, out, n, h, wd, cin, cout, kspan);
+  int err = (int)cudaGetLastError();
+  if (err || path != 2) return err;
+  const long long total = (long long)n * h * wd * cout;
+  const int blocks = (int)std::min<long long>((total + 255) / 256, 4096);
+  sum_splits_kernel<<<blocks, 256, 0, st>>>((const float*)parts, (float*)dx,
+                                            total, splits);
+  return (int)cudaGetLastError();
 }

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv import conv3x3_bias_relu
+from ..ops.conv import backward_weights, conv3x3_bias_relu
 from ..ops.image import MEAN_RGB, deprocess, preprocess  # noqa: F401
 
 # (name, out_channels) for each conv layer, in network order.
@@ -84,7 +84,9 @@ def extract_features(params, x, layers=None, compute_dtype=torch.float32):
     blob names (default: all), stopping at the deepest one.
 
     params: {conv_name: {'w': (3, 3, in, out), 'b': (out,)}} tensors in
-    compute_dtype on x's device (models.weights.params_from_numpy). x: the
+    compute_dtype on x's device (models.weights.params_from_numpy), each
+    with 'wt', ops.conv.backward_weights(w), as VGG19Features keeps them;
+    where a layer lacks 'wt' it is computed here, once per call. x: the
     preprocessed (1, H, W, 3) float32 input. The trunk runs in
     compute_dtype; the taps come back as float32."""
     if layers is None:
@@ -103,7 +105,9 @@ def extract_features(params, x, layers=None, compute_dtype=torch.float32):
     for name in BLOB_NAMES[1:deepest + 1]:
         if name.startswith('conv'):
             p = params[name]
-            h = conv3x3_bias_relu(h, p['w'], p['b'])   # tap is post-ReLU
+            wt = p['wt'] if 'wt' in p else backward_weights(p['w'])
+            # The tap is post-ReLU.
+            h = conv3x3_bias_relu(h, p['w'], p['b'], wt)
         else:
             h = _max_pool_ceil(h)
         if name in wanted:
@@ -114,19 +118,23 @@ def extract_features(params, x, layers=None, compute_dtype=torch.float32):
 class VGG19Features(nn.Module):
     """The truncated VGG-19 as a module over fixed weights, playing the role
     of the reference's CaffeModel (worker.py:32-106). The weights are
-    buffers: nothing here trains them."""
+    buffers: nothing here trains them. Beside each layer's forward weights
+    it keeps the backward's (`_wt`, flipped and transposed once here)."""
 
     def __init__(self, params, compute_dtype=torch.float32):
         super().__init__()
         self.compute_dtype = compute_dtype
         for name, p in params.items():
-            self.register_buffer(name + '_w', p['w'].to(compute_dtype))
+            w = p['w'].to(compute_dtype)
+            self.register_buffer(name + '_w', w)
             self.register_buffer(name + '_b', p['b'].to(compute_dtype))
+            self.register_buffer(name + '_wt', backward_weights(w))
 
     @property
     def params(self):
         return {name: {'w': getattr(self, name + '_w'),
-                       'b': getattr(self, name + '_b')}
+                       'b': getattr(self, name + '_b'),
+                       'wt': getattr(self, name + '_wt')}
                 for name in CONV_NAMES if hasattr(self, name + '_w')}
 
     def forward(self, x, layers=None):

@@ -7,16 +7,24 @@ and a target Gram G_style:
     G_diff = X^T X / size - G_style                   size = M*C
     s_grad = X G_diff * 2 / (C^2 * size)
 
-On a CUDA tensor the wrapper launches the kernels in csrc/style.cu (split-M
-Gram partials, a fixed-order reduction with the G_diff epilogue, and the
-gradient product; float32, never TF32). On a CPU tensor it runs
-fused_style_branch_plain, two matmuls. Any other device raises. The outputs
-are injected as vjp cotangents and never differentiated through.
+On a CUDA tensor the wrapper launches the kernels in csrc/style.cu (a
+split-M Gram over the upper-triangle tiles, a fixed-order reduction with
+the G_diff epilogue, and the gradient product; float32, never TF32,
+deterministic). On a CPU tensor it runs fused_style_branch_plain, two
+matmuls. Any other device raises. The outputs are injected as vjp
+cotangents and never differentiated through.
+
+The launch plan (gram_tiles, gram_plan) is a pure function of the shape
+and the card's SM count, so the CPU tests check it.
 """
 
+import functools
+
 import torch
+import torch.nn.functional as F
 
 from .. import _build
+from ..utils import aligned, sm_count
 
 # Launches of the kernel through fused_style_branch (chip_smoke.py resets
 # and reads this).
@@ -24,7 +32,10 @@ launches = 0
 
 _TILE = 64          # output tile edge of the Gram kernel
 _ROW_STEP = 16      # M-chunks are multiples of the kernel's staging depth
-_TARGET_BLOCKS = 264  # two waves of blocks on a 132-SM card
+# Blocks (64 threads each) to aim for per SM: the Gram's split and the
+# gradient product's tile rows are sized so that a launch holds about this
+# many, the residency the kernels are compiled for (MIN_BLOCKS).
+_BLOCKS_PER_SM = 8
 
 
 def fused_style_branch_plain(feat, gram_style):
@@ -37,15 +48,42 @@ def fused_style_branch_plain(feat, gram_style):
     return s_grad.reshape(1, h, w, c), gram_diff
 
 
-def _chunking(m, c):
-    """(chunk, n_chunks) for the split-M Gram: enough M-chunks that the
-    (tiles x tiles x chunks) grid fills the card about twice."""
-    tiles = -(-c // _TILE)
-    n_chunks = max(1, min(-(-_TARGET_BLOCKS // (tiles * tiles)),
+def gram_tiles(c):
+    """The Gram kernel's tiles (i, j), i <= j, in launch order: the upper
+    triangle of the ceil(c/64)-square tile grid, row by row."""
+    nt = -(-c // _TILE)
+    return [(i, j) for i in range(nt) for j in range(i, nt)]
+
+
+def gram_plan(m, c, sms):
+    """(chunk, n_chunks) for the split-M Gram on a card with `sms` SMs:
+    about _BLOCKS_PER_SM blocks per SM over (tiles x chunks), each chunk a
+    multiple of 16 rows, the chunks covering rows 0..m-1 in order."""
+    target = _BLOCKS_PER_SM * sms
+    n_chunks = max(1, min(-(-target // len(gram_tiles(c))),
                           -(-m // _ROW_STEP)))
     chunk = -(-m // n_chunks)
     chunk = -(-chunk // _ROW_STEP) * _ROW_STEP
     return chunk, -(-m // chunk)
+
+
+def grad_tile_rows(m, c, sms):
+    """Rows of the gradient product's tile: 64, or 32 where a 64-row grid
+    would hold fewer than half of _BLOCKS_PER_SM blocks per SM."""
+    blocks = -(-m // 64) * -(-c // _TILE)
+    return 32 if 2 * blocks < _BLOCKS_PER_SM * sms else 64
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(m, c, sms):
+    """(padded c, chunk, n_chunks, partials floats, gradient tile rows) of
+    one launch. The kernel copies rows in 16-byte pieces, so a C that is
+    not a multiple of 4 (never a VGG tap) is padded with zero columns,
+    which add nothing to X^T X and come back as zero columns of s_grad."""
+    cp = -(-c // 4) * 4
+    chunk, n_chunks = gram_plan(m, cp, sms)
+    n_partials = n_chunks * len(gram_tiles(cp)) * _TILE * _TILE
+    return cp, chunk, n_chunks, n_partials, grad_tile_rows(m, cp, sms)
 
 
 def _launch(feat, gram_style):
@@ -54,28 +92,37 @@ def _launch(feat, gram_style):
         raise ValueError('fused_style_branch: expected (1, h, w, c), got %s'
                          % (tuple(feat.shape),))
     _, h, w, c = feat.shape
-    if gram_style.shape != (c, c) or gram_style.device != feat.device:
+    dev = feat.device
+    if gram_style.shape != (c, c) or gram_style.device != dev:
         raise ValueError('fused_style_branch: gram_style must be (c, c) on '
                          'the feature map\'s device')
     if feat.dtype != torch.float32 or gram_style.dtype != torch.float32:
         raise TypeError('fused_style_branch: the kernel takes float32')
     m = h * w
     size = m * c
-    x = feat.reshape(m, c).contiguous()
-    gs = gram_style.contiguous()
-    chunk, n_chunks = _chunking(m, c)
-    partials = torch.empty((n_chunks, c, c), dtype=torch.float32,
-                           device=feat.device)
-    gdiff = torch.empty((c, c), dtype=torch.float32, device=feat.device)
-    sgrad = torch.empty((m, c), dtype=torch.float32, device=feat.device)
+    cp, chunk, n_chunks, n_partials, rows = _plan(m, c, sm_count(dev))
+    x, gs = feat, gram_style
+    if cp != c:
+        x = F.pad(feat, (0, cp - c))
+        gs = F.pad(gram_style, (0, cp - c, 0, cp - c))
+    x, gs = aligned(x), gs.contiguous()
+    # The host work above runs while the card is idle in a lone call, so it
+    # is kept to a few tensor calls: one flat scratch buffer, the outputs in
+    # their final shapes.
+    partials = torch.empty(n_partials, dtype=torch.float32, device=dev)
+    gdiff = torch.empty((cp, cp), dtype=torch.float32, device=dev)
+    sgrad = torch.empty((1, h, w, cp), dtype=torch.float32, device=dev)
     err = _build.lib().st2_style_branch(
         x.data_ptr(), gs.data_ptr(), partials.data_ptr(), gdiff.data_ptr(),
-        sgrad.data_ptr(), m, c, chunk, n_chunks, 1.0 / float(size),
+        sgrad.data_ptr(), m, cp, chunk, n_chunks, rows, 1.0 / float(size),
         2.0 / (float(c) * float(c) * float(size)),
-        torch.cuda.current_stream(feat.device).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, 'st2_style_branch')
     launches += 1
-    return sgrad.reshape(1, h, w, c), gdiff
+    if cp != c:
+        sgrad, gdiff = (sgrad[..., :c].contiguous(),
+                        gdiff[:c, :c].contiguous())
+    return sgrad, gdiff
 
 
 def fused_style_branch(feat, gram_style):

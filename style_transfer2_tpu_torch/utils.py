@@ -1,5 +1,7 @@
 """Host-side helpers: the trace record, the image fitting and resolution
-ladder the CLI uses, the precision ranks, and a scoped TF32 switch.
+ladder the CLI uses, the precision ranks, a scoped TF32 switch, the
+16-byte alignment the kernels' vector loads need, and the card's SM count
+that their launch plans take.
 
 The same behaviour as style_transfer2_tpu/utils/tracing.py:Trace,
 utils/images.py (reference utils.py:193-223,257-282,307-309) and
@@ -8,6 +10,7 @@ of the JAX package.
 """
 
 import contextlib
+import functools
 import math
 from collections import OrderedDict
 
@@ -32,6 +35,19 @@ class Trace:
             name += '_'
         self.data[name] = value
         return value
+
+
+def aligned(t):
+    """t contiguous and 16-byte aligned: the kernels copy 16 bytes at a
+    time, and a view into a larger tensor may start at any element."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device):
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @contextlib.contextmanager

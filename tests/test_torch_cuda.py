@@ -50,7 +50,7 @@ def test_conv_kernels_match_plain_on_card(cuda, shape, cout, dtype, tol):
                       for a in (x, w, b, g))
     before = (conv.fwd_launches, conv.bwd_launches)
     xk = xt.clone().requires_grad_(True)
-    y = conv.conv3x3_bias_relu(xk, wt, bt)
+    y = conv.conv3x3_bias_relu(xk, wt, bt, conv.backward_weights(wt))
     dx = torch.autograd.grad(y, xk, gt)[0]
     assert (conv.fwd_launches, conv.bwd_launches) == (before[0] + 1,
                                                       before[1] + 1)
@@ -80,7 +80,7 @@ def test_conv_kernels_take_unaligned_views(cuda):
     wt, bt, gt = (torch.from_numpy(a).to(cuda, torch.bfloat16)
                   for a in (w, b, g))
     xk = xv.detach().requires_grad_(True)
-    y = conv.conv3x3_bias_relu(xk, wt, bt)
+    y = conv.conv3x3_bias_relu(xk, wt, bt, conv.backward_weights(wt))
     dx = torch.autograd.grad(y, xk, gt)[0]
     y_ref = conv.conv3x3_bias_relu_plain(xv.float(), wt.float(), bt.float())
     assert float((y.float() - y_ref).abs().max()) <= 3e-2 * max(
@@ -104,6 +104,73 @@ def test_style_kernel_matches_plain_on_card(cuda, shape):
     torch.testing.assert_close(gd, gd_ref, rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(s, s_ref, rtol=1e-4,
                                atol=1e-4 * float(s_ref.abs().max()))
+
+
+def _masked_bwd_case(cuda, shape, cout, seed):
+    """(g, y, w) for a backward with the cotangent's channels shape[-1] and
+    dx's cout: y is a ReLU output with about half its entries zero, so the
+    mask matters."""
+    rng = np.random.RandomState(seed)
+    g = torch.from_numpy(np.float32(rng.randn(*shape))).to(cuda)
+    y = torch.relu(torch.from_numpy(np.float32(rng.randn(*shape)))).to(cuda)
+    w = torch.from_numpy(np.float32(rng.normal(
+        0, np.sqrt(2.0 / (9 * cout)), (3, 3, cout, shape[-1])))).to(cuda)
+    return g, y, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,cout,path,dtype,tol', [
+    ((1, 17, 181, 64), 3, conv.NARROW, torch.float32, 1e-4),
+    ((1, 384, 512, 64), 3, conv.NARROW, torch.float32, 1e-4),
+    ((1, 384, 512, 64), 3, conv.NARROW, torch.bfloat16, 3e-2),
+    ((1, 48, 64, 512), 256, conv.SPLIT, torch.float32, 1e-4),
+    ((1, 68, 91, 512), 256, conv.SPLIT, torch.float32, 1e-4),
+])
+def test_conv_backward_paths_match_plain_and_repeat(cuda, shape, cout,
+                                                    path, dtype, tol):
+    """The narrow and split backward kernels against autograd of the plain
+    float32 conv (on the same, for bf16 bf16-valued, inputs) with the same
+    mask, and bitwise equal from call to call."""
+    g, y, w = (t.to(dtype) for t in _masked_bwd_case(cuda, shape, cout, 9))
+    n, h, wd, k = shape
+    plan = conv.bwd_plan(n, h, wd, k, cout, dtype,
+                         torch.cuda.get_device_properties(
+                             cuda).multi_processor_count)
+    assert plan[0] == path
+    before = conv.bwd_launches
+    dx = conv._launch_bwd(g, y, conv.backward_weights(w))
+    dx2 = conv._launch_bwd(g, y, conv.backward_weights(w))
+    assert conv.bwd_launches == before + 2 and dx.dtype == dtype
+    x = torch.zeros(n, h, wd, cout, device=cuda, requires_grad=True)
+    pre = F.conv2d(x.permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
+                   padding=1)
+    want = torch.autograd.grad(pre.permute(0, 2, 3, 1), x,
+                               g.float() * (y > 0).float())[0]
+    err = float((dx.float() - want).abs().max())
+    assert err <= tol * max(1.0, float(want.abs().max()))
+    assert torch.equal(dx, dx2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(1, 97, 53, 64), (1, 45, 37, 128),
+                                   (1, 23, 29, 256), (1, 11, 13, 512)])
+def test_style_kernel_ragged_rows_match_plain_and_repeat(cuda, shape):
+    """Each tap width at an M that is no multiple of the 16-row stage or
+    of the 64-row tile; two calls give the same bits."""
+    rng = np.random.RandomState(shape[-1])
+    feat = torch.relu(torch.from_numpy(np.float32(rng.randn(*shape)))).to(
+        cuda)
+    other = torch.relu(torch.from_numpy(np.float32(rng.randn(
+        shape[1] * shape[2], shape[-1])))).to(cuda)
+    gram_style = other.T @ other / other.numel()
+    s, gd = style.fused_style_branch(feat, gram_style)
+    s2, gd2 = style.fused_style_branch(feat, gram_style)
+    s_ref, gd_ref = style.fused_style_branch_plain(feat, gram_style)
+    scale = max(float(gd_ref.abs().max()), float(gram_style.abs().max()))
+    assert float((gd - gd_ref).abs().max()) <= 1e-4 * scale
+    assert float((s - s_ref).abs().max()) <= 1e-4 * float(
+        s_ref.abs().max())
+    assert torch.equal(s, s2) and torch.equal(gd, gd2)
 
 
 @pytest.mark.cuda
