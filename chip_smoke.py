@@ -29,6 +29,8 @@ exits non-zero:
                bound) and the share of it reached, and, where one PyTorch
                call computes the same function, that call's time (cuDNN
                for the convs, one elementwise op for the image kernels).
+               These times hold both host and device work: the card
+               waits for the host's launch between its events.
   4. main    — the CLI's main() at --size 512 --optimizer lbfgs from the two
                example images, one step per dispatch (comparable with the
                first slice's runs), once in float32 and once in bfloat16:
@@ -45,6 +47,15 @@ exits non-zero:
   6. parity  — the CUDA engine against the CPU engine (the plain versions)
                on small inputs, 5 steps at one size and a 2-rung ladder:
                every trace key within the golden rtol.
+  7. profile — every kernel and library call timed in phase 3, on the
+               same inputs: host_us, the host clock over HOST_CALLS
+               back-to-back calls with no sync (the enqueue cost), then
+               device_ms, its kernels' own time from torch.profiler's CUDA
+               events over PROFILE_CALLS calls (several kernels of one call
+               summed), and each image kernel's share of its byte bound at
+               768x1024. Last: the host loops keep the card busy for
+               seconds, and a profiler session leaves torch's host path
+               slower for the rest of the process.
 
 The line before the last is one JSON object with each kernel's measured
 numbers; the last line is {"ok": true, "device": {...}}. Outputs go to
@@ -55,6 +66,7 @@ import csv
 import json
 import logging
 import math
+import os
 import subprocess
 import sys
 import time
@@ -83,6 +95,16 @@ WARM_START_RISE = 1.25
 TOL = {'float32': 1e-4, 'bfloat16': 3e-2}
 STYLE_TOL = 1e-4          # float32 only: the taps are float32 in both modes
 PARITY_RTOL = 5e-3        # tests/test_golden.py's trace tolerance
+
+# Calls of each kernel and library call under torch.profiler (device_ms),
+# and back-to-back calls timed on the host clock (host_us).
+PROFILE_CALLS = 3
+PROFILE_ATTEMPTS = 3      # sessions tried before a profile counts as empty
+HOST_CALLS = 200
+# What the summary line sums for each kernel (the style branch has no
+# library call: its library_* are None).
+STEP_FIELDS = ('ms', 'plain_ms', 'bound_ms', 'library_ms', 'device_ms',
+               'host_us', 'library_device_ms', 'library_host_us')
 
 KERNELS = ('conv3x3_bias_relu_fwd', 'conv3x3_bias_relu_bwd',
            'fused_style_branch', 'preprocess', 'deprocess')
@@ -186,7 +208,9 @@ def require(cond, msg):
 
 
 def median_ms(fn, torch, reps=15, warmup=3):
-    """Median CUDA-event time of fn() in milliseconds, after warm-up."""
+    """Median CUDA-event time of fn() in milliseconds, after warm-up. The
+    card is idle between the two events until fn's launches arrive, so
+    this time holds the host's launch work as well as the device's."""
     for _ in range(warmup):
         fn()
     times = []
@@ -199,6 +223,47 @@ def median_ms(fn, torch, reps=15, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, torch, calls=PROFILE_CALLS):
+    """The device's own milliseconds per call of fn(): the durations of
+    every kernel it launched (all of them, where one call launches
+    several), from torch.profiler's CUDA events, averaged over `calls`
+    calls, or None where PROFILE_ATTEMPTS sessions saw no kernel. Call
+    after fn has been warmed up. A profiler session leaves torch's host
+    path slower for the rest of the process, so this runs after every
+    other timing (phase_costs)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        total = sum(e.device_time for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / calls
+        say('profile', 'no device time in a session of %d events: %s' % (
+            len(events), sorted({(str(e.device_type), e.name[:40])
+                                 for e in events})[:12]))
+    return None
+
+
+def host_us(fn, torch, calls=HOST_CALLS):
+    """The host's microseconds per call of fn() over `calls` back-to-back
+    calls with no sync: the enqueue cost. The card drains the queue after
+    the clock stops."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
 
 
 def rel_err(got, want):
@@ -266,9 +331,10 @@ def phase_build():
         say('build', line)
 
 
-def check_conv(torch, rng, shape, dtype_name, where):
+def check_conv(torch, rng, shape, dtype_name, where, pending):
     """Holds the conv kernels against the plain version at one shape and
-    times both. Returns the row for kernels.json."""
+    times both. Returns the row for kernels.json; appends to `pending` the
+    (row, field, fn) of each device time to profile later."""
     import torch.nn.functional as F
     from style_transfer2_tpu_torch.ops import conv
     h, w, cin, cout = shape
@@ -330,9 +396,15 @@ def check_conv(torch, rng, shape, dtype_name, where):
     path, splits, _ = conv.bwd_plan(1, h, w, cout, cin, dtype,
                                     torch.cuda.get_device_properties(
                                         dev).multi_processor_count)
-    fwd_k = median_ms(lambda: conv._launch_fwd(x, wt, b), torch)
+    def fwd():
+        return conv._launch_fwd(x, wt, b)
+
+    def bwd():
+        return conv._launch_bwd(g, y, w_bwd)
+
+    fwd_k = median_ms(fwd, torch)
     fwd_p = median_ms(lambda: conv.conv3x3_bias_relu_plain(x, wt, b), torch)
-    bwd_k = median_ms(lambda: conv._launch_bwd(g, y, w_bwd), torch)
+    bwd_k = median_ms(bwd, torch)
     # Where the narrow kernel is planned, the tile kernel it replaces, on
     # the same inputs in the same run.
     bwd_tile = None
@@ -349,9 +421,15 @@ def check_conv(torch, rng, shape, dtype_name, where):
     # cotangent (the mask not included).
     x_c, w_c = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
     g_c = (g * (y > 0).to(dtype)).permute(0, 3, 1, 2)
-    fwd_l = median_ms(lambda: F.conv2d(x_c, w_c, b, padding=1), torch)
-    bwd_l = median_ms(lambda: torch.nn.grad.conv2d_input(
-        x_c.shape, w_c, g_c, padding=1), torch)
+
+    def fwd_lib():
+        return F.conv2d(x_c, w_c, b, padding=1)
+
+    def bwd_lib():
+        return torch.nn.grad.conv2d_input(x_c.shape, w_c, g_c, padding=1)
+
+    fwd_l = median_ms(fwd_lib, torch)
+    bwd_l = median_ms(bwd_lib, torch)
     (fwd_b, fwd_by), (bwd_b, bwd_by) = conv_bounds(shape, dtype_name)
     gflop = 2 * 9 * h * w * cin * cout / 1e9
     say('kernels', 'conv %-8s %-8s %-21s fwd %.3f ms (plain %.3f, x%.2f; '
@@ -364,7 +442,7 @@ def check_conv(torch, rng, shape, dtype_name, where):
             bwd_k / max(bwd_p, 1e-9), bwd_l, 100 * bwd_b / bwd_k, bwd_b,
             '' if bwd_tile is None else '; tile kernel %.3f' % bwd_tile,
             fr, br, plain_note))
-    return {'kernel': 'conv3x3', 'dtype': dtype_name, 'where': where,
+    row = {'kernel': 'conv3x3', 'dtype': dtype_name, 'where': where,
             'shape': list(shape), 'fwd_ms': fwd_k, 'fwd_plain_ms': fwd_p,
             'fwd_library_ms': fwd_l, 'fwd_bound_ms': fwd_b,
             'fwd_bound_by': fwd_by, 'bwd_bound_by': bwd_by,
@@ -373,9 +451,13 @@ def check_conv(torch, rng, shape, dtype_name, where):
             'bwd_tile_ms': bwd_tile,
             'fwd_tflops': gflop / fwd_k, 'fwd_rel_err': fr,
             'bwd_rel_err': br, 'fwd_abs_err': fe, 'bwd_abs_err': be}
+    pending.extend((row, prefix, fn) for prefix, fn in (
+        ('fwd_', fwd), ('bwd_', bwd), ('fwd_library_', fwd_lib),
+        ('bwd_library_', bwd_lib)))
+    return row
 
 
-def check_style(torch, rng, tap, where):
+def check_style(torch, rng, tap, where, pending):
     from style_transfer2_tpu_torch.ops import style
     h, w, c = tap
     dev = torch.device('cuda')
@@ -401,7 +483,10 @@ def check_style(torch, rng, tap, where):
             'style s_grad %s: rel err %.3g' % (tap, sr))
     require(math.isfinite(gr) and gr <= STYLE_TOL,
             'style gram_diff %s: rel err %.3g' % (tap, gr))
-    t_k = median_ms(lambda: style._launch(feat, gram_style), torch)
+    def kernel():
+        return style._launch(feat, gram_style)
+
+    t_k = median_ms(kernel, torch)
     t_p = median_ms(
         lambda: style.fused_style_branch_plain(feat, gram_style), torch)
     # Operations: M*C*(C+1) for the Gram (symmetric: the upper triangle
@@ -414,13 +499,15 @@ def check_style(torch, rng, tap, where):
         'matmuls, %.3f; x%.2f; %.0f%% of bound %.3f) err %.2g/%.2g; '
         'bitwise repeatable' % (where, tap, t_k, t_p, t_k / t_p,
                                 100 * t_b / t_k, t_b, sr, gr))
-    return {'kernel': 'fused_style_branch', 'dtype': 'float32',
-            'where': where, 'shape': list(tap), 'ms': t_k, 'plain_ms': t_p,
-            'bound_ms': t_b, 'bound_by': t_by, 's_grad_rel_err': sr, 'gram_diff_rel_err': gr,
-            'abs_err': max(se, ge)}
+    row = {'kernel': 'fused_style_branch', 'dtype': 'float32',
+           'where': where, 'shape': list(tap), 'ms': t_k, 'plain_ms': t_p,
+           'bound_ms': t_b, 'bound_by': t_by, 's_grad_rel_err': sr,
+           'gram_diff_rel_err': gr, 'abs_err': max(se, ge)}
+    pending.append((row, '', kernel))
+    return row
 
 
-def check_image(torch, rng, hw):
+def check_image(torch, rng, hw, pending):
     """Preprocess from uint8 and from float32 and deprocess at one rung,
     bit for bit against the plain versions. Times: the kernel alone on a
     device tensor against the plain version's device op and against one
@@ -449,14 +536,27 @@ def check_image(torch, rng, hw):
                 % (hw, de_err))
         src = torch.from_numpy(img).to(dev)
         src32 = src.float()
-        pre_k = median_ms(lambda: image._launch_preprocess(src), torch)
+
+        def pre():
+            return image._launch_preprocess(src)
+
+        def de():
+            return image._launch_deprocess(x_k)
+
+        def pre_lib():
+            return torch.sub(src, mean)
+
+        def de_lib():
+            return torch.add(x_k[0], mean)
+
+        pre_k = median_ms(pre, torch)
         pre_p = median_ms(lambda: src32[None] - mean, torch)
         e2e_k = median_ms(lambda: image.preprocess(img, dev), torch)
         e2e_p = median_ms(lambda: image.preprocess_plain(img, dev), torch)
-        de_k = median_ms(lambda: image._launch_deprocess(x_k), torch)
+        de_k = median_ms(de, torch)
         de_p = median_ms(lambda: image.deprocess_plain(x_k), torch)
-        pre_l = median_ms(lambda: torch.sub(src, mean), torch)
-        de_l = median_ms(lambda: torch.add(x_k[0], mean), torch)
+        pre_l = median_ms(pre_lib, torch)
+        de_l = median_ms(de_lib, torch)
         # Bytes: the image in its own dtype and 12 bytes a pixel out
         # (preprocess); 12 in and 12 out (deprocess).
         px = hw[0] * hw[1]
@@ -483,26 +583,26 @@ def check_image(torch, rng, hw):
                      'deprocess_bound_by': 'bytes',
                      'preprocess_abs_err': pre_err,
                      'deprocess_abs_err': de_err})
+        pending.extend((rows[-1], prefix, fn) for prefix, fn in (
+            ('preprocess_', pre), ('deprocess_', de),
+            ('preprocess_library_', pre_lib),
+            ('deprocess_library_', de_lib)))
     return rows
 
 
-def add_bound(entry, kind, ms):
-    """Adds a shape's bound to a summed entry's share by kind: the sum's
-    bound_by is the kind that holds the larger share."""
-    entry['by'][kind] = entry['by'].get(kind, 0.0) + ms
-
-
 def phase_kernels(torch):
+    """Every kernel against its plain version, with its times. Returns the
+    worst absolute error of each kernel, the rows of kernels.json, the
+    (row, field prefix) that each kernel's summary entry sums, and the
+    (row, field prefix, fn) of each call still to cost (phase_costs)."""
     rng = np.random.RandomState(0)
-    rows = []
+    rows, pending = [], []
     worst = dict.fromkeys(KERNELS, 0.0)
-    # float32 ms of each kernel, its plain version, its bound and its
-    # library call (None for the style branch, which no one call computes):
-    # the convs and the style branch summed over one 512px step's shapes,
-    # the image kernels over the 7 rungs of the 1024px ladder.
-    step = {k: {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
-                'library_ms': 0.0, 'by': {}} for k in KERNELS}
-    step['fused_style_branch']['library_ms'] = None
+    # What the summary line sums for each kernel: float32 at one 512px
+    # step's shapes for the convs and the style branch (a shape run three
+    # times a step counts three times), uint8 over the 7 rungs of the
+    # 1024px ladder for the image kernels.
+    parts = {k: [] for k in KERNELS}
     sums_1024 = {}                 # dtype -> [fwd, plain, bwd, plain]
 
     for dtype_name in ('float32', 'bfloat16'):
@@ -514,7 +614,8 @@ def phase_kernels(torch):
         for shape, where in cases:
             key = (shape, where)
             if key not in seen:
-                seen[key] = check_conv(torch, rng, shape, dtype_name, where)
+                seen[key] = check_conv(torch, rng, shape, dtype_name, where,
+                                       pending)
                 rows.append(seen[key])
             row = seen[key]
             worst['conv3x3_bias_relu_fwd'] = max(
@@ -522,13 +623,8 @@ def phase_kernels(torch):
             worst['conv3x3_bias_relu_bwd'] = max(
                 worst['conv3x3_bias_relu_bwd'], row['bwd_abs_err'])
             if dtype_name == 'float32' and where == '512':
-                for name, pre in (('conv3x3_bias_relu_fwd', 'fwd_'),
-                                  ('conv3x3_bias_relu_bwd', 'bwd_')):
-                    for field in ('ms', 'plain_ms', 'bound_ms',
-                                  'library_ms'):
-                        step[name][field] += row[pre + field]
-                    add_bound(step[name], row[pre + 'bound_by'],
-                              row[pre + 'bound_ms'])
+                parts['conv3x3_bias_relu_fwd'].append((row, 'fwd_'))
+                parts['conv3x3_bias_relu_bwd'].append((row, 'bwd_'))
             if where == '1024':
                 sums = sums_1024.setdefault(dtype_name, [0.0] * 4)
                 for i, field in enumerate(('fwd_ms', 'fwd_plain_ms',
@@ -541,24 +637,21 @@ def phase_kernels(torch):
     for where, taps in STYLE_TAPS.items():
         total = [0.0, 0.0, 0.0]
         for tap in taps:
-            row = check_style(torch, rng, tap, where)
+            row = check_style(torch, rng, tap, where, pending)
             rows.append(row)
             worst['fused_style_branch'] = max(worst['fused_style_branch'],
                                               row['abs_err'])
             for i, field in enumerate(('ms', 'plain_ms', 'bound_ms')):
                 total[i] += row[field]
-                if where == '512':
-                    step['fused_style_branch'][field] += row[field]
             if where == '512':
-                add_bound(step['fused_style_branch'], row['bound_by'],
-                          row['bound_ms'])
+                parts['fused_style_branch'].append((row, ''))
         say('kernels', 'style float32 summed over the %s taps: %.3f ms '
             '(plain %.3f, x%.2f; %.0f%% of bound %.3f)' % (
                 where, total[0], total[1], total[0] / total[1],
                 100 * total[2] / total[0], total[2]))
 
     for hw in LADDER_1024:
-        for row in check_image(torch, rng, hw):
+        for row in check_image(torch, rng, hw, pending):
             rows.append(row)
             worst['preprocess'] = max(worst['preprocess'],
                                       row['preprocess_abs_err'])
@@ -566,15 +659,102 @@ def phase_kernels(torch):
                                      row['deprocess_abs_err'])
             if row['dtype'] == 'uint8':
                 for name in ('preprocess', 'deprocess'):
-                    for field in ('ms', 'plain_ms', 'bound_ms',
-                                  'library_ms'):
-                        step[name][field] += row[name + '_' + field]
-                    add_bound(step[name], row[name + '_bound_by'],
-                              row[name + '_bound_ms'])
+                    parts[name].append((row, name + '_'))
+    image_sums(parts, ('ms', 'library_ms'), 'kernels', 'ms', 4)
+    write_kernels_json(rows)
+    return worst, rows, parts, pending
 
+
+def image_sums(parts, fields, phase, unit, digits):
+    """Prints each image kernel's `fields` (its own, its library call's)
+    summed over the 7 rungs, uint8, and their ratio."""
+    for name, lib in (('preprocess', 'torch.sub'), ('deprocess', 'torch.add')):
+        mine, theirs = (sum(r[pre + field] for r, pre in parts[name])
+                        for field in fields)
+        say(phase, '%s from uint8 over the 7 rungs: %.*f %s, %s %.*f (x%.2f)'
+            % (name, digits, mine, unit, lib, digits, theirs, mine / theirs))
+
+
+def write_kernels_json(rows):
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / 'kernels.json').write_text(json.dumps(rows, indent=1))
-    return worst, step
+
+
+def phase_costs(torch, rows, parts, pending):
+    """Each kernel's and library call's host_us, then its device_ms, on the
+    inputs of phase 3, after every other phase: the host loops keep the
+    card busy for seconds (which would heat it under the timings that
+    follow), and a profiler session slows torch's host path for the rest
+    of the process. kernels.json is written again with both."""
+    t0 = time.perf_counter()
+    for row, prefix, fn in pending:
+        row[prefix + 'host_us'] = host_us(fn, torch)
+    t1 = time.perf_counter()
+    # Keep CUPTI subscribed from one profiler session to the next: torch
+    # 2.11 otherwise tears it down after each session and sets it up again
+    # at the next, and some sessions on an H100 then held the launches but
+    # none of the kernels.
+    os.environ['TEARDOWN_CUPTI'] = '0'
+    for row, prefix, fn in pending:
+        row[prefix + 'device_ms'] = device_ms(fn, torch)
+    missing = sum(row[prefix + 'device_ms'] is None
+                  for row, prefix, _ in pending)
+    say('profile', '%d calls: host_us in %.1f s, device_ms in %.1f s (%d '
+        'not measured)' % (len(pending), t1 - t0, time.perf_counter() - t1,
+                           missing))
+    for row in rows:
+        prefixes = [k[:-len('device_ms')] for k in row
+                    if k.endswith('device_ms')]
+        say('profile', '%s %s %s %s: %s' % (
+            row['kernel'], row['dtype'], row.get('where', ''),
+            tuple(row['shape']), '; '.join(
+                '%s %s%s, host %.1f us' % (
+                    prefix.rstrip('_') or 'kernel',
+                    fmt(row[prefix + 'device_ms']), share(row, prefix),
+                    row[prefix + 'host_us'])
+                for prefix in prefixes)))
+    image_sums(parts, ('host_us', 'library_host_us'), 'profile', 'host us',
+               1)
+    top = [r for r in rows if r['kernel'] == 'image'
+           and tuple(r['shape']) == LADDER_1024[-1]]
+    say('profile', 'image kernels at %dx%d, device time against the byte '
+        'bound:%s' % (LADDER_1024[-1] + (';'.join(
+            ' %s %s%s' % (name, r['dtype'], share(r, name + '_'))
+            for r in top for name in ('preprocess', 'deprocess')),)))
+    write_kernels_json(rows)
+
+
+def share(row, prefix):
+    """' (x% of bound)' for a measured device time whose kernel has a
+    bound."""
+    bound_ms, ms = row.get(prefix + 'bound_ms'), row[prefix + 'device_ms']
+    if bound_ms is None or ms is None:
+        return ''
+    return ' (%.1f%% of bound)' % (100 * bound_ms / ms)
+
+
+def fmt(ms):
+    return 'not measured' if ms is None else '%.4f ms' % ms
+
+
+def summarize(parts):
+    """Each kernel's summary entry: the fields of STEP_FIELDS summed over
+    its rows (None for the style branch's library call, which no one
+    PyTorch call computes), and bound_by the kind holding the larger share
+    of the summed bound."""
+    step = {}
+    for name, contributions in parts.items():
+        entry = {}
+        for field in STEP_FIELDS:
+            values = [row.get(pre + field) for row, pre in contributions]
+            entry[field] = None if None in values else sum(values)
+        by = {}
+        for row, pre in contributions:
+            kind = row[pre + 'bound_by']
+            by[kind] = by.get(kind, 0.0) + row[pre + 'bound_ms']
+        entry['bound_by'] = max(by, key=by.get)
+        step[name] = entry
+    return step
 
 
 def read_trace(path):
@@ -830,27 +1010,28 @@ def main():
     phase_build()
     from style_transfer2_tpu_torch.utils import tf32
     with tf32(False):              # TF32 off for the plain versions
-        worst, step = phase_kernels(torch)
+        worst, rows, parts, pending = phase_kernels(torch)
     log = CliLog()
     logging.getLogger('cli').addHandler(log)
     launches, rates = phase_main(torch)
     for name, n in phase_ladder(torch, log).items():
         launches[name] += n
     phase_parity(torch)
+    with tf32(False):
+        phase_costs(torch, rows, parts, pending)
+    step = summarize(parts)
 
-    kernels = [{'name': name, 'route': 'cuda', 'source': SOURCES[name][0],
-                'replaces': SOURCES[name][1], 'launches': launches[name],
-                'max_abs_err': worst[name], 'ms': step[name]['ms'],
-                'plain_ms': step[name]['plain_ms'],
-                'bound_ms': step[name]['bound_ms'],
-                'bound_by': max(step[name]['by'],
-                                key=step[name]['by'].get),
-                'library_ms': step[name]['library_ms']} for name in KERNELS]
+    kernels = [dict({'name': name, 'route': 'cuda',
+                     'source': SOURCES[name][0],
+                     'replaces': SOURCES[name][1],
+                     'launches': launches[name], 'max_abs_err': worst[name]},
+                    **step[name]) for name in KERNELS]
     say('summary', 'ms / plain_ms / bound_ms / library_ms, float32: the '
         'convs and the style branch summed over one 512px step\'s shapes '
         '(library: cuDNN conv, cuDNN dgrad), the image kernels (uint8 '
         'preprocess, deprocess) over the 7 rungs of the 1024px ladder '
-        '(library: torch.sub, torch.add); '
+        '(library: torch.sub, torch.add); device_ms: the kernels\' own '
+        'time (torch.profiler); host_us: the host\'s enqueue cost a call; '
         'launches over the main and ladder runs; 512px it/s float32 %.3f, '
         'bfloat16 %.3f' % (rates['float32'], rates['bfloat16']))
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -13,6 +13,14 @@ in .gitignore), keyed by a hash of the sources and the flags, so an edited
 kernel rebuilds and an unchanged one loads at once. nvcc's output, ptxas's
 register and shared-memory report included, is kept beside it as build.log.
 
+The wrappers launch through lib() and stream(), which cost a launch as
+little host time as they can: after the first build lib() hands out the
+bound library without taking the build lock, and stream() reads the
+caller's current stream as a raw pointer (the value Triton's launcher
+reads), with no torch.cuda.Stream object built per call.
+tests/test_torch_binding.py holds _SIGNATURES against the extern "C"
+entry points of csrc/*.cu.
+
 Nothing here runs at import: the CPU tests import every module of the
 package, and this machine may have neither nvcc nor a card.
 """
@@ -26,6 +34,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parents[1] / 'build' / 'kernels'
 LIB_NAME = 'libst2kernels.so'
@@ -35,7 +45,6 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_L = ctypes.c_longlong
 # Entry point -> argument types (every entry returns a cudaError_t as int).
 _SIGNATURES = {
     'st2_conv3x3_fwd': [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -43,9 +52,15 @@ _SIGNATURES = {
                         _I, _I, _P],
     'st2_style_branch': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                          _P],
-    'st2_preprocess': [_I, _P, _P, _L, _F, _F, _F, _P],
-    'st2_deprocess': [_P, _P, _L, _F, _F, _F, _P],
+    'st2_preprocess': [_P, _P, _P, _P],
+    'st2_deprocess': [_P, _P, _P, _P],
 }
+
+# How the library is loaded: PyDLL keeps the interpreter lock through a
+# call, as PyTorch's own launches do, and so skips releasing and taking it
+# back on every launch (CDLL). `python -m
+# style_transfer2_tpu_torch.launch_cost` times both.
+LOADER = ctypes.PyDLL
 
 _lock = threading.Lock()
 _lib = None
@@ -124,18 +139,33 @@ def build():
     return lib_path
 
 
+def bind(loader):
+    """The built library loaded by `loader` (ctypes.CDLL or ctypes.PyDLL)
+    with every entry point's argument types set."""
+    handle = loader(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return handle
+
+
 def lib():
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use. The lock guards the
+    build and the load only."""
     global _lib
-    with _lock:
-        if _lib is None:
-            handle = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = handle
-        return _lib
+    if _lib is None:
+        with _lock:
+            if _lib is None:
+                _lib = bind(LOADER)
+    return _lib
+
+
+def stream(t):
+    """The current CUDA stream of t's device as an integer, for a void*
+    argument: the stream torch would launch on, inside torch.cuda.stream()
+    blocks too."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(err, what):

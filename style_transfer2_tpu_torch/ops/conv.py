@@ -124,12 +124,10 @@ def _launch_fwd(x, w, b):
     x, w, b = aligned(x), aligned(w), aligned(b)
     n, h, wd, cin = x.shape
     cout = w.shape[3]
-    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-    lib = _build.lib()
-    err = lib.st2_conv3x3_fwd(
+    y = x.new_empty(n, h, wd, cout)
+    err = _build.lib().st2_conv3x3_fwd(
         _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
-        y.data_ptr(), n, h, wd, cin, cout,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        y.data_ptr(), n, h, wd, cin, cout, _build.stream(x))
     _build.check(err, 'st2_conv3x3_fwd')
     fwd_launches += 1
     return y
@@ -149,13 +147,12 @@ def _launch_bwd(g, y, wt, plan=None):
     cout = wt.shape[3]
     path, splits, kspan = plan or bwd_plan(n, h, wd, k, cout, g.dtype,
                                            sm_count(g.device))
-    dx = torch.empty((n, h, wd, cout), dtype=g.dtype, device=g.device)
-    parts = (torch.empty((splits, n, h, wd, cout), dtype=g.dtype,
-                         device=g.device) if path == SPLIT else dx)
+    dx = g.new_empty(n, h, wd, cout)
+    parts = g.new_empty(splits, n, h, wd, cout) if path == SPLIT else dx
     err = _build.lib().st2_conv3x3_bwd(
         _DTYPE_CODES[g.dtype], _PATH_CODES[path], g.data_ptr(), y.data_ptr(),
         wt.data_ptr(), dx.data_ptr(), parts.data_ptr(), n, h, wd, k, cout,
-        splits, kspan, torch.cuda.current_stream(g.device).cuda_stream)
+        splits, kspan, _build.stream(g))
     _build.check(err, 'st2_conv3x3_bwd (%s)' % path)
     bwd_launches += 1
     return dx

@@ -15,7 +15,15 @@ a view of the iterate) before any host copy. On the CPU they run the plain
 versions, preprocess_plain and deprocess_plain. Any other device raises.
 Both kernels do one float32 subtract or add per element, as the plain
 versions do, so the two agree bit for bit.
+
+A launch costs host time that, at these sizes, exceeds the kernel's own:
+the wrappers keep to a few tensor calls, the launch plan (image_plan) is
+built once per size and crosses as one pointer (ctypes converts each
+argument on every call), and the means are compiled into the kernel.
 """
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -34,9 +42,25 @@ deprocess_launches = 0
 _IN_CODES = {np.dtype(np.float32): 0, np.dtype(np.uint8): 1}
 _TORCH_IN_CODES = {torch.float32: 0, torch.uint8: 1}
 
+# The kernels' launch geometry (csrc/image.cu): threads a block, elements a
+# thread owns per step (4 RGB pixels), and the blocks 132 SMs hold at once
+# (2048 threads each).
+_THREADS = 256
+_GROUP = 12
+_RESIDENT_BLOCKS = 132 * 2048 // _THREADS
+_MAX_N = 2 ** 31 - 1    # the kernels index in 32 bits (C int n)
 
-def _mean_args():
-    return tuple(float(m) for m in MEAN_RGB)
+
+def image_plan(n, aligned):
+    """(blocks, groups, tail) of a launch over n elements: `groups` groups
+    of 12 elements (4 pixels) a thread as vectors where both pointers are
+    16-byte `aligned` (else none), then the elements from `tail` to n one at
+    a time; one thread for each group or tail element, at most the blocks
+    132 SMs hold at once (a grid-stride loop covers the rest)."""
+    groups = n // _GROUP if aligned else 0
+    tail = groups * _GROUP
+    work = max(groups, n - tail)
+    return max(1, min(-(-work // _THREADS), _RESIDENT_BLOCKS)), groups, tail
 
 
 def preprocess_plain(image, device):
@@ -73,22 +97,37 @@ def _host_image(image):
     return np.require(arr, requirements=('C', 'W'))
 
 
+@functools.lru_cache(maxsize=64)
+def _plan_arg(n, aligned, in_code=0):
+    """(plan, its address): image_plan as the kernels take it, a C
+    {in_dtype, n, blocks, groups, tail} (csrc/image.cu: Plan) built once
+    per size and kept alive here, so that a launch passes one pointer."""
+    plan = (ctypes.c_int * 5)(in_code, n, *image_plan(n, aligned))
+    return plan, ctypes.addressof(plan)
+
+
 def _launch_preprocess(src):
-    """src: an (H, W, 3) uint8 or float32 CUDA tensor."""
+    """src: an (H, W, 3) or (1, H, W, 3) uint8 or float32 CUDA tensor; the
+    result has its shape, in float32."""
     global preprocess_launches
-    if src.dtype not in _TORCH_IN_CODES:
+    code = _TORCH_IN_CODES.get(src.dtype)
+    if code is None:
         raise TypeError('preprocess: the kernel takes uint8 or float32, got '
                         '%s' % src.dtype)
-    if src.dim() != 3 or src.shape[-1] != 3:
-        raise ValueError('preprocess: expected (H, W, 3), got %s'
-                         % (tuple(src.shape),))
-    src = src.contiguous()
-    out = torch.empty((1,) + tuple(src.shape), dtype=torch.float32,
-                      device=src.device)
+    shape = src.shape
+    n = shape.numel()
+    if len(shape) != 3 and (len(shape) != 4 or shape[0] != 1) \
+            or shape[-1] != 3 or n > _MAX_N:
+        raise ValueError('preprocess: expected (H, W, 3) or (1, H, W, 3) '
+                         'with at most %d elements, got %s'
+                         % (_MAX_N, tuple(shape)))
+    if not src.is_contiguous():
+        src = src.contiguous()
+    out = torch.empty_like(src, dtype=torch.float32)
+    src_ptr, out_ptr = src.data_ptr(), out.data_ptr()
     err = _build.lib().st2_preprocess(
-        _TORCH_IN_CODES[src.dtype], src.data_ptr(), out.data_ptr(),
-        src.numel(), *_mean_args(),
-        torch.cuda.current_stream(src.device).cuda_stream)
+        src_ptr, out_ptr, _plan_arg(n, not (src_ptr | out_ptr) & 15, code)[1],
+        _build.stream(src))
     _build.check(err, 'st2_preprocess')
     preprocess_launches += 1
     return out
@@ -97,19 +136,28 @@ def _launch_preprocess(src):
 def _launch_deprocess(x):
     """x: a (1, H, W, 3) or (H, W, 3) float32 CUDA tensor."""
     global deprocess_launches
-    if x.dtype != torch.float32:
+    if x.dtype is not torch.float32:
         raise TypeError('deprocess: the kernel takes float32, got %s'
                         % x.dtype)
-    if x.dim() == 4 and x.shape[0] == 1:
-        x = x[0]
-    if x.dim() != 3 or x.shape[-1] != 3:
+    dim = x.dim()
+    if dim == 4:
+        one, h, w, c = x.shape
+    elif dim == 3:
+        one, (h, w, c) = 1, x.shape
+    if dim not in (3, 4) or one != 1 or c != 3:
         raise ValueError('deprocess: expected (1, H, W, 3), got %s'
                          % (tuple(x.shape),))
-    x = x.detach().contiguous()
-    out = torch.empty(tuple(x.shape), dtype=torch.float32, device=x.device)
+    n = h * w * 3
+    if n > _MAX_N:
+        raise ValueError('deprocess: %d elements, the kernel takes at most '
+                         '%d' % (n, _MAX_N))
+    if not x.is_contiguous():
+        x = x.contiguous()
+    out = x.new_empty(h, w, 3)
+    x_ptr, out_ptr = x.data_ptr(), out.data_ptr()
     err = _build.lib().st2_deprocess(
-        x.data_ptr(), out.data_ptr(), x.numel(), *_mean_args(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x_ptr, out_ptr, _plan_arg(n, not (x_ptr | out_ptr) & 15)[1],
+        _build.stream(x))
     _build.check(err, 'st2_deprocess')
     deprocess_launches += 1
     return out
@@ -121,8 +169,8 @@ def preprocess(image, device):
     device; the plain version for the CPU."""
     device = torch.device(device)
     if device.type == 'cuda':
-        return _launch_preprocess(torch.from_numpy(_host_image(image)).to(
-            device))
+        return _launch_preprocess(torch.from_numpy(
+            _host_image(image)[None]).to(device))
     if device.type == 'cpu':
         return preprocess_plain(image, device)
     raise RuntimeError('preprocess: no kernel for device %s' % device)

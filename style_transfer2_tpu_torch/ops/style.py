@@ -109,14 +109,13 @@ def _launch(feat, gram_style):
     # The host work above runs while the card is idle in a lone call, so it
     # is kept to a few tensor calls: one flat scratch buffer, the outputs in
     # their final shapes.
-    partials = torch.empty(n_partials, dtype=torch.float32, device=dev)
-    gdiff = torch.empty((cp, cp), dtype=torch.float32, device=dev)
-    sgrad = torch.empty((1, h, w, cp), dtype=torch.float32, device=dev)
+    partials = x.new_empty(n_partials)
+    gdiff = x.new_empty(cp, cp)
+    sgrad = x.new_empty(1, h, w, cp)
     err = _build.lib().st2_style_branch(
         x.data_ptr(), gs.data_ptr(), partials.data_ptr(), gdiff.data_ptr(),
         sgrad.data_ptr(), m, cp, chunk, n_chunks, rows, 1.0 / float(size),
-        2.0 / (float(c) * float(c) * float(size)),
-        torch.cuda.current_stream(dev).cuda_stream)
+        2.0 / (float(c) * float(c) * float(size)), _build.stream(x))
     _build.check(err, 'st2_style_branch')
     launches += 1
     if cp != c:

@@ -210,6 +210,75 @@ def test_image_wrappers_never_take_the_plain_path_on_cuda(cuda, monkeypatch):
         before[0] + 1, before[1] + 1)
 
 
+def _side_stream_input(cuda, host):
+    """(stream, tensor): a side stream on which a long sleep and then the
+    copy of `host` into a zeroed tensor are enqueued. A kernel launched on
+    that stream after them reads `host`'s values; one launched on another
+    stream would run during the sleep and read zeros."""
+    src = torch.zeros_like(host)
+    s = torch.cuda.Stream(cuda)
+    s.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(50_000_000)
+        src.copy_(host)
+    return s, src
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [np.uint8, np.float32])
+def test_image_kernels_launch_on_the_current_stream(cuda, dtype):
+    rng = np.random.RandomState(5)
+    img = (rng.randint(0, 256, (543, 724, 3)).astype(np.uint8)
+           if dtype == np.uint8
+           else np.float32(rng.uniform(-20, 275, (543, 724, 3))))
+    s, src = _side_stream_input(cuda, torch.from_numpy(img).to(cuda))
+    with torch.cuda.stream(s):
+        x = image._launch_preprocess(src)
+        y = image._launch_deprocess(x)
+    torch.cuda.synchronize()
+    want = image.preprocess_plain(img, cuda)
+    torch.testing.assert_close(x, want[0], rtol=0, atol=0)
+    torch.testing.assert_close(y, image.deprocess_plain(want), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [np.uint8, np.float32])
+def test_image_kernels_take_unaligned_views(cuda, dtype):
+    """Views that start one element into their storage are not 16-byte
+    aligned: the plan gives no vector groups, and the scalar path alone
+    gives the same bits."""
+    rng = np.random.RandomState(6)
+    img = (rng.randint(0, 256, (37, 41, 3)).astype(np.uint8)
+           if dtype == np.uint8
+           else np.float32(rng.uniform(-20, 275, (37, 41, 3))))
+    flat = torch.from_numpy(np.concatenate([np.zeros(1, dtype),
+                                            img.ravel()])).to(cuda)
+    src = flat[1:].view(img.shape)
+    assert src.data_ptr() % 16 != 0
+    assert image.image_plan(src.numel(), False)[1] == 0
+    x = image._launch_preprocess(src)
+    want = image.preprocess_plain(img, cuda)
+    torch.testing.assert_close(x, want[0], rtol=0, atol=0)
+    xv = torch.cat([torch.zeros(1, device=cuda), want.reshape(-1)])[1:].view(
+        want.shape)
+    assert xv.data_ptr() % 16 != 0
+    torch.testing.assert_close(image._launch_deprocess(xv),
+                               image.deprocess_plain(want), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_conv_forward_launches_on_the_current_stream(cuda):
+    x, w, b, _ = _conv_case(12, (1, 24, 40, 64), 64)
+    xt, wt, bt = (torch.from_numpy(a).to(cuda) for a in (x, w, b))
+    want = conv._launch_fwd(xt, wt, bt)
+    s, src = _side_stream_input(cuda, xt)
+    with torch.cuda.stream(s):
+        got = conv._launch_fwd(src, wt, bt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('method', ['lanczos3', 'bilinear'])
 @pytest.mark.parametrize('src,dst', [((543, 724), (768, 1024)),
