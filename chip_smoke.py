@@ -18,13 +18,15 @@ exits non-zero:
                the conv kernels at the 512px main-path shapes and at the
                iterate shapes of the 1024px ladder's top rung and of its
                odd 543x724 rung, float32 and bfloat16, within stated
-               tolerances, the backward's path (narrow, split, tile) of
-               each shape recorded; the style branch at the taps of the
-               512px, 543x724 and 768x1024 iterates; the image kernels
-               (preprocess from uint8 and float32, deprocess) at every
-               rung of the 1024px ladder, bit for bit. The conv backward
-               and the style branch must give the same bits on a second
-               call. Each row prints its time beside the plain version's
+               tolerances, the forward's path (tile, split, scalar) and
+               the backward's (narrow, split, tile) of each shape
+               recorded, and each step's conv times summed beside cuDNN's;
+               the style branch at the taps of the 512px, 543x724 and
+               768x1024 iterates; the image kernels (preprocess from uint8
+               and float32, deprocess) at every rung of the 1024px ladder,
+               bit for bit. The conv forward and backward and the style
+               branch must give the same bits on a second call. Each row
+               prints its time beside the plain version's
                (and their ratio), the least time the card could take (the
                bound) and the share of it reached, and, where one PyTorch
                call computes the same function, that call's time (cuDNN
@@ -52,8 +54,9 @@ exits non-zero:
                back-to-back calls with no sync (the enqueue cost), then
                device_ms, its kernels' own time from torch.profiler's CUDA
                events over PROFILE_CALLS calls (several kernels of one call
-               summed), and each image kernel's share of its byte bound at
-               768x1024. Last: the host loops keep the card busy for
+               summed), each step's conv device times summed beside cuDNN's
+               and the bound, and each image kernel's share of its byte
+               bound at 768x1024. Last: the host loops keep the card busy for
                seconds, and a profiler session leaves torch's host path
                slower for the rest of the process.
 
@@ -151,6 +154,11 @@ STYLE_CONVS = [
     (410, 512, 3, 64), (410, 512, 64, 64), (205, 256, 64, 128),
     (205, 256, 128, 128), (103, 128, 128, 256), (103, 128, 256, 256),
     (52, 64, 256, 512), (52, 64, 512, 512), (26, 32, 512, 512)]
+
+
+# The iterate sizes whose conv rows chip_smoke sums over one step, by the
+# `where` of their rows.
+STEP_SIZES = {'512': '384x512', '543x724': '543x724', '1024': '768x1024'}
 
 
 def style_taps(h, w):
@@ -388,14 +396,17 @@ def check_conv(torch, rng, shape, dtype_name, where, pending):
     del x32, w32, b32, g32, y_r, pre_r, dx_k, dx_r
 
     y = y_k.detach()
-    # Determinism: the backward's split sums run in a fixed order, so two
-    # calls on the same inputs give the same bits.
+    # Determinism: the split paths sum their partials in a fixed order, so
+    # two calls on the same inputs give the same bits.
+    require(torch.equal(conv._launch_fwd(x, wt, b),
+                        conv._launch_fwd(x, wt, b)),
+            'conv fwd %s %s: two calls differ' % (dtype_name, shape))
     require(torch.equal(conv._launch_bwd(g, y, w_bwd),
                         conv._launch_bwd(g, y, w_bwd)),
             'conv bwd %s %s: two calls differ' % (dtype_name, shape))
-    path, splits, _ = conv.bwd_plan(1, h, w, cout, cin, dtype,
-                                    torch.cuda.get_device_properties(
-                                        dev).multi_processor_count)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fpath, fsplits, _ = conv.fwd_plan(1, h, w, cin, cout, dtype, sms)
+    path, splits, _ = conv.bwd_plan(1, h, w, cout, cin, dtype, sms)
     def fwd():
         return conv._launch_fwd(x, wt, b)
 
@@ -432,12 +443,14 @@ def check_conv(torch, rng, shape, dtype_name, where, pending):
     bwd_l = median_ms(bwd_lib, torch)
     (fwd_b, fwd_by), (bwd_b, bwd_by) = conv_bounds(shape, dtype_name)
     gflop = 2 * 9 * h * w * cin * cout / 1e9
-    say('kernels', 'conv %-8s %-8s %-21s fwd %.3f ms (plain %.3f, x%.2f; '
-        'cuDNN %.3f; %.1f TFLOP/s, %.0f%% of bound %.3f) bwd %s%s %.3f ms '
-        '(plain %.3f, x%.2f; cuDNN dgrad %.3f; %.0f%% of bound %.3f%s) err '
-        '%.2g/%.2g%s; bwd bitwise repeatable' % (
-            dtype_name, where, shape, fwd_k, fwd_p, fwd_k / fwd_p, fwd_l,
-            gflop / fwd_k, 100 * fwd_b / fwd_k, fwd_b, path,
+    say('kernels', 'conv %-8s %-8s %-21s fwd %s%s %.3f ms (plain %.3f, '
+        'x%.2f; cuDNN %.3f, x%.2f; %.1f TFLOP/s, %.0f%% of bound %.3f) bwd '
+        '%s%s %.3f ms (plain %.3f, x%.2f; cuDNN dgrad %.3f; %.0f%% of bound '
+        '%.3f%s) err %.2g/%.2g%s; fwd and bwd bitwise repeatable' % (
+            dtype_name, where, shape, fpath,
+            '/%d' % fsplits if fsplits > 1 else '', fwd_k, fwd_p,
+            fwd_k / fwd_p, fwd_l, fwd_k / fwd_l, gflop / fwd_k,
+            100 * fwd_b / fwd_k, fwd_b, path,
             '/%d' % splits if splits > 1 else '', bwd_k, bwd_p,
             bwd_k / max(bwd_p, 1e-9), bwd_l, 100 * bwd_b / bwd_k, bwd_b,
             '' if bwd_tile is None else '; tile kernel %.3f' % bwd_tile,
@@ -447,7 +460,8 @@ def check_conv(torch, rng, shape, dtype_name, where, pending):
             'fwd_library_ms': fwd_l, 'fwd_bound_ms': fwd_b,
             'fwd_bound_by': fwd_by, 'bwd_bound_by': bwd_by,
             'bwd_ms': bwd_k, 'bwd_plain_ms': bwd_p, 'bwd_library_ms': bwd_l,
-            'bwd_bound_ms': bwd_b, 'bwd_path': path, 'bwd_splits': splits,
+            'bwd_bound_ms': bwd_b, 'fwd_path': fpath, 'fwd_splits': fsplits,
+            'bwd_path': path, 'bwd_splits': splits,
             'bwd_tile_ms': bwd_tile,
             'fwd_tflops': gflop / fwd_k, 'fwd_rel_err': fr,
             'bwd_rel_err': br, 'fwd_abs_err': fe, 'bwd_abs_err': be}
@@ -603,7 +617,9 @@ def phase_kernels(torch):
     # times a step counts three times), uint8 over the 7 rungs of the
     # 1024px ladder for the image kernels.
     parts = {k: [] for k in KERNELS}
-    sums_1024 = {}                 # dtype -> [fwd, plain, bwd, plain]
+    # (dtype, where) -> the conv rows of one step at that iterate size, a
+    # shape run three times a step three times.
+    steps = {}
 
     for dtype_name in ('float32', 'bfloat16'):
         cases = ([(s, '512') for s in ITERATE_CONVS]
@@ -625,14 +641,10 @@ def phase_kernels(torch):
             if dtype_name == 'float32' and where == '512':
                 parts['conv3x3_bias_relu_fwd'].append((row, 'fwd_'))
                 parts['conv3x3_bias_relu_bwd'].append((row, 'bwd_'))
-            if where == '1024':
-                sums = sums_1024.setdefault(dtype_name, [0.0] * 4)
-                for i, field in enumerate(('fwd_ms', 'fwd_plain_ms',
-                                           'bwd_ms', 'bwd_plain_ms')):
-                    sums[i] += row[field]
-        say('kernels', 'conv %s summed over one 1024px (768x1024) step\'s '
-            'shapes: fwd %.3f ms (plain %.3f), bwd %.3f ms (plain %.3f)'
-            % ((dtype_name,) + tuple(sums_1024[dtype_name])))
+            if where in STEP_SIZES:
+                steps.setdefault((dtype_name, where), []).append(row)
+        for where, size in STEP_SIZES.items():
+            step_sums(steps[(dtype_name, where)], dtype_name, size)
 
     for where, taps in STYLE_TAPS.items():
         total = [0.0, 0.0, 0.0]
@@ -662,7 +674,24 @@ def phase_kernels(torch):
                     parts[name].append((row, name + '_'))
     image_sums(parts, ('ms', 'library_ms'), 'kernels', 'ms', 4)
     write_kernels_json(rows)
-    return worst, rows, parts, pending
+    return worst, rows, parts, pending, steps
+
+
+def step_sums(step_rows, dtype_name, size):
+    """Prints the conv kernels' launch-inclusive times summed over one
+    step's shapes beside the plain version's and cuDNN's, and their ratio
+    to cuDNN's."""
+    total = {field: sum(r[field] for r in step_rows) for field in (
+        'fwd_ms', 'fwd_plain_ms', 'fwd_library_ms', 'fwd_bound_ms', 'bwd_ms',
+        'bwd_plain_ms', 'bwd_library_ms', 'bwd_bound_ms')}
+    say('kernels', 'conv %s summed over one %s step\'s shapes: fwd %.3f ms '
+        '(plain %.3f; cuDNN %.3f, x%.3f; bound %.3f), bwd %.3f ms (plain '
+        '%.3f; cuDNN dgrad %.3f, x%.3f; bound %.3f)' % (
+            dtype_name, size, total['fwd_ms'], total['fwd_plain_ms'],
+            total['fwd_library_ms'], total['fwd_ms'] / total['fwd_library_ms'],
+            total['fwd_bound_ms'], total['bwd_ms'], total['bwd_plain_ms'],
+            total['bwd_library_ms'], total['bwd_ms'] / total['bwd_library_ms'],
+            total['bwd_bound_ms']))
 
 
 def image_sums(parts, fields, phase, unit, digits):
@@ -680,7 +709,7 @@ def write_kernels_json(rows):
     (OUT_DIR / 'kernels.json').write_text(json.dumps(rows, indent=1))
 
 
-def phase_costs(torch, rows, parts, pending):
+def phase_costs(torch, rows, parts, pending, steps):
     """Each kernel's and library call's host_us, then its device_ms, on the
     inputs of phase 3, after every other phase: the host loops keep the
     card busy for seconds (which would heat it under the timings that
@@ -715,6 +744,11 @@ def phase_costs(torch, rows, parts, pending):
                 for prefix in prefixes)))
     image_sums(parts, ('host_us', 'library_host_us'), 'profile', 'host us',
                1)
+    for (dtype_name, where), step_rows in steps.items():
+        say('profile', 'conv %s %s step, summed: %s' % (
+            dtype_name, STEP_SIZES[where], '; '.join(
+                device_sum(step_rows, pre, lib) for pre, lib in (
+                    ('fwd_', 'cuDNN'), ('bwd_', 'cuDNN dgrad')))))
     top = [r for r in rows if r['kernel'] == 'image'
            and tuple(r['shape']) == LADDER_1024[-1]]
     say('profile', 'image kernels at %dx%d, device time against the byte '
@@ -722,6 +756,23 @@ def phase_costs(torch, rows, parts, pending):
             ' %s %s%s' % (name, r['dtype'], share(r, name + '_'))
             for r in top for name in ('preprocess', 'deprocess')),)))
     write_kernels_json(rows)
+
+
+def device_sum(step_rows, pre, lib):
+    """'fwd device_ms X (cuDNN Y, xR; S% of bound B), host H us (cuDNN
+    L)' over one step's rows; 'not measured' where a row's device time
+    is."""
+    def total(field):
+        values = [r[pre + field] for r in step_rows]
+        return None if None in values else sum(values)
+    mine, theirs = total('device_ms'), total('library_device_ms')
+    bound_ms = total('bound_ms')
+    text = '%s device_ms %s' % (pre.rstrip('_'), fmt(mine))
+    if mine is not None and theirs is not None:
+        text += ' (%s %.4f ms, x%.3f; %.1f%% of bound %.3f)' % (
+            lib, theirs, mine / theirs, 100 * bound_ms / mine, bound_ms)
+    return text + ', host %.1f us (%s %.1f)' % (
+        total('host_us'), lib, total('library_host_us'))
 
 
 def share(row, prefix):
@@ -1010,7 +1061,7 @@ def main():
     phase_build()
     from style_transfer2_tpu_torch.utils import tf32
     with tf32(False):              # TF32 off for the plain versions
-        worst, rows, parts, pending = phase_kernels(torch)
+        worst, rows, parts, pending, steps = phase_kernels(torch)
     log = CliLog()
     logging.getLogger('cli').addHandler(log)
     launches, rates = phase_main(torch)
@@ -1018,7 +1069,7 @@ def main():
         launches[name] += n
     phase_parity(torch)
     with tf32(False):
-        phase_costs(torch, rows, parts, pending)
+        phase_costs(torch, rows, parts, pending, steps)
     step = summarize(parts)
 
     kernels = [dict({'name': name, 'route': 'cuda',

@@ -47,7 +47,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # Entry point -> argument types (every entry returns a cudaError_t as int).
 _SIGNATURES = {
-    'st2_conv3x3_fwd': [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    'st2_conv3x3_fwd': [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _P],
     'st2_conv3x3_bwd': [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _P],
     'st2_style_branch': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,

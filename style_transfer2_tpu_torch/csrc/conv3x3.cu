@@ -12,19 +12,37 @@
 // What bounds it on this card: arithmetic. At the 512px main-path shapes
 // the trunk is ~55 GMAC per forward and K = 9*Cin is 27..4608, so the
 // kernels do ~70..600 multiply-adds per byte they read from device memory,
-// far above the memory roofline. Both kernels keep a block's operands on
-// chip: a block owns an 8x16 pixel tile by 64 output channels and stages
+// far above the memory roofline. Every kernel keeps a block's operands on
+// chip: a block owns a pixel tile by a block of output channels and stages
 // its input tile with a 1-pixel halo in BOTH H and W (the TPU kernel tiled
 // whole rows only because of Mosaic's block-shape rules) plus the matching
 // weight slice in shared memory, a few input channels at a time. The halo,
-// the SAME zero padding, odd H and W, Cin = 3 and Cout not a multiple of 64
-// are masks on load and store.
+// the SAME zero padding, odd H and W, Cin = 3 and Cout not a multiple of the
+// channel block are masks on load and store.
 //
-//   float32:  FP32 FMA, never TF32, so the float32 mode stays exact. Each
-//             thread keeps an 8-pixel x 4-channel accumulator in registers,
-//             reusing each input value across the three horizontal taps and
-//             each weight across 8 pixels. Bound by the FMA issue rate
-//             (67 TFLOP/s peak).
+//   float32:  FP32 FMA, never TF32, so the float32 mode stays exact; bound
+//             by the FMA issue rate (67 TFLOP/s peak). The forward takes
+//             one of three paths, chosen by shape (ops/conv.py:fwd_plan):
+//     tile:   Cin and Cout multiples of 4, 16-byte aligned operands. A
+//             block owns 16x16 pixels by 64 channels and each thread 8
+//             pixels x 8 channels, 64 accumulators; input and weights are
+//             staged 16 bytes at a time by cp.async into a two-stage ring,
+//             so the next channel slice is in flight while the current one
+//             is multiplied, and the outputs leave as 16-byte stores of 4
+//             channels.
+//     split:  the same kernel where its grid would end in a wave that
+//             leaves much of the card idle (it holds one block per SM at
+//             254-255 registers a thread): the input channels are split
+//             across blocks into partial sums, which a second pass adds in
+//             split order before it adds the bias and applies the ReLU (no
+//             atomics: two calls give the same bits).
+//     scalar: every other shape (conv1_1: Cin = 3) and unaligned views:
+//             8x16 pixels by 64 channels, 8 pixels x 4 channels a thread,
+//             staged one element at a time.
+//             The split planners are held to the card by `python -m
+//             style_transfer2_tpu_torch.split_sweep` (every split count of
+//             each forward and backward shape beside the planned one; its
+//             --fit scores the planners' constants on that output).
 //   bfloat16: tensor cores through mma.sync m16n8k16 (bf16 operands, f32
 //             accumulation, one rounding on store), 32 input channels staged
 //             per pass with 16-byte loads; each warp owns two 16-pixel rows
@@ -34,7 +52,7 @@
 //             traffic; wgmma with a TMA-fed ring is later work.
 //
 // The backward takes one of three paths, chosen by shape
-// (ops/conv.py:bwd_plan), because the forward's tile loses to cuDNN at two
+// (ops/conv.py:bwd_plan), because the 8x16-by-64 tile loses to cuDNN at two
 // kinds of backward shape:
 //   narrow: dx with Cout <= 8 (conv1_1: 3 channels), float32 or bfloat16.
 //           A 64-channel tile would spend 61 of every 64 FMAs on zero
@@ -48,8 +66,8 @@
 //   tile:   everything else.
 // The split and tile paths stage g and y 16 bytes at a time, mask in
 // registers and read the next channel slice into registers while the
-// current one is multiplied (the forward staged one element at a time,
-// with nothing in flight while it computed).
+// current one is multiplied (the mask rules out the forward's cp.async:
+// the staged values are not the loaded bytes).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -68,8 +86,9 @@ constexpr int THREADS = 256;
 
 constexpr int KC = 8;     // input channels staged per pass (FMA kernels)
 
-// Forward. x: (N, H, W, Cin); w: (3, 3, Cin, Cout); b: (Cout,);
-// out: (N, H, W, Cout). Grid: (ceil(H/TH) * ceil(W/TW), ceil(Cout/TC), N).
+// Forward, the scalar path. x: (N, H, W, Cin); w: (3, 3, Cin, Cout); b:
+// (Cout,); out: (N, H, W, Cout). Grid: (ceil(H/TH) * ceil(W/TW),
+// ceil(Cout/TC), N).
 __global__ void __launch_bounds__(THREADS)
 conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ b, float* __restrict__ out,
@@ -163,6 +182,229 @@ conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
       out[(img + (size_t)gh * W + gw) * Cout + co] =
           fmaxf(acc[p][j] + bias, 0.f);
     }
+  }
+}
+
+// ------------------------------------------------ float32 forward, vector
+
+// The forward's tile and split paths (Cin and Cout multiples of 4, 16-byte
+// aligned operands). A block owns FTH x FTW pixels by FTC output channels,
+// and each of its 256 threads 8 consecutive pixels of one row by 8
+// channels (co0 + 4*cg .. +3 and co0 + 32 + 4*cg .. +3, so that eight
+// neighbouring lanes read 128 contiguous bytes of a staged weight row): 64
+// accumulators, each staged weight used by 8 pixels and each staged input
+// by 8 channels times 3 horizontal taps. Per pass FK input channels of the
+// halo tile and of the 9 weight taps are copied 16 bytes at a time with
+// cp.async into a two-stage ring, so the next slice is in flight while the
+// current one is multiplied, one barrier a pass. Input pixels are staged
+// channel-minor, so a thread reads 4 channels of a pixel in one 16-byte
+// load. ptxas gives the kernel 254-255 registers and no spills, so one
+// block runs per SM; held to 128 registers for two it spills and runs
+// 1.3-1.9x slower, and 8 x 16 pixels by 128 channels (as many outputs a
+// block) ran 1-2% slower at the deep shapes on an H100.
+constexpr int FK = 8;           // input channels staged per pass
+constexpr int FTH = 16;         // output rows per block
+constexpr int FTW = 16;         // output columns per block
+constexpr int FTC = 64;         // output channels per block
+constexpr int FCG = FTC / 8;    // threads across the channels
+static_assert(THREADS / FCG * 8 == FTH * FTW, "threads tile the pixels");
+constexpr int FHALO = (FTH + 2) * (FTW + 2);   // staged pixels
+constexpr int F_IN = FHALO * FK;               // floats a stage: input
+constexpr int F_W = 9 * FK * FTC;              // floats a stage: weights
+constexpr int FSTAGES = 2;
+constexpr int FWD_SMEM = FSTAGES * (F_IN + F_W) * (int)sizeof(float);
+constexpr int F_IN_COPIES = (F_IN / 4 + THREADS - 1) / THREADS;
+constexpr int F_W_COPIES = (F_W / 4 + THREADS - 1) / THREADS;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem);
+  const int n = pred ? 16 : 0;   // 0: no read, 16 zero bytes written
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float4 bias_relu4(float4 a, float4 b) {
+  return make_float4(fmaxf(a.x + b.x, 0.f), fmaxf(a.y + b.y, 0.f),
+                     fmaxf(a.z + b.z, 0.f), fmaxf(a.w + b.w, 0.f));
+}
+
+// x: (N, H, W, Cin); w: (3, 3, Cin, Cout); b: (Cout,); out: (S, N, H, W,
+// Cout). Split s of S sums the input channels [s * kspan, min(Cin, (s + 1)
+// * kspan)) (kspan a multiple of FK). raw: out[s] gets the bare partial
+// sums (the split path; sum_splits_bias_relu_kernel finishes them);
+// otherwise (S = 1) ReLU(sum + b), the tile path. Grid: (ceil(H/FTH) *
+// ceil(W/FTW), ceil(Cout/FTC), N * S); dynamic shared memory FWD_SMEM.
+__global__ void __launch_bounds__(THREADS)
+conv3x3_f32_fwd_kernel(const float* __restrict__ x,
+                       const float* __restrict__ w,
+                       const float* __restrict__ b, float* __restrict__ out,
+                       int N, int H, int W, int Cin, int Cout, int kspan,
+                       bool raw) {
+  extern __shared__ __align__(16) float fwd_smem[];
+
+  const int tiles_w = (W + FTW - 1) / FTW;
+  const int h0 = (blockIdx.x / tiles_w) * FTH;
+  const int w0 = (blockIdx.x % tiles_w) * FTW;
+  const int co0 = blockIdx.y * FTC;
+  const int n = blockIdx.z % N;
+  const int split = blockIdx.z / N;
+  const int kbeg = split * kspan;
+  const int kend = min(Cin, kbeg + kspan);
+  const size_t img = (size_t)n * H * W;
+  const int tid = threadIdx.x;
+  const int cg = tid % FCG;
+  const int pg = tid / FCG;
+  const int pr = pg >> 1;
+  const int pc = (pg & 1) * 8;
+
+  // Stage `st` <- channels [k0, k0 + FK): the halo tile as [pixel][FK]
+  // and the weights as [tap][FK][FTC]. Out-of-image pixels, channels at or
+  // past kend and output channels past Cout are zero-filled (no read).
+  auto stage = [&](int st, int k0) {
+    float* s_in = fwd_smem + st * (F_IN + F_W);
+    float* s_w = s_in + F_IN;
+#pragma unroll
+    for (int it = 0; it < F_IN_COPIES; ++it) {
+      const int i = tid + it * THREADS;
+      if (i >= F_IN / 4) break;
+      const int q = i % (FK / 4);
+      const int pix = i / (FK / 4);
+      const int gh = h0 + pix / (FTW + 2) - 1;
+      const int gw = w0 + pix % (FTW + 2) - 1;
+      const int gk = k0 + 4 * q;
+      const bool ok = gh >= 0 && gh < H && gw >= 0 && gw < W && gk < kend;
+      cp_async16(s_in + 4 * i,
+                 ok ? x + (img + (size_t)gh * W + gw) * Cin + gk : x, ok);
+    }
+#pragma unroll
+    for (int it = 0; it < F_W_COPIES; ++it) {
+      const int i = tid + it * THREADS;
+      if (i >= F_W / 4) break;
+      const int q = i % (FTC / 4);
+      const int k = (i / (FTC / 4)) % FK;
+      const int tap = i / (FTC / 4 * FK);
+      const int gk = k0 + k;
+      const int gco = co0 + 4 * q;
+      const bool ok = gk < kend && gco < Cout;
+      cp_async16(s_w + 4 * i,
+                 ok ? w + ((size_t)tap * Cin + gk) * Cout + gco : w, ok);
+    }
+    cp_async_commit();
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[p][j] = 0.f;
+
+  const int passes = (kend - kbeg + FK - 1) / FK;
+  if (passes > 0) stage(0, kbeg);
+  for (int it = 0; it < passes; ++it) {
+    // This pass's copies have landed for every thread, and every thread
+    // is done with the stage the next copies overwrite.
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < passes) stage((it + 1) % FSTAGES, kbeg + (it + 1) * FK);
+    const float* s_in = fwd_smem + (it % FSTAGES) * (F_IN + F_W);
+    const float* s_w = s_in + F_IN;
+#pragma unroll
+    for (int kq = 0; kq < FK / 4; ++kq) {
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        // 10 pixels of the halo row by 4 channels: the 8 outputs' three
+        // horizontal taps.
+        const float* src = s_in + ((pr + dy) * (FTW + 2) + pc) * FK + 4 * kq;
+        float4 xv[10];
+#pragma unroll
+        for (int j = 0; j < 10; ++j)
+          xv[j] = *reinterpret_cast<const float4*>(src + j * FK);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const float* wr =
+                s_w + ((dy * 3 + dx) * FK + 4 * kq + kk) * FTC + 4 * cg;
+            const float4 wa = *reinterpret_cast<const float4*>(wr);
+            const float4 wb = *reinterpret_cast<const float4*>(wr + FTC / 2);
+#pragma unroll
+            for (int p = 0; p < 8; ++p) {
+              const float xs = lane4(xv[p + dx], kk);
+              acc[p][0] = fmaf(xs, wa.x, acc[p][0]);
+              acc[p][1] = fmaf(xs, wa.y, acc[p][1]);
+              acc[p][2] = fmaf(xs, wa.z, acc[p][2]);
+              acc[p][3] = fmaf(xs, wa.w, acc[p][3]);
+              acc[p][4] = fmaf(xs, wb.x, acc[p][4]);
+              acc[p][5] = fmaf(xs, wb.y, acc[p][5]);
+              acc[p][6] = fmaf(xs, wb.z, acc[p][6]);
+              acc[p][7] = fmaf(xs, wb.w, acc[p][7]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // 16-byte stores of 4 consecutive channels (Cout is a multiple of 4, so
+  // a group lies wholly inside or outside it).
+  const int gh = h0 + pr;
+  if (gh >= H) return;
+  const int c_lo = co0 + 4 * cg;
+  const int c_hi = c_lo + FTC / 2;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 b_lo = zero, b_hi = zero;
+  if (!raw) {
+    if (c_lo < Cout) b_lo = *reinterpret_cast<const float4*>(b + c_lo);
+    if (c_hi < Cout) b_hi = *reinterpret_cast<const float4*>(b + c_hi);
+  }
+  float* dst = out + (size_t)split * N * H * W * Cout;
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int gw = w0 + pc + p;
+    if (gw >= W) break;
+    float* o = dst + (img + (size_t)gh * W + gw) * Cout;
+    const float4 lo = make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
+    const float4 hi = make_float4(acc[p][4], acc[p][5], acc[p][6], acc[p][7]);
+    if (c_lo < Cout)
+      *reinterpret_cast<float4*>(o + c_lo) = raw ? lo : bias_relu4(lo, b_lo);
+    if (c_hi < Cout)
+      *reinterpret_cast<float4*>(o + c_hi) = raw ? hi : bias_relu4(hi, b_hi);
+  }
+}
+
+// y = ReLU(sum over s of parts[s] + b), the partials summed in split order
+// and the bias added after the whole sum. parts: (S, n4) float4s of
+// consecutive channels; b: (cout4,) float4s.
+__global__ void sum_splits_bias_relu_kernel(const float4* __restrict__ parts,
+                                            const float4* __restrict__ b,
+                                            float4* __restrict__ y,
+                                            long long n4, int cout4,
+                                            int splits) {
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < n4; e += (long long)gridDim.x * blockDim.x) {
+    float4 v = parts[e];
+    for (int s = 1; s < splits; ++s) {
+      const float4 p = parts[s * n4 + e];
+      v.x += p.x;
+      v.y += p.y;
+      v.z += p.z;
+      v.w += p.w;
+    }
+    y[e] = bias_relu4(v, b[e % cout4]);
   }
 }
 
@@ -777,22 +1019,62 @@ dim3 tile_grid(int n, int h, int wd, int cout) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 = success); -1 for an unknown dtype.
-extern "C" int st2_conv3x3_fwd(int dtype, const void* x, const void* w,
-                               const void* b, void* y, int n, int h, int wd,
-                               int cin, int cout, void* stream) {
-  const dim3 grid = tile_grid(n, h, wd, cout);
+// x: (n, h, wd, cin); w: (3, 3, cin, cout); b: (cout,); y: (n, h, wd,
+// cout). dtype: 0 = float32, 1 = bfloat16. path (ops/conv.py:fwd_plan):
+// 0 = the tile kernel (bfloat16; float32 with cin and cout multiples of 4
+// and every pointer 16-byte aligned); 2 = the float32 tile kernel split
+// over `splits` ranges of kspan input channels into parts (splits, n, h,
+// wd, cout), then summed in split order, the bias added and the ReLU
+// applied into y (the same conditions); 3 = the float32 scalar kernel, any
+// shape and alignment. Returns the first nonzero cudaGetLastError(), or -1
+// for a path, dtype or shape the kernels do not take.
+extern "C" int st2_conv3x3_fwd(int dtype, int path, const void* x,
+                               const void* w, const void* b, void* y,
+                               void* parts, int n, int h, int wd, int cin,
+                               int cout, int splits, int kspan,
+                               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    conv3x3_f32_kernel<<<grid, THREADS, 0, st>>>(
+  if (dtype == 1 && path == 0)
+    return launch_bf16_any<false>(tile_grid(n, h, wd, cout), st, x, nullptr,
+                                  w, b, y, h, wd, cin, cout);
+  if (dtype != 0) return -1;
+  if (path == 3) {
+    conv3x3_f32_kernel<<<tile_grid(n, h, wd, cout), THREADS, 0, st>>>(
         (const float*)x, (const float*)w, (const float*)b, (float*)y, h, wd,
         cin, cout);
     return (int)cudaGetLastError();
   }
-  if (dtype != 1) return -1;
-  return launch_bf16_any<false>(grid, st, x, nullptr, w, b, y, h, wd, cin,
-                                cout);
+  const uintptr_t addr = (uintptr_t)x | (uintptr_t)w | (uintptr_t)b |
+                         (uintptr_t)y | (uintptr_t)parts;
+  if (cin % 4 != 0 || cout % 4 != 0 || addr % 16 != 0) return -1;
+  if (path == 0) {
+    splits = 1;
+    kspan = cin;
+  } else if (path != 2 || splits < 2 || kspan % FK != 0 ||
+             (long long)(splits - 1) * kspan >= cin ||
+             (long long)splits * kspan < cin) {
+    return -1;
+  }
+  const bool raw = path == 2;
+  float* out = raw ? (float*)parts : (float*)y;
+  // Above 48 KB, dynamic shared memory must be allowed explicitly, once.
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv3x3_f32_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      FWD_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid(((h + FTH - 1) / FTH) * ((wd + FTW - 1) / FTW),
+                  (cout + FTC - 1) / FTC, n * splits);
+  conv3x3_f32_fwd_kernel<<<grid, THREADS, FWD_SMEM, st>>>(
+      (const float*)x, (const float*)w, (const float*)b, out, n, h, wd, cin,
+      cout, kspan, raw);
+  const int err = (int)cudaGetLastError();
+  if (err || !raw) return err;
+  const long long n4 = (long long)n * h * wd * cout / 4;
+  const int blocks = (int)std::min<long long>((n4 + 255) / 256, 4096);
+  sum_splits_bias_relu_kernel<<<blocks, 256, 0, st>>>(
+      (const float4*)parts, (const float4*)b, (float4*)y, n4, cout / 4,
+      splits);
+  return (int)cudaGetLastError();
 }
 
 // g, y: (n, h, wd, cin) cotangent and forward output; wt: (3, 3, cin, cout)

@@ -1,20 +1,30 @@
-"""What the float32 backward's split path buys, per shape and end to end.
+"""What the float32 split paths buy, per shape and end to end.
 
     python -m style_transfer2_tpu_torch.split_sweep [--steps 60] [--reps 2]
+    python -m style_transfer2_tpu_torch.split_sweep --fit sweep.jsonl
 
 1. At every float32 trunk backward shape of the 384x512, 543x724 and
    768x1024 iterates that does not take the narrow path, times the tile
-   backward split 1, 2, 3, 4, 6 and 8 ways (the counts ops.conv.bwd_plan
-   can pick; median CUDA-event time of 15 calls after 3 warm-ups) beside
-   the split bwd_plan picks: the measurements its cost model is held to.
-2. End to end: float32 L-BFGS steps at --size 512 and 724 (the 384x512 and
-   543x724 iterates, built as the CLI builds them) with bwd_plan as it is
-   and with every split replaced by the unsplit tile, in turns (on, off,
-   off, on, --reps times) in one process after warm-up; each turn times
-   --steps steps in one chunk with the host clock, synced at both ends.
+   backward split every way ops.conv.bwd_plan can pick (1 to 8 ranges of
+   channels; median CUDA-event time of 15 calls after 3 warm-ups) beside
+   the split bwd_plan picks and its rank among them: the measurements its
+   cost model is held to.
+2. Likewise the forward: every float32 forward shape of those iterates
+   and of the 410x512 style image (to conv5_1) that does not take the
+   scalar path, split 1 .. 8 ways beside fwd_plan's choice and its rank.
+3. End to end: float32 L-BFGS steps at --size 512 and 724 (the 384x512 and
+   543x724 iterates, built as the CLI builds them) with fwd_plan and
+   bwd_plan as they are and with every split replaced by the unsplit tile,
+   in turns (on, off, off, on, --reps times) in one process after warm-up;
+   each turn times --steps steps in one chunk with the host clock, synced
+   at both ends.
 
 Prints one JSON line per shape and per size. Needs CUDA; there is no CPU
-fallback.
+fallback. --fit reads the shape lines of such a run and needs no card:
+for each direction, each resident-block count (1, 2) and each split
+overhead in FIT_OVERHEADS, the summed time of the splits the planner would
+pick at those shapes, beside the fastest splits' sum and the worst ratio
+of one shape; the planners' constants are the least sum.
 """
 
 import argparse
@@ -29,22 +39,44 @@ from . import cli
 from .ops import conv
 from .utils import sm_count, tf32
 
-SPLIT_COUNTS = (1, 2, 3, 4, 6, 8)
 SIZES = (512, 724)
+FIT_OVERHEADS = (0.0, 0.02, 0.05, 0.08, 0.1, 0.15)
+# Each direction's planner and the names of its two fitted constants in
+# ops.conv.
+PLANNERS = {'fwd': ('fwd_plan', '_FWD_RESIDENT', '_FWD_SPLIT_OVERHEAD'),
+            'bwd': ('bwd_plan', '_BWD_RESIDENT', '_SPLIT_OVERHEAD')}
 
 
-def trunk_backward_shapes(h, w):
-    """(H, W, K, Cout) of each backward the iterate runs up to conv4_2 on an
-    h x w grid (ceil pools): the cotangent's K channels, dx's Cout."""
+def trunk_convs(h, w):
+    """(H, W, Cin, Cout) of each 3x3 conv an h x w image runs up to
+    conv4_2 (ceil pools), a shape run three times a step listed three
+    times."""
     shapes, cin = [], 3
     for block, (n, cout) in enumerate(((2, 64), (2, 128), (4, 256),
                                        (2, 512))):
         if block:
             h, w = -(-h // 2), -(-w // 2)
         for _ in range(n):
-            shapes.append((h, w, cout, cin))
+            shapes.append((h, w, cin, cout))
             cin = cout
     return shapes
+
+
+def trunk_backward_shapes(h, w):
+    """(H, W, K, Cout) of each backward the iterate runs up to conv4_2 on an
+    h x w grid: the cotangent's K channels, dx's Cout."""
+    return [(hh, ww, cout, cin) for hh, ww, cin, cout in trunk_convs(h, w)]
+
+
+def forward_shapes():
+    """(H, W, Cin, Cout) of every distinct float32 forward the 512px path
+    and the 1024px ladder's top rungs run: the trunk of the 384x512,
+    543x724 and 768x1024 iterates to conv4_2, and the 410x512 style image
+    to conv5_1 (once per style)."""
+    shapes = [s for hw in ((384, 512), (543, 724), (768, 1024), (410, 512))
+              for s in trunk_convs(*hw)]
+    shapes.append((26, 32, 512, 512))   # the style image's conv5_1
+    return list(dict.fromkeys(shapes))
 
 
 def median_ms(fn, reps=15, warmup=3):
@@ -62,6 +94,21 @@ def median_ms(fn, reps=15, warmup=3):
     return float(np.median(times))
 
 
+def split_plans(k):
+    """{splits: (path, splits, kspan)} of every split count the planners
+    can pick for k channels summed."""
+    plans = {}
+    for want in range(1, conv._MAX_SPLITS + 1):
+        kspan = -(-(-(-k // want)) // conv._KC) * conv._KC
+        splits = -(-k // kspan)
+        if splits != want or (splits > 1
+                              and kspan < conv._MIN_SPLIT_CHANNELS):
+            continue
+        plans[splits] = ((conv.TILE, 1, k) if splits == 1
+                         else (conv.SPLIT, splits, kspan))
+    return plans
+
+
 def sweep(shape, rng, dev):
     """{splits: ms} of the tile backward at one shape, and the plan's
     (path, splits)."""
@@ -71,29 +118,48 @@ def sweep(shape, rng, dev):
                                    device=dev))
     wt = conv.backward_weights(torch.as_tensor(np.float32(rng.normal(
         0, np.sqrt(2.0 / (9 * cout)), (3, 3, cout, k))), device=dev))
-    times = {}
-    for want in SPLIT_COUNTS:
-        kspan = -(-(-(-k // want)) // conv._KC) * conv._KC
-        splits = -(-k // kspan)
-        if splits != want or (splits > 1
-                              and kspan < conv._MIN_SPLIT_CHANNELS):
-            continue
-        plan = ((conv.TILE, 1, k) if splits == 1
-                else (conv.SPLIT, splits, kspan))
-        times[splits] = median_ms(lambda: conv._launch_bwd(g, y, wt, plan))
+    times = {splits: median_ms(lambda: conv._launch_bwd(g, y, wt, plan))
+             for splits, plan in split_plans(k).items()}
     path, splits, _ = conv.bwd_plan(1, h, w, k, cout, torch.float32,
                                     sm_count(dev))
     return times, path, splits
 
 
+def sweep_forward(shape, rng, dev):
+    """{splits: ms} of the forward at one shape (H, W, Cin, Cout), and
+    fwd_plan's (path, splits)."""
+    h, w, cin, cout = shape
+    x = torch.as_tensor(np.float32(rng.randn(1, h, w, cin)), device=dev)
+    wt = torch.as_tensor(np.float32(rng.normal(
+        0, np.sqrt(2.0 / (9 * cin)), (3, 3, cin, cout))), device=dev)
+    b = torch.as_tensor(np.float32(rng.randn(cout) * 0.1), device=dev)
+    times = {splits: median_ms(lambda: conv._launch_fwd(x, wt, b, plan))
+             for splits, plan in split_plans(cin).items()}
+    path, splits, _ = conv.fwd_plan(1, h, w, cin, cout, torch.float32,
+                                    sm_count(dev))
+    return times, path, splits
+
+
+def report(device, sms, kind, shape, times, path, splits):
+    """One JSON line: the times by split count, the plan and its rank (1:
+    the fastest)."""
+    best = min(times, key=times.get)
+    print(json.dumps({
+        'device': device, 'sms': sms, 'kind': kind, 'shape': list(shape),
+        'ms_by_splits': times, 'planned': [path, splits], 'fastest': best,
+        'planned_rank': sorted(times, key=times.get).index(splits) + 1,
+        'planned_over_fastest': times[splits] / times[best]}), flush=True)
+
+
 def without_splits(plan):
-    """bwd_plan with every SPLIT plan replaced by the unsplit tile."""
-    def bwd_plan(n, h, w, k, cout, dtype, sms):
+    """A planner (fwd_plan or bwd_plan) with every SPLIT plan replaced by
+    the unsplit tile."""
+    def unsplit(n, h, w, k, cout, dtype, sms):
         path, splits, kspan = plan(n, h, w, k, cout, dtype, sms)
         if path == conv.SPLIT:
             return conv.TILE, 1, k
         return path, splits, kspan
-    return bwd_plan
+    return unsplit
 
 
 def end_to_end(size, steps, reps, warmup):
@@ -109,21 +175,65 @@ def end_to_end(size, steps, reps, warmup):
                          np.random.RandomState(cli_args.seed))
     st.run_steps(warmup, fetch_image=False)
     torch.cuda.synchronize()
-    planned = conv.bwd_plan
+    planned = conv.fwd_plan, conv.bwd_plan
     rates = {'split': [], 'tile': []}
     try:
         for _ in range(reps):
             for which in ('split', 'tile', 'tile', 'split'):
-                conv.bwd_plan = (planned if which == 'split'
-                                 else without_splits(planned))
+                conv.fwd_plan, conv.bwd_plan = (
+                    planned if which == 'split'
+                    else tuple(map(without_splits, planned)))
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 st.run_steps(steps, fetch_image=False)
                 torch.cuda.synchronize()
                 rates[which].append(steps / (time.perf_counter() - t0))
     finally:
-        conv.bwd_plan = planned
+        conv.fwd_plan, conv.bwd_plan = planned
     return hw, rates
+
+
+def fit(lines):
+    """One dict per direction, resident-block count and overhead: the
+    summed ms of the splits the planner picks at the swept shapes (from
+    `lines`, this module's JSON output), the fastest splits' sum, and the
+    worst ratio of one shape (`unswept` counts the shapes whose planned
+    split the run did not time, left out of both sums). The module's
+    constants are restored."""
+    out = []
+    for kind, (name, resident_name, overhead_name) in PLANNERS.items():
+        rows = [r for r in lines if r.get('kind', '').startswith(kind)]
+        planner = getattr(conv, name)
+        saved = getattr(conv, resident_name), getattr(conv, overhead_name)
+        try:
+            for resident in (1, 2):
+                for overhead in FIT_OVERHEADS:
+                    setattr(conv, resident_name, resident)
+                    setattr(conv, overhead_name, overhead)
+                    planner.cache_clear()
+                    planned = fastest = 0.0
+                    worst, unswept = 1.0, 0
+                    for r in rows:
+                        times = {int(s): t
+                                 for s, t in r['ms_by_splits'].items()}
+                        splits = planner(1, *r['shape'], torch.float32,
+                                         r['sms'])[1]
+                        if splits not in times:
+                            unswept += 1
+                            continue
+                        planned += times[splits]
+                        fastest += min(times.values())
+                        worst = max(worst, times[splits] / min(
+                            times.values()))
+                    out.append({'kind': kind, 'resident': resident,
+                                'overhead': overhead, 'shapes': len(rows),
+                                'unswept': unswept, 'planned_ms': planned,
+                                'fastest_ms': fastest, 'worst': worst})
+        finally:
+            setattr(conv, resident_name, saved[0])
+            setattr(conv, overhead_name, saved[1])
+            planner.cache_clear()
+    return out
 
 
 def main(argv=None):
@@ -131,7 +241,16 @@ def main(argv=None):
     p.add_argument('--steps', type=int, default=60)
     p.add_argument('--reps', type=int, default=2)
     p.add_argument('--warmup', type=int, default=10)
+    p.add_argument('--fit', metavar='JSONL',
+                   help='fit the planners to an earlier run\'s output')
     args = p.parse_args(argv)
+    if args.fit:
+        with open(args.fit) as f:
+            lines = [json.loads(line) for line in f
+                     if line.startswith('{')]
+        for row in fit(lines):
+            print(json.dumps(row))
+        return 0
     if not torch.cuda.is_available():
         raise RuntimeError('split_sweep needs CUDA')
     dev = torch.device('cuda')
@@ -144,14 +263,13 @@ def main(argv=None):
                 if shape[3] <= conv._NARROW_MAX_COUT or shape in seen:
                     continue
                 seen.add(shape)
-                times, path, splits = sweep(shape, rng, dev)
-                best = min(times, key=times.get)
-                print(json.dumps({
-                    'device': device, 'shape_hwkc': list(shape),
-                    'ms_by_splits': times, 'planned': [path, splits],
-                    'fastest': best,
-                    'planned_over_fastest': times[splits] / times[best]}),
-                    flush=True)
+                report(device, sm_count(dev), 'bwd (H, W, K, Cout)', shape,
+                       *sweep(shape, rng, dev))
+        for shape in forward_shapes():
+            if shape[2] % 4 or shape[3] % 4:
+                continue            # the scalar path has no splits
+            report(device, sm_count(dev), 'fwd (H, W, Cin, Cout)', shape,
+                   *sweep_forward(shape, rng, dev))
     for size in SIZES:
         hw, rates = end_to_end(size, args.steps, args.reps, args.warmup)
         print(json.dumps({

@@ -279,6 +279,71 @@ def test_conv_forward_launches_on_the_current_stream(cuda):
     assert torch.equal(got, want)
 
 
+# (x shape, Cout, plan) of the float32 forward on each of its paths, at odd
+# H and W that no tile divides: the scalar path (Cin = 3); the tile path
+# with 8 x 16 pixels by 128 channels (Cout = 96 fills 3/4 of it) and with
+# 16 x 16 by 64, its last pass half-filled (Cin = 44); the split path with
+# a ragged last range (76 = 32 + 32 + 12 channels); and fwd_plan's own
+# split of the 512px conv4_2.
+FWD_PATH_CASES = [((1, 13, 29, 3), 96, (conv.SCALAR, 1, 3)),
+                  ((1, 37, 45, 64), 96, (conv.TILE, 1, 64)),
+                  ((2, 19, 21, 44), 64, (conv.TILE, 1, 44)),
+                  ((1, 37, 45, 76), 96, (conv.SPLIT, 3, 32)),
+                  ((1, 48, 64, 512), 512, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,cout,plan', FWD_PATH_CASES)
+def test_conv_forward_paths_match_plain_repeat_and_follow_the_stream(
+        cuda, shape, cout, plan):
+    x, w, b, _ = _conv_case(13, shape, cout)
+    xt, wt, bt = (torch.from_numpy(a).to(cuda) for a in (x, w, b))
+    if plan is None:
+        assert conv.fwd_plan(*shape, cout, torch.float32, torch.cuda.
+                             get_device_properties(cuda).multi_processor_count
+                             )[0] == conv.SPLIT
+    before = conv.fwd_launches
+    y = conv._launch_fwd(xt, wt, bt, plan)
+    y2 = conv._launch_fwd(xt, wt, bt, plan)
+    assert conv.fwd_launches == before + 2
+    want = conv.conv3x3_bias_relu_plain(xt, wt, bt)
+    assert float((y - want).abs().max()) <= 1e-4 * max(
+        1.0, float(want.abs().max()))
+    assert torch.equal(y, y2)
+    s, src = _side_stream_input(cuda, xt)
+    with torch.cuda.stream(s):
+        got = conv._launch_fwd(src, wt, bt, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, y)
+
+
+@pytest.mark.cuda
+def test_conv_forward_unaligned_view_takes_the_scalar_path(cuda,
+                                                           monkeypatch):
+    """A float32 view that starts one element into its storage is not
+    16-byte aligned: the wrapper launches the scalar path for it, which
+    matches the plain version."""
+    x, w, b, _ = _conv_case(14, (1, 9, 19, 64), 128)
+    flat = torch.from_numpy(np.concatenate([[0.0], x.ravel()]).astype(
+        np.float32)).to(cuda)
+    xv = flat[1:].view(x.shape)
+    assert xv.data_ptr() % 16 != 0
+    wt, bt = (torch.from_numpy(a).to(cuda) for a in (w, b))
+    lib, paths = conv._build.lib(), []
+
+    class Spy:
+        def st2_conv3x3_fwd(self, *args):
+            paths.append(args[1])
+            return lib.st2_conv3x3_fwd(*args)
+
+    monkeypatch.setattr(conv._build, 'lib', Spy)
+    y = conv._launch_fwd(xv, wt, bt)
+    assert paths == [conv._PATH_CODES[conv.SCALAR]]
+    want = conv.conv3x3_bias_relu_plain(xv, wt, bt)
+    assert float((y - want).abs().max()) <= 1e-4 * max(
+        1.0, float(want.abs().max()))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('method', ['lanczos3', 'bilinear'])
 @pytest.mark.parametrize('src,dst', [((543, 724), (768, 1024)),

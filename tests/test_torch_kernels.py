@@ -16,7 +16,7 @@ from style_transfer2_tpu.ops.pallas.conv import (
     conv3x3_bias_relu as jconv3x3_bias_relu)
 from style_transfer2_tpu.ops.pallas.style_kernel import (
     fused_style_branch as jfused_style_branch)
-from style_transfer2_tpu_torch import _build
+from style_transfer2_tpu_torch import _build, split_sweep
 from style_transfer2_tpu_torch.ops import conv, style
 
 CONV_CASES = [
@@ -239,8 +239,132 @@ def test_bwd_plan_follows_the_sm_count():
     assert conv.bwd_plan(*shape, F32, 24) == (conv.TILE, 1, 512)
 
 
+# Every float32 forward shape of the 512px path (the 384x512 iterate and
+# the 410x512 style image to conv5_1) and of the 1024px ladder's 543x724
+# and 768x1024 rungs.
+STYLE_FORWARDS = split_sweep.trunk_convs(410, 512) + [(26, 32, 512, 512)]
+FORWARDS = sorted({s for hw in ((384, 512), (543, 724), (768, 1024))
+                   for s in split_sweep.trunk_convs(*hw)}
+                  | set(STYLE_FORWARDS))
+
+
+@pytest.mark.parametrize('shape', FORWARDS)
+@pytest.mark.parametrize('sms', [132, 66, 16])
+def test_fwd_plan_covers_every_input_channel_once(shape, sms):
+    path, splits, kspan = conv.fwd_plan(1, *shape, F32, sms)
+    cin = shape[2]
+    owner = np.zeros(cin, np.int32)
+    for s in range(splits):
+        owner[s * kspan:min(cin, (s + 1) * kspan)] += 1
+    assert (owner == 1).all()
+    assert (splits - 1) * kspan < cin <= splits * kspan
+    if path == conv.SPLIT:
+        assert splits >= 2 and kspan % conv._KC == 0 and kspan >= 32
+    else:
+        assert (splits, kspan) == (1, cin)
+    if cin % 4:
+        assert path == conv.SCALAR
+
+
+# The 512px conv4 forwards and the style image's conv5_1: grids of 96 and
+# 16 blocks of 16 x 16 pixels by 64 channels on a 132-SM card.
+FWD_UNDERFILLED = [(48, 64, 256, 512), (48, 64, 512, 512), (26, 32, 512, 512)]
+# The 768x1024 iterate's shallow forwards: thousands of blocks.
+FWD_SHALLOW_1024 = [s for s in split_sweep.trunk_convs(768, 1024)
+                    if s[3] <= 256 and s[2] % 4 == 0]
+
+
+@pytest.mark.parametrize('shape', FWD_UNDERFILLED)
+def test_fwd_plan_splits_the_underfilled_grids(shape):
+    path, splits, kspan = conv.fwd_plan(1, *shape, F32, 132)
+    assert path == conv.SPLIT and splits >= 2 and kspan % 8 == 0
+
+
+@pytest.mark.parametrize('shape', FWD_SHALLOW_1024)
+def test_fwd_plan_keeps_the_tile_for_full_grids(shape):
+    assert conv.fwd_plan(1, *shape, F32, 132) == (conv.TILE, 1, shape[2])
+
+
+@pytest.mark.parametrize('shape', [(384, 512, 3, 64), (768, 1024, 3, 64),
+                                   (9, 33, 130, 3), (11, 20, 42, 24)])
+def test_fwd_plan_takes_the_scalar_path_unless_channels_come_in_fours(shape):
+    assert conv.fwd_plan(1, *shape, F32, 132) == (conv.SCALAR, 1, shape[2])
+
+
+def test_fwd_plan_bfloat16_never_splits():
+    for shape in FORWARDS:
+        assert conv.fwd_plan(1, *shape, torch.bfloat16, 132) == (
+            conv.TILE, 1, shape[2])
+
+
+def test_fwd_plan_follows_the_sm_count():
+    """A 96-block grid (the 512px conv4_2) splits on 132 SMs and not on
+    24, which it fills in four whole waves."""
+    shape = (1, 48, 64, 512, 512)
+    assert conv.fwd_plan(*shape, F32, 132)[0] == conv.SPLIT
+    assert conv.fwd_plan(*shape, F32, 24) == (conv.TILE, 1, 512)
+
+
+def test_split_sweep_covers_the_forwards():
+    assert sorted(split_sweep.forward_shapes()) == FORWARDS
+    plans = split_sweep.split_plans(512)
+    assert sorted(plans) == list(range(1, conv._MAX_SPLITS + 1))
+    assert plans[1] == (conv.TILE, 1, 512)
+    for splits, (path, got, kspan) in plans.items():
+        assert got == splits and (splits - 1) * kspan < 512 <= splits * kspan
+    unsplit = split_sweep.without_splits(conv.fwd_plan)
+    for shape in FWD_UNDERFILLED:
+        assert unsplit(1, *shape, F32, 132) == (conv.TILE, 1, shape[2])
+
+
+def test_ab_compare_reports_each_group_and_the_step_sums(tmp_path):
+    """Two synthetic chip_smoke runs: the tree's forward 10% slower at one
+    512px step's shapes, its backward and style rows as the parent's."""
+    import json
+    from style_transfer2_tpu_torch import ab_compare
+    step = split_sweep.trunk_convs(384, 512)
+
+    def run(name, fwd_ms):
+        rows = [{'kernel': 'conv3x3', 'dtype': 'float32', 'where': '512',
+                 'shape': list(s), 'fwd_ms': fwd_ms, 'bwd_ms': 2.0,
+                 'fwd_library_ms': 1.5} for s in dict.fromkeys(step)]
+        rows.append({'kernel': 'fused_style_branch', 'dtype': 'float32',
+                     'where': '512', 'shape': [384, 512, 64], 'ms': 0.5})
+        path = tmp_path / name
+        path.write_text(json.dumps(rows))
+        return str(path)
+
+    tree = ab_compare.load([run('t1', 1.1), run('t2', 1.1)])
+    parent = ab_compare.load([run('p1', 1.0)])
+    groups = {g['field']: g for g in ab_compare.compare(tree, parent, 1.03)}
+    assert groups['fwd_ms']['rows'] == len(set(step)) == 8
+    assert abs(groups['fwd_ms']['worst'] - 1.1) < 1e-12
+    assert len(groups['fwd_ms']['above_limit']) == 8
+    assert groups['bwd_ms']['above_limit'] == groups['ms']['above_limit'] == []
+    sums = ab_compare.step_sums(tree)['float32']['512']
+    assert len(step) == 10
+    np.testing.assert_allclose(sums['fwd_ms'], [11.0, 11.0])
+    np.testing.assert_allclose(sums['bwd_ms'], [20.0, 20.0])
+
+
+def test_split_sweep_fit_scores_each_constant_and_restores_them():
+    shape = [48, 64, 512, 512]
+    before = conv.fwd_plan(1, *shape, F32, 132)
+    assert before[:2] == (conv.SPLIT, 4)
+    times = {str(s): 1.0 + 0.01 * s for s in split_sweep.split_plans(512)}
+    times['4'] = 0.5
+    lines = [{'kind': 'fwd (H, W, Cin, Cout)', 'shape': shape, 'sms': 132,
+              'ms_by_splits': times}]
+    rows = [r for r in split_sweep.fit(lines) if r['kind'] == 'fwd']
+    assert len(rows) == 2 * len(split_sweep.FIT_OVERHEADS)
+    chosen = [r for r in rows if r['resident'] == conv._FWD_RESIDENT
+              and r['overhead'] == conv._FWD_SPLIT_OVERHEAD]
+    assert chosen[0]['planned_ms'] == chosen[0]['fastest_ms'] == 0.5
+    assert min(r['planned_ms'] for r in rows) == 0.5
+    assert conv.fwd_plan(1, *shape, F32, 132) == before
+
+
 def test_split_sweep_covers_the_trunk_and_turns_splits_off():
-    from style_transfer2_tpu_torch import split_sweep
     shapes = split_sweep.trunk_backward_shapes(384, 512)
     assert len(shapes) == 10 and shapes[0] == (384, 512, 64, 3)
     assert shapes[-1] == (48, 64, 512, 512)
