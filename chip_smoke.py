@@ -18,9 +18,13 @@ exits non-zero:
                the conv kernels at the 512px main-path shapes and at the
                iterate shapes of the 1024px ladder's top rung and of its
                odd 543x724 rung, float32 and bfloat16, within stated
-               tolerances, the forward's path (tile, split, scalar) and
-               the backward's (narrow, split, tile) of each shape
-               recorded, and each step's conv times summed beside cuDNN's;
+               tolerances, the forward's path (float32: tile, split,
+               scalar; bfloat16: wgmma, wgmma_split, tile) and the
+               backward's (narrow, split, tile; bfloat16 wgmma,
+               wgmma_split) of each shape recorded, in bfloat16 the
+               mma.sync kernel (tile) also held at every shape, forced
+               and on views one element off, and each step's conv
+               times summed beside cuDNN's;
                the style branch at the taps of the 512px, 543x724 and
                768x1024 iterates; the image kernels (preprocess from uint8
                and float32, deprocess) at every rung of the 1024px ladder,
@@ -36,7 +40,9 @@ exits non-zero:
   4. main    — the CLI's main() at --size 512 --optimizer lbfgs from the two
                example images, one step per dispatch (comparable with the
                first slice's runs), once in float32 and once in bfloat16:
-               finite, falling loss, the PNG written, every kernel launched.
+               finite, falling loss, the PNG written, every kernel launched
+               and each precision's conv paths (bfloat16: the wgmma kernel
+               in both directions) among the launches.
   5. ladder  — the CLI's main() at --size 1024 --multi-scale --min-scale 96,
                20 L-BFGS iterations a rung in the default chunked dispatch,
                in float32 and in bfloat16 with a 20-iteration float32
@@ -54,7 +60,9 @@ exits non-zero:
                back-to-back calls with no sync (the enqueue cost), then
                device_ms, its kernels' own time from torch.profiler's CUDA
                events over PROFILE_CALLS calls (several kernels of one call
-               summed), each step's conv device times summed beside cuDNN's
+               summed; two sessions that saw as many kernels must agree,
+               else "not measured"), each step's conv device times summed
+               beside cuDNN's
                and the bound, and each image kernel's share of its byte
                bound at 768x1024. Last: the host loops keep the card busy for
                seconds, and a profiler session leaves torch's host path
@@ -102,7 +110,12 @@ PARITY_RTOL = 5e-3        # tests/test_golden.py's trace tolerance
 # Calls of each kernel and library call under torch.profiler (device_ms),
 # and back-to-back calls timed on the host clock (host_us).
 PROFILE_CALLS = 3
-PROFILE_ATTEMPTS = 3      # sessions tried before a profile counts as empty
+# Sessions per profile: two, and more, up to PROFILE_ATTEMPTS, where they
+# disagree on how many kernels they saw (some sessions see only part of a
+# call's kernels). The sessions with the most kernels are kept, and two of
+# them must agree.
+PROFILE_SESSIONS = 2
+PROFILE_ATTEMPTS = 4
 HOST_CALLS = 200
 # What the summary line sums for each kernel (the style branch has no
 # library call: its library_* are None).
@@ -111,17 +124,22 @@ STEP_FIELDS = ('ms', 'plain_ms', 'bound_ms', 'library_ms', 'device_ms',
 
 KERNELS = ('conv3x3_bias_relu_fwd', 'conv3x3_bias_relu_bwd',
            'fused_style_branch', 'preprocess', 'deprocess')
+# Each kernel's sources (the first holds its entry point) and the TPU
+# kernel it replaces. The convs' bfloat16 wgmma paths and their split sum
+# run in conv3x3_wgmma.cu, everything else of the convs in conv3x3.cu.
+_CONV_SOURCES = ('style_transfer2_tpu_torch/csrc/conv3x3.cu',
+                 'style_transfer2_tpu_torch/csrc/conv3x3_wgmma.cu')
 SOURCES = {
-    'conv3x3_bias_relu_fwd': ('style_transfer2_tpu_torch/csrc/conv3x3.cu',
+    'conv3x3_bias_relu_fwd': (_CONV_SOURCES,
                               'style_transfer2_tpu/ops/pallas/conv.py:174'),
-    'conv3x3_bias_relu_bwd': ('style_transfer2_tpu_torch/csrc/conv3x3.cu',
+    'conv3x3_bias_relu_bwd': (_CONV_SOURCES,
                               'style_transfer2_tpu/ops/pallas/conv.py:183'),
-    'fused_style_branch': ('style_transfer2_tpu_torch/csrc/style.cu',
+    'fused_style_branch': (('style_transfer2_tpu_torch/csrc/style.cu',),
                            'style_transfer2_tpu/ops/pallas/'
                            'style_kernel.py:35'),
-    'preprocess': ('style_transfer2_tpu_torch/csrc/image.cu',
+    'preprocess': (('style_transfer2_tpu_torch/csrc/image.cu',),
                    'style_transfer2_tpu/ops/pallas/preprocess.py:34'),
-    'deprocess': ('style_transfer2_tpu_torch/csrc/image.cu',
+    'deprocess': (('style_transfer2_tpu_torch/csrc/image.cu',),
                   'style_transfer2_tpu/ops/pallas/preprocess.py:40'),
 }
 
@@ -233,30 +251,50 @@ def median_ms(fn, torch, reps=15, warmup=3):
     return float(np.median(times))
 
 
+def profile_session(fn, torch, calls):
+    """(kernels seen, their summed device ms) of one torch.profiler session
+    over `calls` calls of fn()."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(kernels), sum(e.device_time for e in kernels) / 1e3
+
+
+def agreed_ms(sessions, calls):
+    """The device ms per call from (kernels seen, summed ms) sessions: the
+    mean over the sessions that saw the most kernels, where at least two
+    of them did and saw some; else None. A session that saw fewer kernels
+    than another of the same calls missed some of them."""
+    most = max(count for count, _ in sessions)
+    kept = [ms for count, ms in sessions if count == most]
+    if most == 0 or len(kept) < 2:
+        return None
+    return sum(kept) / len(kept) / calls
+
+
 def device_ms(fn, torch, calls=PROFILE_CALLS):
     """The device's own milliseconds per call of fn(): the durations of
     every kernel it launched (all of them, where one call launches
-    several), from torch.profiler's CUDA events, averaged over `calls`
-    calls, or None where PROFILE_ATTEMPTS sessions saw no kernel. Call
-    after fn has been warmed up. A profiler session leaves torch's host
-    path slower for the rest of the process, so this runs after every
-    other timing (phase_costs)."""
-    from torch.profiler import ProfilerActivity, profile
+    several), from torch.profiler's CUDA events over `calls` calls, by
+    agreed_ms over PROFILE_SESSIONS sessions and up to PROFILE_ATTEMPTS
+    where they disagree; None where no two agree. Call after fn has been
+    warmed up. A profiler session leaves torch's host path slower for the
+    rest of the process, so this runs after every other timing
+    (phase_costs)."""
+    sessions = []
     for _ in range(PROFILE_ATTEMPTS):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.events()
-        total = sum(e.device_time for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total > 0:
-            return total / 1e3 / calls
-        say('profile', 'no device time in a session of %d events: %s' % (
-            len(events), sorted({(str(e.device_type), e.name[:40])
-                                 for e in events})[:12]))
+        sessions.append(profile_session(fn, torch, calls))
+        if len(sessions) >= PROFILE_SESSIONS:
+            ms = agreed_ms(sessions, calls)
+            if ms is not None:
+                return ms
+    say('profile', 'no two sessions agree: (kernels, ms) %s' % sessions)
     return None
 
 
@@ -281,11 +319,33 @@ def rel_err(got, want):
     return err, err / max(1.0, float(want.abs().max()))
 
 
+def path_counts():
+    """The conv wrappers' launches by direction and path."""
+    from style_transfer2_tpu_torch.ops import conv
+    return {'%s %s' % key: n for key, n in sorted(conv.path_launches.items())}
+
+
+def require_paths(what, precision):
+    """Each direction's kernels of the precision went through the paths
+    its planner picks for the trunk: bf16 through the wgmma kernel (and the
+    narrow backward, the mma.sync forward for conv1_1's 3 channels),
+    float32 through its tile and scalar kernels."""
+    from style_transfer2_tpu_torch.ops import conv
+    counts = conv.path_launches
+    want = ([('fwd', conv.WGMMA), ('bwd', conv.WGMMA), ('fwd', conv.TILE),
+             ('bwd', conv.NARROW)] if precision == 'bfloat16'
+            else [('fwd', conv.TILE), ('fwd', conv.SCALAR),
+                  ('bwd', conv.NARROW)])
+    for key in want:
+        require(counts.get(key, 0) > 0, '%s %s: no %s launches on the %s '
+                'path' % (what, precision, key[0], key[1]))
+
+
 def counters():
     """Every kernel's launch count, by name."""
     from style_transfer2_tpu_torch.ops import conv, image, style
-    return {'conv3x3_bias_relu_fwd': conv.fwd_launches,
-            'conv3x3_bias_relu_bwd': conv.bwd_launches,
+    return {'conv3x3_bias_relu_fwd': conv.launches('fwd'),
+            'conv3x3_bias_relu_bwd': conv.launches('bwd'),
             'fused_style_branch': style.launches,
             'preprocess': image.preprocess_launches,
             'deprocess': image.deprocess_launches}
@@ -293,7 +353,8 @@ def counters():
 
 def reset_counters():
     from style_transfer2_tpu_torch.ops import conv, image, style
-    conv.fwd_launches = conv.bwd_launches = style.launches = 0
+    style.launches = 0
+    conv.path_launches.clear()
     image.preprocess_launches = image.deprocess_launches = 0
 
 
@@ -393,6 +454,13 @@ def check_conv(torch, rng, shape, dtype_name, where, pending):
             'conv fwd %s %s: rel err %.3g' % (dtype_name, shape, fr))
     require(math.isfinite(br) and br <= TOL[dtype_name],
             'conv bwd %s %s: rel err %.3g' % (dtype_name, shape, br))
+    alt = {}
+    if dtype != torch.float32:
+        alt = check_mma_sync(torch, x, wt, b, g, y_k, w_bwd, y_r, dx_r,
+                             '%s %s' % (dtype_name, shape))
+        fe, be = (max([e] + [alt[k] for k in alt if k.startswith(d)
+                             and k.endswith('_abs_err')])
+                  for e, d in ((fe, 'fwd'), (be, 'bwd')))
     del x32, w32, b32, g32, y_r, pre_r, dx_k, dx_r
 
     y = y_k.detach()
@@ -416,12 +484,16 @@ def check_conv(torch, rng, shape, dtype_name, where, pending):
     fwd_k = median_ms(fwd, torch)
     fwd_p = median_ms(lambda: conv.conv3x3_bias_relu_plain(x, wt, b), torch)
     bwd_k = median_ms(bwd, torch)
-    # Where the narrow kernel is planned, the tile kernel it replaces, on
-    # the same inputs in the same run.
-    bwd_tile = None
-    if path == conv.NARROW:
+    # Where the narrow kernel is planned, and in bfloat16 everywhere, the
+    # tile kernel (in bfloat16 the mma.sync kernel) on the same inputs in
+    # the same run.
+    bwd_tile = fwd_tile = None
+    if path == conv.NARROW or alt:
         bwd_tile = median_ms(lambda: conv._launch_bwd(
             g, y, w_bwd, (conv.TILE, 1, cout)), torch)
+    if alt:
+        fwd_tile = median_ms(lambda: conv._launch_fwd(
+            x, wt, b, (conv.TILE, 1, cin)), torch)
     bwd_p = median_ms(lambda: torch.autograd.grad(
         conv.conv3x3_bias_relu_plain(xr, wt, b), xr, g), torch)
     # The plain backward's time includes its forward (autograd needs it);
@@ -446,7 +518,7 @@ def check_conv(torch, rng, shape, dtype_name, where, pending):
     say('kernels', 'conv %-8s %-8s %-21s fwd %s%s %.3f ms (plain %.3f, '
         'x%.2f; cuDNN %.3f, x%.2f; %.1f TFLOP/s, %.0f%% of bound %.3f) bwd '
         '%s%s %.3f ms (plain %.3f, x%.2f; cuDNN dgrad %.3f; %.0f%% of bound '
-        '%.3f%s) err %.2g/%.2g%s; fwd and bwd bitwise repeatable' % (
+        '%.3f%s) err %.2g/%.2g%s; fwd and bwd bitwise repeatable%s' % (
             dtype_name, where, shape, fpath,
             '/%d' % fsplits if fsplits > 1 else '', fwd_k, fwd_p,
             fwd_k / fwd_p, fwd_l, fwd_k / fwd_l, gflop / fwd_k,
@@ -454,7 +526,12 @@ def check_conv(torch, rng, shape, dtype_name, where, pending):
             '/%d' % splits if splits > 1 else '', bwd_k, bwd_p,
             bwd_k / max(bwd_p, 1e-9), bwd_l, 100 * bwd_b / bwd_k, bwd_b,
             '' if bwd_tile is None else '; tile kernel %.3f' % bwd_tile,
-            fr, br, plain_note))
+            fr, br, plain_note, '' if not alt else (
+                '; mma.sync fwd %.3f ms err %.2g, unaligned view %.2g; bwd '
+                'err %.2g, unaligned view %.2g; bitwise repeatable' % (
+                    fwd_tile, alt['fwd_tile_rel_err'],
+                    alt['fwd_unaligned_rel_err'], alt['bwd_tile_rel_err'],
+                    alt['bwd_unaligned_rel_err']))))
     row = {'kernel': 'conv3x3', 'dtype': dtype_name, 'where': where,
             'shape': list(shape), 'fwd_ms': fwd_k, 'fwd_plain_ms': fwd_p,
             'fwd_library_ms': fwd_l, 'fwd_bound_ms': fwd_b,
@@ -462,13 +539,62 @@ def check_conv(torch, rng, shape, dtype_name, where, pending):
             'bwd_ms': bwd_k, 'bwd_plain_ms': bwd_p, 'bwd_library_ms': bwd_l,
             'bwd_bound_ms': bwd_b, 'fwd_path': fpath, 'fwd_splits': fsplits,
             'bwd_path': path, 'bwd_splits': splits,
-            'bwd_tile_ms': bwd_tile,
+            'bwd_tile_ms': bwd_tile, 'fwd_tile_ms': fwd_tile,
             'fwd_tflops': gflop / fwd_k, 'fwd_rel_err': fr,
-            'bwd_rel_err': br, 'fwd_abs_err': fe, 'bwd_abs_err': be}
+            'bwd_rel_err': br, 'fwd_abs_err': fe, 'bwd_abs_err': be,
+            **{k: v for k, v in alt.items() if k.endswith('_rel_err')}}
     pending.extend((row, prefix, fn) for prefix, fn in (
         ('fwd_', fwd), ('bwd_', bwd), ('fwd_library_', fwd_lib),
         ('bwd_library_', bwd_lib)))
     return row
+
+
+def check_mma_sync(torch, x, wt, b, g, y, w_bwd, y_r, dx_r, what):
+    """Holds the bfloat16 mma.sync kernel, which the port takes for
+    conv1_1's forward, channels not in eights and operands not 16-byte
+    aligned, against the references y_r and dx_r at a shape the planner
+    gives to wgmma: forced through its plan on the aligned inputs (16-byte
+    staging), twice for the same bits, and planned on views one element
+    off (element staging), which the wrappers must send to it. Returns
+    {fwd|bwd}_{tile|unaligned}_{rel|abs}_err."""
+    from style_transfer2_tpu_torch.ops import conv
+    from style_transfer2_tpu_torch.utils import sm_count
+    cin, cout = x.shape[3], wt.shape[3]
+
+    def shifted(t):
+        view = t.new_empty(t.numel() + 1)[1:].view_as(t)
+        return view.copy_(t)
+
+    def tile_launches():
+        return {d: conv.path_launches.get((d, conv.TILE), 0)
+                for d in ('fwd', 'bwd')}
+
+    tile_fwd, tile_bwd = (conv.TILE, 1, cin), (conv.TILE, 1, cout)
+    before = tile_launches()
+    got = {
+        'fwd_tile': conv._launch_fwd(x, wt, b, tile_fwd),
+        'fwd_unaligned': conv._launch_fwd(shifted(x), wt, b),
+        'bwd_tile': conv._launch_bwd(g, y, w_bwd, tile_bwd),
+        'bwd_unaligned': conv._launch_bwd(shifted(g), y, w_bwd)}
+    after = tile_launches()
+    n, h, w = x.shape[:3]
+    narrow = conv.bwd_plan(n, h, w, cout, cin, x.dtype, sm_count(
+        x.device))[0] == conv.NARROW     # which an unaligned g keeps
+    for d, want in (('fwd', 2), ('bwd', 1 if narrow else 2)):
+        require(after[d] - before[d] == want, 'conv %s %s: an unaligned '
+                'view did not take the mma.sync path' % (d, what))
+    require(torch.equal(got['fwd_tile'],
+                        conv._launch_fwd(x, wt, b, tile_fwd))
+            and torch.equal(got['bwd_tile'],
+                            conv._launch_bwd(g, y, w_bwd, tile_bwd)),
+            'conv %s mma.sync: two calls differ' % what)
+    errs = {}
+    for name, out in got.items():
+        err, rel = rel_err(out, y_r if name.startswith('fwd') else dx_r)
+        require(math.isfinite(rel) and rel <= TOL['bfloat16'],
+                'conv %s %s (mma.sync): rel err %.3g' % (name, what, rel))
+        errs[name + '_abs_err'], errs[name + '_rel_err'] = err, rel
+    return errs
 
 
 def check_style(torch, rng, tap, where, pending):
@@ -840,8 +966,10 @@ def phase_main(torch):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = counters()
+        paths = path_counts()
         require(rc == 0, 'cli.main returned %r' % (rc,))
         require_all_launched(counts, 'main ' + precision)
+        require_paths('main', precision)
         for name, n in counts.items():
             launches[name] += n
 
@@ -858,9 +986,9 @@ def phase_main(torch):
             require(img.size == (512, 384), 'PNG size %s' % (img.size,))
         rates[precision] = it_s
         say('main', '%s: %d L-BFGS iterations at 512x384, loss %.6g -> '
-            '%.6g, %.2f it/s (steady), %.1f s wall; launches %s' % (
-                precision, ITERATIONS, losses[0], losses[-1], it_s, wall,
-                counts))
+            '%.6g, %.2f it/s (steady), %.1f s wall; launches %s; conv '
+            'paths %s' % (precision, ITERATIONS, losses[0], losses[-1],
+                          it_s, wall, counts, paths))
     return launches, rates
 
 
@@ -901,8 +1029,10 @@ def phase_ladder(torch, log):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = counters()
+        paths = path_counts()
         require(rc == 0, 'cli.main returned %r' % (rc,))
         require_all_launched(counts, 'ladder ' + precision)
+        require_paths('ladder', precision)
         for name, n in counts.items():
             launches[name] += n
         rung_logs = log.args_of('scale %dx%d: %d iters in %.2fs '
@@ -965,9 +1095,10 @@ def phase_ladder(torch, log):
                     precision, POLISH, top_wh[1], top_wh[0], polish_s[0],
                     losses[0], losses[-1]))
         say('ladder', '%s: %d rungs x %d iterations%s, %.2f s wall; '
-            'launches %s' % (precision, len(LADDER_1024), LADDER_ITERATIONS,
-                             ' + %d polish' % POLISH if extra else '', wall,
-                             counts))
+            'launches %s; conv paths %s' % (
+                precision, len(LADDER_1024), LADDER_ITERATIONS,
+                ' + %d polish' % POLISH if extra else '', wall, counts,
+                paths))
 
         # The single-scale run of as many iterations, for the first
         # benchmark's comparison (a measurement, not a checked path).
@@ -1073,7 +1204,8 @@ def main():
     step = summarize(parts)
 
     kernels = [dict({'name': name, 'route': 'cuda',
-                     'source': SOURCES[name][0],
+                     'source': SOURCES[name][0][0],
+                     'sources': list(SOURCES[name][0]),
                      'replaces': SOURCES[name][1],
                      'launches': launches[name], 'max_abs_err': worst[name]},
                     **step[name]) for name in KERNELS]

@@ -1,8 +1,9 @@
 """Builds the CUDA kernels in csrc/ and binds them with ctypes.
 
-The sources are compiled at first use, on the machine with the card, by
-nvcc into one shared library with a plain C interface: one nvcc per
-source, all started together, then one link:
+The sources (csrc/conv3x3.cu, conv3x3_wgmma.cu, style.cu, image.cu) are
+compiled at first use, on the machine with the card, by nvcc into one
+shared library with a plain C interface: one nvcc per source, all started
+together, then one link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu  (each)

@@ -5,13 +5,16 @@
         --parent c/kernels.json d/kernels.json [--limit 1.03]
 
 Each kernels.json is the one chip_smoke.py writes to its OUT_DIR. For
-every row (kernel, dtype, where, shape) and each launch-inclusive time in
-it (conv fwd_ms and bwd_ms, the style branch's ms, the image kernels'
-preprocess_ms and deprocess_ms), the tree's mean over its runs is divided
-by the parent's. Prints one JSON line per
-group of rows (kernel, dtype and field) with its row count, the worst and
-median ratio and the rows above --limit, then the float32 and bfloat16
-conv times summed over one step of each iterate size for both trees.
+every row (kernel, dtype, where, shape) and each time in it (the
+launch-inclusive conv fwd_ms and bwd_ms, the style branch's ms, the image
+kernels' preprocess_ms and deprocess_ms; each kernel's device_ms from the
+profile phase, and its host_us), the tree's mean over its runs is divided
+by the parent's. Prints one JSON line per group of rows (kernel, dtype and
+field) with its row count, the worst and median ratio, the rows above
+--limit and the group's sums over its rows in both trees (rows where a run
+did not measure the field are left out of the group), then the float32
+and bfloat16 conv times summed over one step of each iterate size for
+both trees.
 Reads files only: run the trees in one call on one card, in turns (tree,
 parent, parent, tree).
 """
@@ -23,8 +26,16 @@ import sys
 
 from .split_sweep import trunk_convs
 
-FIELDS = {'conv3x3': ('fwd_ms', 'bwd_ms'), 'fused_style_branch': ('ms',),
-          'image': ('preprocess_ms', 'deprocess_ms')}
+FIELDS = {'conv3x3': ('fwd_ms', 'bwd_ms', 'fwd_device_ms', 'bwd_device_ms',
+                      'fwd_host_us', 'bwd_host_us'),
+          'fused_style_branch': ('ms', 'device_ms', 'host_us'),
+          'image': ('preprocess_ms', 'deprocess_ms', 'preprocess_device_ms',
+                    'deprocess_device_ms', 'preprocess_host_us',
+                    'deprocess_host_us')}
+# What step_sums adds up over one step's conv rows.
+STEP_FIELDS = ('fwd_ms', 'bwd_ms', 'fwd_library_ms', 'fwd_device_ms',
+               'bwd_device_ms', 'fwd_library_device_ms',
+               'bwd_library_device_ms', 'fwd_host_us', 'bwd_host_us')
 # The iterate sizes chip_smoke.py sums over one step (its STEP_SIZES), by
 # the `where` of their rows.
 STEP_SIZES = {'512': (384, 512), '543x724': (543, 724), '1024': (768, 1024)}
@@ -43,7 +54,9 @@ def load(paths):
 
 
 def mean(rows, field):
-    return statistics.fmean(r[field] for r in rows)
+    """The mean of a field over the runs, or None where a run lacks it."""
+    values = [r.get(field) for r in rows]
+    return None if None in values else statistics.fmean(values)
 
 
 def compare(tree, parent, limit):
@@ -54,24 +67,31 @@ def compare(tree, parent, limit):
             continue
         kernel, dtype, where, shape = key
         for field in FIELDS[kernel]:
-            ratio = mean(runs, field) / mean(parent[key], field)
+            mine, theirs = mean(runs, field), mean(parent[key], field)
+            if mine is None or theirs is None:
+                continue
             groups.setdefault((kernel, dtype, field), []).append(
-                (ratio, where, shape))
+                (mine / theirs, where, shape, mine, theirs))
     out = []
     for (kernel, dtype, field), ratios in sorted(groups.items()):
-        values = [r for r, _, _ in ratios]
+        values = [r[0] for r in ratios]
+        tree_sum = sum(r[3] for r in ratios)
+        parent_sum = sum(r[4] for r in ratios)
         out.append({'kernel': kernel, 'dtype': dtype, 'field': field,
                     'rows': len(values), 'worst': max(values),
                     'median': statistics.median(values),
+                    'tree_sum': tree_sum, 'parent_sum': parent_sum,
+                    'sum_ratio': tree_sum / parent_sum,
                     'above_limit': [[where, list(shape), r]
-                                    for r, where, shape in sorted(ratios)
-                                    if r > limit]})
+                                    for r, where, shape, _, _ in sorted(
+                                        ratios) if r > limit]})
     return out
 
 
 def step_sums(rows):
     """{dtype: {size: {field: ms}}}: each run's conv times summed over one
-    step, as [min, max] over the runs."""
+    step, as [min, max] over the runs; None for a field some row of a run
+    lacks."""
     sums = {}
     for dtype in ('float32', 'bfloat16'):
         for where, hw in STEP_SIZES.items():
@@ -82,17 +102,20 @@ def step_sums(rows):
                     per_run = None
                     break
                 if per_run is None:
-                    per_run = [dict.fromkeys(('fwd_ms', 'bwd_ms',
-                                              'fwd_library_ms'), 0.0)
+                    per_run = [dict.fromkeys(STEP_FIELDS, 0.0)
                                for _ in runs]
                 for total, row in zip(per_run, runs):
-                    for field in total:
-                        total[field] += row[field]
+                    for field in STEP_FIELDS:
+                        value = row.get(field)
+                        total[field] = (None if value is None
+                                        or total[field] is None
+                                        else total[field] + value)
             if per_run:
                 sums.setdefault(dtype, {})[where] = {
-                    field: [min(t[field] for t in per_run),
-                            max(t[field] for t in per_run)]
-                    for field in per_run[0]}
+                    field: (None if any(t[field] is None for t in per_run)
+                            else [min(t[field] for t in per_run),
+                                  max(t[field] for t in per_run)])
+                    for field in STEP_FIELDS}
     return sums
 
 

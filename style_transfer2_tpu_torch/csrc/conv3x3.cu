@@ -43,13 +43,28 @@
 //             style_transfer2_tpu_torch.split_sweep` (every split count of
 //             each forward and backward shape beside the planned one; its
 //             --fit scores the planners' constants on that output).
-//   bfloat16: tensor cores through mma.sync m16n8k16 (bf16 operands, f32
-//             accumulation, one rounding on store), 32 input channels staged
-//             per pass with 16-byte loads; each warp owns two 16-pixel rows
-//             of the tile by 64 channels and reads its A fragments straight
-//             from the staged halo tile with ldmatrix, so im2col never
-//             exists. Bound by the unpipelined staging and the ldmatrix
-//             traffic; wgmma with a TMA-fed ring is later work.
+//   bfloat16: two kernels, chosen by shape (ops/conv.py: fwd_plan,
+//             bwd_plan).
+//     wgmma, wgmma_split: conv3x3_wgmma.cu, for Cin and Cout multiples of
+//             8 and 16-byte aligned operands: Hopper's warpgroup MMAs fed
+//             by a 4-stage ring (the weights by bulk copies, the halo tile
+//             by cp.async), 16 x 16 pixels by 128 channels a block, and the
+//             input channels split across blocks where the grid would
+//             leave the card idle. Its note says what bounds it and what
+//             the design does about that.
+//     tile:   the mma.sync kernel below, for every other shape (conv1_1's
+//             Cin = 3; Cin or Cout not a multiple of 8) and unaligned
+//             views: mma.sync
+//             m16n8k16 (bf16 operands, f32 accumulation, one rounding on
+//             store), 32 input channels staged per pass, 16 bytes at a time
+//             where the channels come in eights and the pointers are 16-byte
+//             aligned, else one element at a time; each warp owns two
+//             16-pixel rows of an 8 x 16 tile by 64 channels and reads its A
+//             fragments straight from the staged halo tile with ldmatrix.
+//             Its staging is unpipelined (a barrier on each side of every
+//             slice), which held it to 17-23% of its bound at the deep
+//             layers; conv1_1's forward (3 input channels) is bound by
+//             memory and latency there, and beats cuDNN.
 //
 // The backward takes one of three paths, chosen by shape
 // (ops/conv.py:bwd_plan), because the 8x16-by-64 tile loses to cuDNN at two
@@ -807,10 +822,11 @@ __device__ __forceinline__ uint4 relu_mask8(uint4 v, uint4 y) {
 // straight from the halo tile with ldmatrix (a tap is a shifted window of
 // staged pixels, so im2col never exists) and four 16x16 B fragments with
 // ldmatrix.trans, and issues 16 MMAs into 2 x 8 accumulator tiles.
-// VEC_IN (Cin a multiple of 8): the input tile is staged 16 bytes at a
-// time; VEC_OUT (Cout a multiple of 8): so are the weight rows, and the
-// store writes channel pairs. Otherwise (conv1_1: Cin = 3 forward, Cout = 3
-// backward) that side goes element by element.
+// VEC_IN (Cin a multiple of 8, x and y 16-byte aligned): the input tile is
+// staged 16 bytes at a time; VEC_OUT (Cout a multiple of 8, w 16-byte
+// aligned): so are the weight rows, and the store writes channel pairs.
+// Otherwise (conv1_1: Cin = 3 forward; an unaligned view) that side goes
+// element by element.
 template <bool BWD, bool VEC_IN, bool VEC_OUT>
 __global__ void __launch_bounds__(MMA_THREADS)
 conv3x3_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
@@ -993,12 +1009,17 @@ int launch_bf16(const dim3& grid, cudaStream_t st, const void* x,
   return (int)cudaGetLastError();
 }
 
+// VEC_IN where the channels come in eights and x (and y) are 16-byte
+// aligned, VEC_OUT where Cout does and w is 16-byte and out 4-byte aligned:
+// a view into a larger tensor may start at any element.
 template <bool BWD>
 int launch_bf16_any(const dim3& grid, cudaStream_t st, const void* x,
                     const void* y, const void* w, const void* b, void* out,
                     int h, int wd, int cin, int cout) {
-  const bool vin = cin % 8 == 0;
-  const bool vout = cout % 8 == 0;
+  const bool vin = cin % 8 == 0 &&
+                   ((uintptr_t)x | (uintptr_t)(BWD ? y : x)) % 16 == 0;
+  const bool vout = cout % 8 == 0 && (uintptr_t)w % 16 == 0 &&
+                    (uintptr_t)out % 4 == 0;
   if (vin && vout)
     return launch_bf16<BWD, true, true>(grid, st, x, y, w, b, out, h, wd,
                                         cin, cout);
@@ -1019,15 +1040,25 @@ dim3 tile_grid(int n, int h, int wd, int cout) {
 
 }  // namespace
 
+// conv3x3_wgmma.cu: the bfloat16 wgmma kernel, unsplit or split.
+int conv3x3_bf16_wgmma(bool bwd, const void* x, const void* y,
+                       const void* w, const void* b, void* out, void* parts,
+                       int n, int h, int wd, int cin, int cout, int splits,
+                       int kspan, cudaStream_t st);
+
 // x: (n, h, wd, cin); w: (3, 3, cin, cout); b: (cout,); y: (n, h, wd,
 // cout). dtype: 0 = float32, 1 = bfloat16. path (ops/conv.py:fwd_plan):
-// 0 = the tile kernel (bfloat16; float32 with cin and cout multiples of 4
-// and every pointer 16-byte aligned); 2 = the float32 tile kernel split
-// over `splits` ranges of kspan input channels into parts (splits, n, h,
-// wd, cout), then summed in split order, the bias added and the ReLU
-// applied into y (the same conditions); 3 = the float32 scalar kernel, any
-// shape and alignment. Returns the first nonzero cudaGetLastError(), or -1
-// for a path, dtype or shape the kernels do not take.
+// 0 = the tile kernel (bfloat16: mma.sync, any shape and alignment;
+// float32 with cin and cout multiples of 4 and every pointer 16-byte
+// aligned); 2 = the float32 tile kernel split over `splits` ranges of
+// kspan input channels into parts (splits, n, h, wd, cout), then summed in
+// split order, the bias added and the ReLU applied into y (the same
+// conditions); 3 = the float32 scalar kernel, any shape and alignment;
+// 4 = the bfloat16 wgmma kernel (cin and cout multiples of 8, 16-byte
+// aligned operands, w blocked by ops/conv.py:wgmma_weights); 5 = the same
+// split like path 2, its float32 partials in parts. Returns the first
+// nonzero cudaGetLastError(), or -1 for a path, dtype or shape the kernels
+// do not take.
 extern "C" int st2_conv3x3_fwd(int dtype, int path, const void* x,
                                const void* w, const void* b, void* y,
                                void* parts, int n, int h, int wd, int cin,
@@ -1037,6 +1068,9 @@ extern "C" int st2_conv3x3_fwd(int dtype, int path, const void* x,
   if (dtype == 1 && path == 0)
     return launch_bf16_any<false>(tile_grid(n, h, wd, cout), st, x, nullptr,
                                   w, b, y, h, wd, cin, cout);
+  if (dtype == 1 && (path == 4 || path == 5))
+    return conv3x3_bf16_wgmma(false, x, nullptr, w, b, y, parts, n, h, wd,
+                              cin, cout, path == 4 ? 1 : splits, kspan, st);
   if (dtype != 0) return -1;
   if (path == 3) {
     conv3x3_f32_kernel<<<tile_grid(n, h, wd, cout), THREADS, 0, st>>>(
@@ -1081,11 +1115,12 @@ extern "C" int st2_conv3x3_fwd(int dtype, int path, const void* x,
 // the flipped, in/out-transposed forward weights; dx: (n, h, wd, cout).
 // path (ops/conv.py:bwd_plan): 0 = the tile kernel (float32 or bfloat16);
 // 1 = the narrow kernel (float32 or bfloat16; cout <= 8, cin a multiple
-// of 4); 2 = the
-// float32 tile kernel split over `splits` ranges of kspan cotangent
-// channels into parts (splits, n, h, wd, cout), then summed in split order
-// into dx. Returns the first nonzero cudaGetLastError(), or -1 for a path,
-// dtype or shape the kernels do not take.
+// of 4); 2 = the float32 tile kernel split over `splits` ranges of kspan
+// cotangent channels into parts (splits, n, h, wd, cout), then summed in
+// split order into dx; 4 and 5 = the bfloat16 wgmma kernel, unsplit and
+// split, as in st2_conv3x3_fwd (wt blocked likewise). Returns the first
+// nonzero cudaGetLastError(), or -1 for a path, dtype or shape the kernels
+// do not take.
 extern "C" int st2_conv3x3_bwd(int dtype, int path, const void* g,
                                const void* y, const void* wt, void* dx,
                                void* parts, int n, int h, int wd, int cin,
@@ -1117,6 +1152,9 @@ extern "C" int st2_conv3x3_bwd(int dtype, int path, const void* g,
   if (dtype == 1 && path == 0)
     return launch_bf16_any<true>(tile_grid(n, h, wd, cout), st, g, y, wt,
                                  nullptr, dx, h, wd, cin, cout);
+  if (dtype == 1 && (path == 4 || path == 5))
+    return conv3x3_bf16_wgmma(true, g, y, wt, nullptr, dx, parts, n, h, wd,
+                              cin, cout, path == 4 ? 1 : splits, kspan, st);
   if (dtype != 0) return -1;
   const float* gf = (const float*)g;
   const float* yf = (const float*)y;

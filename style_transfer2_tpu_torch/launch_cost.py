@@ -16,7 +16,12 @@ pair, and prints one JSON line with the median microseconds per call:
            deprocess wrapper with each;
   alloc  — torch.empty(..., device=) against Tensor.new_empty, given a
            tuple or the sizes as arguments, and torch.empty_like with a
-           dtype, for the wrappers' outputs.
+           dtype, for the wrappers' outputs;
+  conv_bf16 — at three bf16 conv shapes, the forward and backward
+           wrappers on the planned path (wgmma_split at the last), on the
+           unsplit wgmma path (their weights blocked once, then looked up)
+           and on the mma.sync tile path, and the blocked-weights lookup
+           alone.
 
 _build.LOADER is the loader this measurement chose.
 """
@@ -32,7 +37,12 @@ import numpy as np
 import torch
 
 from . import _build
-from .ops import image
+from .ops import conv, image
+
+# (H, W, Cin, Cout) of the bf16 convs conv_bf16 times: a 512px conv3 shape
+# and a 768x1024 conv2 shape, both planned on the unsplit wgmma path, and
+# the 512px conv4_2 shape, planned on wgmma_split in both directions.
+CONV_SHAPES = ((96, 128, 256, 256), (192, 256, 128, 128), (48, 64, 512, 512))
 
 
 def per_call_us(fn, calls):
@@ -57,6 +67,35 @@ def compare(variants, calls, rounds):
         for name in (names if r % 2 == 0 else names[::-1]):
             times[name].append(per_call_us(variants[name], calls))
     return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def conv_bf16(dev, calls, rounds):
+    """{shape: us per call} of the bf16 conv wrappers on each path."""
+    out = {}
+    for h, w, cin, cout in CONV_SHAPES:
+        bf = torch.bfloat16
+        x = torch.randn(1, h, w, cin, device=dev).to(bf)
+        wt = (torch.randn(3, 3, cin, cout, device=dev) * 0.05).to(bf)
+        b = torch.zeros(cout, device=dev, dtype=bf)
+        g = torch.randn(1, h, w, cout, device=dev).to(bf)
+        y = torch.relu(torch.randn(1, h, w, cout, device=dev)).to(bf)
+        wb = conv.backward_weights(wt)
+        wgmma, tile = (conv.WGMMA, 1, cin), (conv.TILE, 1, cin)
+        out['%dx%dx%dx%d' % (h, w, cin, cout)] = {
+            **compare({
+                'fwd_planned': lambda: conv._launch_fwd(x, wt, b),
+                'fwd_wgmma': lambda: conv._launch_fwd(x, wt, b, wgmma),
+                'fwd_tile': lambda: conv._launch_fwd(x, wt, b, tile)},
+                calls, rounds),
+            **compare({
+                'bwd_planned': lambda: conv._launch_bwd(g, y, wb),
+                'bwd_wgmma': lambda: conv._launch_bwd(
+                    g, y, wb, (conv.WGMMA, 1, cout)),
+                'bwd_tile': lambda: conv._launch_bwd(
+                    g, y, wb, (conv.TILE, 1, cout))}, calls, rounds),
+            **compare({'blocked_lookup': lambda: conv._wgmma_weights(wt)},
+                      calls, rounds)}
+    return out
 
 
 def main(argv=None):
@@ -114,6 +153,7 @@ def main(argv=None):
                 'empty_like(dtype)': lambda: torch.empty_like(
                     x, dtype=torch.float32)},
                 args.calls, args.rounds),
+            'conv_bf16': conv_bf16(dev, args.calls, args.rounds),
             'calls': args.calls, 'rounds': args.rounds,
             'loader_chosen': _build.LOADER.__name__}
     finally:

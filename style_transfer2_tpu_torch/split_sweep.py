@@ -1,30 +1,34 @@
-"""What the float32 split paths buy, per shape and end to end.
+"""What the split paths buy, per shape and end to end, in float32 and in
+bfloat16.
 
     python -m style_transfer2_tpu_torch.split_sweep [--steps 60] [--reps 2]
     python -m style_transfer2_tpu_torch.split_sweep --fit sweep.jsonl
 
-1. At every float32 trunk backward shape of the 384x512, 543x724 and
-   768x1024 iterates that does not take the narrow path, times the tile
-   backward split every way ops.conv.bwd_plan can pick (1 to 8 ranges of
-   channels; median CUDA-event time of 15 calls after 3 warm-ups) beside
-   the split bwd_plan picks and its rank among them: the measurements its
-   cost model is held to.
-2. Likewise the forward: every float32 forward shape of those iterates
-   and of the 410x512 style image (to conv5_1) that does not take the
-   scalar path, split 1 .. 8 ways beside fwd_plan's choice and its rank.
-3. End to end: float32 L-BFGS steps at --size 512 and 724 (the 384x512 and
-   543x724 iterates, built as the CLI builds them) with fwd_plan and
-   bwd_plan as they are and with every split replaced by the unsplit tile,
-   in turns (on, off, off, on, --reps times) in one process after warm-up;
-   each turn times --steps steps in one chunk with the host clock, synced
-   at both ends.
+1. At every trunk backward shape of the 384x512, 543x724 and 768x1024
+   iterates that does not take the narrow path, times the backward split
+   every way ops.conv.bwd_plan can pick (1 to 8 ranges of channels; median
+   CUDA-event time of 15 calls after 3 warm-ups) beside the split bwd_plan
+   picks and its rank among them: the measurements its cost model is held
+   to. Float32 (the tile kernel) and bfloat16 (the wgmma kernel).
+2. Likewise the forward: every forward shape of those iterates and of the
+   410x512 style image (to conv5_1) that the split kernels take (not the
+   float32 scalar path, not the bf16 mma.sync path), split 1 .. 8 ways
+   beside fwd_plan's choice and its rank, in both dtypes.
+3. End to end: L-BFGS steps at --size 512 and 724 (the 384x512 and 543x724
+   iterates, built as the CLI builds them) in float32 and bfloat16 with
+   fwd_plan and bwd_plan as they are and with every split replaced by the
+   unsplit kernel, in turns (on, off, off, on, --reps times) in one
+   process after warm-up; each turn times --steps steps in one chunk with
+   the host clock, synced at both ends.
 
 Prints one JSON line per shape and per size. Needs CUDA; there is no CPU
 fallback. --fit reads the shape lines of such a run and needs no card:
-for each direction, each resident-block count (1, 2) and each split
-overhead in FIT_OVERHEADS, the summed time of the splits the planner would
-pick at those shapes, beside the fastest splits' sum and the worst ratio
-of one shape; the planners' constants are the least sum.
+for each direction and dtype, each resident-block count (1, 2) and each
+value of the split cost constant (FIT_OVERHEADS for float32's overhead
+share, FIT_PARTIALS for bfloat16's partial-sum traffic), the summed time
+of the splits the planner would pick at those shapes, beside the fastest
+splits' sum and the worst ratio of one shape; the planners' constants are
+the least sum.
 """
 
 import argparse
@@ -41,10 +45,19 @@ from .utils import sm_count, tf32
 
 SIZES = (512, 724)
 FIT_OVERHEADS = (0.0, 0.02, 0.05, 0.08, 0.1, 0.15)
-# Each direction's planner and the names of its two fitted constants in
-# ops.conv.
-PLANNERS = {'fwd': ('fwd_plan', '_FWD_RESIDENT', '_FWD_SPLIT_OVERHEAD'),
-            'bwd': ('bwd_plan', '_BWD_RESIDENT', '_SPLIT_OVERHEAD')}
+FIT_PARTIALS = (0.0, 16.0, 32.0, 64.0, 96.0, 128.0, 192.0, 256.0)
+DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+# Each (direction, dtype)'s planner, the names of its two fitted constants
+# in ops.conv, and the values the second is fitted over.
+PLANNERS = {
+    ('fwd', 'float32'): ('fwd_plan', '_FWD_RESIDENT', '_FWD_SPLIT_OVERHEAD',
+                         FIT_OVERHEADS),
+    ('bwd', 'float32'): ('bwd_plan', '_BWD_RESIDENT', '_SPLIT_OVERHEAD',
+                         FIT_OVERHEADS),
+    ('fwd', 'bfloat16'): ('fwd_plan', '_BF16_FWD_RESIDENT',
+                          '_BF16_FWD_PARTIALS', FIT_PARTIALS),
+    ('bwd', 'bfloat16'): ('bwd_plan', '_BF16_BWD_RESIDENT',
+                          '_BF16_BWD_PARTIALS', FIT_PARTIALS)}
 
 
 def trunk_convs(h, w):
@@ -94,38 +107,42 @@ def median_ms(fn, reps=15, warmup=3):
     return float(np.median(times))
 
 
-def split_plans(k):
+def split_plans(k, dtype=torch.float32):
     """{splits: (path, splits, kspan)} of every split count the planners
-    can pick for k channels summed."""
+    can pick for k channels summed: the float32 tile kernel's ranges a
+    multiple of 8 channels, the bf16 wgmma kernel's of 16."""
+    unit = conv._KC if dtype == torch.float32 else conv._WG_K
+    whole, split = ((conv.TILE, conv.SPLIT) if dtype == torch.float32
+                    else (conv.WGMMA, conv.WGMMA_SPLIT))
     plans = {}
     for want in range(1, conv._MAX_SPLITS + 1):
-        kspan = -(-(-(-k // want)) // conv._KC) * conv._KC
+        kspan = -(-(-(-k // want)) // unit) * unit
         splits = -(-k // kspan)
         if splits != want or (splits > 1
                               and kspan < conv._MIN_SPLIT_CHANNELS):
             continue
-        plans[splits] = ((conv.TILE, 1, k) if splits == 1
-                         else (conv.SPLIT, splits, kspan))
+        plans[splits] = ((whole, 1, k) if splits == 1
+                         else (split, splits, kspan))
     return plans
 
 
-def sweep(shape, rng, dev):
-    """{splits: ms} of the tile backward at one shape, and the plan's
-    (path, splits)."""
+def sweep(shape, rng, dev, dtype=torch.float32):
+    """{splits: ms} of the backward at one shape, and the plan's (path,
+    splits)."""
     h, w, k, cout = shape
     g = torch.as_tensor(np.float32(rng.randn(1, h, w, k)), device=dev)
     y = torch.relu(torch.as_tensor(np.float32(rng.randn(1, h, w, k)),
                                    device=dev))
     wt = conv.backward_weights(torch.as_tensor(np.float32(rng.normal(
         0, np.sqrt(2.0 / (9 * cout)), (3, 3, cout, k))), device=dev))
+    g, y, wt = g.to(dtype), y.to(dtype), wt.to(dtype)
     times = {splits: median_ms(lambda: conv._launch_bwd(g, y, wt, plan))
-             for splits, plan in split_plans(k).items()}
-    path, splits, _ = conv.bwd_plan(1, h, w, k, cout, torch.float32,
-                                    sm_count(dev))
+             for splits, plan in split_plans(k, dtype).items()}
+    path, splits, _ = conv.bwd_plan(1, h, w, k, cout, dtype, sm_count(dev))
     return times, path, splits
 
 
-def sweep_forward(shape, rng, dev):
+def sweep_forward(shape, rng, dev, dtype=torch.float32):
     """{splits: ms} of the forward at one shape (H, W, Cin, Cout), and
     fwd_plan's (path, splits)."""
     h, w, cin, cout = shape
@@ -133,42 +150,46 @@ def sweep_forward(shape, rng, dev):
     wt = torch.as_tensor(np.float32(rng.normal(
         0, np.sqrt(2.0 / (9 * cin)), (3, 3, cin, cout))), device=dev)
     b = torch.as_tensor(np.float32(rng.randn(cout) * 0.1), device=dev)
+    x, wt, b = x.to(dtype), wt.to(dtype), b.to(dtype)
     times = {splits: median_ms(lambda: conv._launch_fwd(x, wt, b, plan))
-             for splits, plan in split_plans(cin).items()}
-    path, splits, _ = conv.fwd_plan(1, h, w, cin, cout, torch.float32,
+             for splits, plan in split_plans(cin, dtype).items()}
+    path, splits, _ = conv.fwd_plan(1, h, w, cin, cout, dtype,
                                     sm_count(dev))
     return times, path, splits
 
 
-def report(device, sms, kind, shape, times, path, splits):
+def report(device, sms, kind, dtype, shape, times, path, splits):
     """One JSON line: the times by split count, the plan and its rank (1:
     the fastest)."""
     best = min(times, key=times.get)
     print(json.dumps({
-        'device': device, 'sms': sms, 'kind': kind, 'shape': list(shape),
-        'ms_by_splits': times, 'planned': [path, splits], 'fastest': best,
+        'device': device, 'sms': sms, 'kind': kind, 'dtype': dtype,
+        'shape': list(shape), 'ms_by_splits': times,
+        'planned': [path, splits], 'fastest': best,
         'planned_rank': sorted(times, key=times.get).index(splits) + 1,
         'planned_over_fastest': times[splits] / times[best]}), flush=True)
 
 
 def without_splits(plan):
-    """A planner (fwd_plan or bwd_plan) with every SPLIT plan replaced by
-    the unsplit tile."""
+    """A planner (fwd_plan or bwd_plan) with every split plan replaced by
+    the same kernel unsplit."""
     def unsplit(n, h, w, k, cout, dtype, sms):
         path, splits, kspan = plan(n, h, w, k, cout, dtype, sms)
         if path == conv.SPLIT:
             return conv.TILE, 1, k
+        if path == conv.WGMMA_SPLIT:
+            return conv.WGMMA, 1, k
         return path, splits, kspan
     return unsplit
 
 
-def end_to_end(size, steps, reps, warmup):
-    """it/s of float32 L-BFGS steps at --size with and without splits, in
-    turns (on, off, off, on, ...)."""
+def end_to_end(size, steps, reps, warmup, precision='float32'):
+    """it/s of L-BFGS steps at --size in `precision` with and without
+    splits, in turns (on, off, off, on, ...)."""
     cli_args = cli.parse_args([
         str(cli.ROOT_DIR / 'examples' / 'golden_gate.jpg'),
         str(cli.ROOT_DIR / 'examples' / 'starry_night.jpg'),
-        '--size', str(size), '--precision', 'float32',
+        '--size', str(size), '--precision', precision,
         '--optimizer', 'lbfgs'])
     st, inputs, hw = cli.setup(cli_args)
     cli.start_first_rung(st, cli_args, cli.fit_content(inputs[2], hw), hw,
@@ -194,20 +215,25 @@ def end_to_end(size, steps, reps, warmup):
 
 
 def fit(lines):
-    """One dict per direction, resident-block count and overhead: the
-    summed ms of the splits the planner picks at the swept shapes (from
-    `lines`, this module's JSON output), the fastest splits' sum, and the
-    worst ratio of one shape (`unswept` counts the shapes whose planned
-    split the run did not time, left out of both sums). The module's
-    constants are restored."""
+    """One dict per direction, dtype, resident-block count and value of the
+    split cost constant: the summed ms of the splits the planner picks at
+    the swept shapes (from `lines`, this module's JSON output; a line with
+    no dtype is float32), the fastest splits' sum, and the worst ratio of
+    one shape (`unswept` counts the shapes whose planned split the run did
+    not time, left out of both sums). The module's constants are
+    restored."""
     out = []
-    for kind, (name, resident_name, overhead_name) in PLANNERS.items():
-        rows = [r for r in lines if r.get('kind', '').startswith(kind)]
+    for (kind, dtype), (name, resident_name, overhead_name,
+                        values) in PLANNERS.items():
+        rows = [r for r in lines if r.get('kind', '').startswith(kind)
+                and r.get('dtype', 'float32') == dtype]
+        if not rows:
+            continue
         planner = getattr(conv, name)
         saved = getattr(conv, resident_name), getattr(conv, overhead_name)
         try:
             for resident in (1, 2):
-                for overhead in FIT_OVERHEADS:
+                for overhead in values:
                     setattr(conv, resident_name, resident)
                     setattr(conv, overhead_name, overhead)
                     planner.cache_clear()
@@ -216,7 +242,7 @@ def fit(lines):
                     for r in rows:
                         times = {int(s): t
                                  for s, t in r['ms_by_splits'].items()}
-                        splits = planner(1, *r['shape'], torch.float32,
+                        splits = planner(1, *r['shape'], DTYPES[dtype],
                                          r['sms'])[1]
                         if splits not in times:
                             unswept += 1
@@ -225,7 +251,8 @@ def fit(lines):
                         fastest += min(times.values())
                         worst = max(worst, times[splits] / min(
                             times.values()))
-                    out.append({'kind': kind, 'resident': resident,
+                    out.append({'kind': kind, 'dtype': dtype,
+                                'resident': resident,
                                 'overhead': overhead, 'shapes': len(rows),
                                 'unswept': unswept, 'planned_ms': planned,
                                 'fastest_ms': fastest, 'worst': worst})
@@ -256,29 +283,36 @@ def main(argv=None):
     dev = torch.device('cuda')
     rng = np.random.RandomState(0)
     device = torch.cuda.get_device_name(0)
-    seen = set()
+    backwards = list(dict.fromkeys(
+        s for hw in ((384, 512), (543, 724), (768, 1024))
+        for s in trunk_backward_shapes(*hw)
+        if s[3] > conv._NARROW_MAX_COUT))
+    sms = sm_count(dev)
     with tf32(False):
-        for h, w in ((384, 512), (543, 724), (768, 1024)):
-            for shape in trunk_backward_shapes(h, w):
-                if shape[3] <= conv._NARROW_MAX_COUT or shape in seen:
-                    continue
-                seen.add(shape)
-                report(device, sm_count(dev), 'bwd (H, W, K, Cout)', shape,
-                       *sweep(shape, rng, dev))
-        for shape in forward_shapes():
-            if shape[2] % 4 or shape[3] % 4:
-                continue            # the scalar path has no splits
-            report(device, sm_count(dev), 'fwd (H, W, Cin, Cout)', shape,
-                   *sweep_forward(shape, rng, dev))
-    for size in SIZES:
-        hw, rates = end_to_end(size, args.steps, args.reps, args.warmup)
-        print(json.dumps({
-            'device': device, 'size': size, 'hw': list(hw),
-            'steps': args.steps, 'it_s_with_splits': rates['split'],
-            'it_s_tile_only': rates['tile'],
-            'median_gain': float(np.median(rates['split'])
-                                 / np.median(rates['tile']) - 1)}),
-            flush=True)
+        for name, dtype in DTYPES.items():
+            for shape in backwards:
+                if name == 'bfloat16' and (shape[2] % 8 or shape[3] % 8):
+                    continue            # the mma.sync path has no splits
+                report(device, sms, 'bwd (H, W, K, Cout)', name, shape,
+                       *sweep(shape, rng, dev, dtype))
+            for shape in forward_shapes():
+                if shape[2] % (4 if name == 'float32' else 8) or (
+                        shape[3] % 4):
+                    continue  # the scalar and mma.sync paths: no splits
+                report(device, sms, 'fwd (H, W, Cin, Cout)', name, shape,
+                       *sweep_forward(shape, rng, dev, dtype))
+    for precision in DTYPES:
+        for size in SIZES:
+            hw, rates = end_to_end(size, args.steps, args.reps, args.warmup,
+                                   precision)
+            print(json.dumps({
+                'device': device, 'precision': precision, 'size': size,
+                'hw': list(hw), 'steps': args.steps,
+                'it_s_with_splits': rates['split'],
+                'it_s_tile_only': rates['tile'],
+                'median_gain': float(np.median(rates['split'])
+                                     / np.median(rates['tile']) - 1)}),
+                flush=True)
     return 0
 
 

@@ -48,12 +48,12 @@ def test_conv_kernels_match_plain_on_card(cuda, shape, cout, dtype, tol):
     x, w, b, g = _conv_case(6, shape, cout)
     xt, wt, bt, gt = (torch.from_numpy(a).to(cuda, dtype)
                       for a in (x, w, b, g))
-    before = (conv.fwd_launches, conv.bwd_launches)
+    before = (conv.launches('fwd'), conv.launches('bwd'))
     xk = xt.clone().requires_grad_(True)
     y = conv.conv3x3_bias_relu(xk, wt, bt, conv.backward_weights(wt))
     dx = torch.autograd.grad(y, xk, gt)[0]
-    assert (conv.fwd_launches, conv.bwd_launches) == (before[0] + 1,
-                                                      before[1] + 1)
+    assert (conv.launches('fwd'), conv.launches('bwd')) == (
+        before[0] + 1, before[1] + 1)
     x32 = xt.float().requires_grad_(True)
     y_ref = conv.conv3x3_bias_relu_plain(x32, wt.float(), bt.float())
     # The backward is held against autograd of the plain pre-ReLU conv with
@@ -71,7 +71,8 @@ def test_conv_kernels_match_plain_on_card(cuda, shape, cout, dtype, tol):
 @pytest.mark.cuda
 def test_conv_kernels_take_unaligned_views(cuda):
     """A bf16 view that starts one element into its storage is not 16-byte
-    aligned; the wrapper copies it rather than fault on a 16-byte load."""
+    aligned; the mma.sync kernel stages it one element at a time rather
+    than fault on a 16-byte load."""
     x, w, b, g = _conv_case(8, (1, 6, 10, 16), 16)
     flat = torch.from_numpy(np.concatenate([[0.0], x.ravel()]).astype(
         np.float32)).to(cuda, torch.bfloat16)
@@ -137,10 +138,10 @@ def test_conv_backward_paths_match_plain_and_repeat(cuda, shape, cout,
                          torch.cuda.get_device_properties(
                              cuda).multi_processor_count)
     assert plan[0] == path
-    before = conv.bwd_launches
+    before = conv.launches('bwd')
     dx = conv._launch_bwd(g, y, conv.backward_weights(w))
     dx2 = conv._launch_bwd(g, y, conv.backward_weights(w))
-    assert conv.bwd_launches == before + 2 and dx.dtype == dtype
+    assert conv.launches('bwd') == before + 2 and dx.dtype == dtype
     x = torch.zeros(n, h, wd, cout, device=cuda, requires_grad=True)
     pre = F.conv2d(x.permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
                    padding=1)
@@ -302,10 +303,10 @@ def test_conv_forward_paths_match_plain_repeat_and_follow_the_stream(
         assert conv.fwd_plan(*shape, cout, torch.float32, torch.cuda.
                              get_device_properties(cuda).multi_processor_count
                              )[0] == conv.SPLIT
-    before = conv.fwd_launches
+    before = conv.launches('fwd')
     y = conv._launch_fwd(xt, wt, bt, plan)
     y2 = conv._launch_fwd(xt, wt, bt, plan)
-    assert conv.fwd_launches == before + 2
+    assert conv.launches('fwd') == before + 2
     want = conv.conv3x3_bias_relu_plain(xt, wt, bt)
     assert float((y - want).abs().max()) <= 1e-4 * max(
         1.0, float(want.abs().max()))
@@ -360,3 +361,161 @@ def test_resize_on_card_keeps_tf32_off(cuda, src, dst, method):
         got = resize_nhwc(torch.from_numpy(x).to(cuda), dst, method)
     assert got.is_cuda
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-3)
+
+
+def _sms(cuda):
+    return torch.cuda.get_device_properties(cuda).multi_processor_count
+
+
+# (x or g shape, Cout, plan) of the bf16 wgmma kernel on each of its paths
+# at ragged shapes: odd H, W = 181 and 91 (no 16-pixel tile divides them),
+# Cin 40 (a half-filled last slice) to 512, Cout 24 and 64 (BN = 64, Cout
+# 24 filling part of it) and 128 to 512 (BN = 128); a split with a ragged
+# last range (512 = 176 + 176 + 160); and the planners' own splits of the
+# 512px conv4_2 (plan None).
+WGMMA_CASES = [((1, 17, 181, 64), 128, (conv.WGMMA, 1, 64)),
+               ((1, 35, 91, 256), 256, (conv.WGMMA, 1, 256)),
+               ((2, 13, 45, 512), 64, (conv.WGMMA, 1, 512)),
+               ((1, 9, 33, 40), 24, (conv.WGMMA, 1, 40)),
+               ((1, 21, 91, 512), 512, (conv.WGMMA_SPLIT, 3, 176)),
+               ((1, 48, 64, 512), 512, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,cout,plan', WGMMA_CASES)
+def test_bf16_wgmma_forward_matches_plain_repeats_and_follows_the_stream(
+        cuda, shape, cout, plan):
+    x, w, b, _ = _conv_case(15, shape, cout)
+    xt, wt, bt = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+                  for a in (x, w, b))
+    if plan is None:
+        assert conv.fwd_plan(*shape, cout, torch.bfloat16, _sms(cuda))[
+            0] == conv.WGMMA_SPLIT
+    before = conv.path_launches.get(('fwd', (plan or [conv.WGMMA_SPLIT])[0]),
+                                    0)
+    y = conv._launch_fwd(xt, wt, bt, plan)
+    y2 = conv._launch_fwd(xt, wt, bt, plan)
+    assert conv.path_launches[('fwd', (plan or [conv.WGMMA_SPLIT])[0])] == (
+        before + 2)
+    want = conv.conv3x3_bias_relu_plain(xt.float(), wt.float(), bt.float())
+    assert y.dtype == torch.bfloat16
+    assert float((y.float() - want).abs().max()) <= 3e-2 * max(
+        1.0, float(want.abs().max()))
+    assert torch.equal(y, y2)
+    s, src = _side_stream_input(cuda, xt)
+    with torch.cuda.stream(s):
+        got = conv._launch_fwd(src, wt, bt, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, y)
+
+
+# The same for the masked backward: (g shape, dx's Cout, plan).
+WGMMA_BWD_CASES = [((1, 17, 181, 128), 64, (conv.WGMMA, 1, 128)),
+                   ((1, 35, 91, 512), 256, (conv.WGMMA, 1, 512)),
+                   ((1, 9, 33, 40), 24, (conv.WGMMA, 1, 40)),
+                   ((1, 21, 91, 512), 512, (conv.WGMMA_SPLIT, 4, 128)),
+                   ((1, 48, 64, 512), 512, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,cout,plan', WGMMA_BWD_CASES)
+def test_bf16_wgmma_backward_matches_plain_repeats_and_follows_the_stream(
+        cuda, shape, cout, plan):
+    g, y, w = (t.to(torch.bfloat16)
+               for t in _masked_bwd_case(cuda, shape, cout, 16))
+    n, h, wd, k = shape
+    if plan is None:
+        assert conv.bwd_plan(n, h, wd, k, cout, torch.bfloat16,
+                             _sms(cuda))[0] == conv.WGMMA_SPLIT
+    wt = conv.backward_weights(w)
+    dx = conv._launch_bwd(g, y, wt, plan)
+    dx2 = conv._launch_bwd(g, y, wt, plan)
+    x = torch.zeros(n, h, wd, cout, device=cuda, requires_grad=True)
+    pre = F.conv2d(x.permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
+                   padding=1)
+    want = torch.autograd.grad(pre.permute(0, 2, 3, 1), x,
+                               g.float() * (y > 0).float())[0]
+    assert dx.dtype == torch.bfloat16
+    assert float((dx.float() - want).abs().max()) <= 3e-2 * max(
+        1.0, float(want.abs().max()))
+    assert torch.equal(dx, dx2)
+    s, src = _side_stream_input(cuda, g)
+    with torch.cuda.stream(s):
+        got = conv._launch_bwd(src, y, wt, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_split_launches_back_to_back_keep_their_partials_apart(cuda, dtype):
+    """Split launches of two sizes queued on one stream with no sync
+    between them (the caching allocator hands each the partials block the
+    one before freed; stream order keeps them apart) give the bits each
+    gives launched alone."""
+    split = conv.SPLIT if dtype == torch.float32 else conv.WGMMA_SPLIT
+    cases = []
+    for seed, (shape, cout, splits, kspan) in enumerate(
+            (((1, 21, 91, 512), 256, 4, 128), ((1, 9, 33, 128), 64, 2, 64))):
+        x, w, b, _ = _conv_case(20 + seed, shape, cout)
+        cases.append(tuple(torch.from_numpy(a).to(cuda, dtype)
+                           for a in (x, w, b)) + ((split, splits, kspan),))
+    alone = []
+    for x, w, b, plan in cases:
+        alone.append(conv._launch_fwd(x, w, b, plan))
+        torch.cuda.synchronize()
+    queued = [conv._launch_fwd(x, w, b, plan)
+              for x, w, b, plan in cases + cases[:1]]
+    torch.cuda.synchronize()
+    for got, want in zip(queued, alone + alone[:1]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('direction', ['fwd', 'bwd'])
+def test_bf16_unaligned_view_takes_the_tile_path(cuda, monkeypatch,
+                                                 direction):
+    """A bf16 view one element into its storage is not 16-byte aligned: the
+    wrapper launches the mma.sync tile path for it instead of the wgmma
+    kernel the shape plans, and the result matches the plain version."""
+    x, w, b, g = _conv_case(17, (1, 19, 37, 64), 128)
+    flat = torch.from_numpy(np.concatenate([[0.0], x.ravel()]).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    xv = flat[1:].view(x.shape)
+    assert xv.data_ptr() % 16 != 0
+    wt, bt = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in (w, b))
+    assert conv.fwd_plan(*x.shape, 128, torch.bfloat16, _sms(cuda))[0] in (
+        conv.WGMMA, conv.WGMMA_SPLIT)
+    lib, paths = conv._build.lib(), []
+    name = 'st2_conv3x3_' + direction
+
+    class Spy:
+        def __getattr__(self, attr):
+            fn = getattr(lib, attr)
+            if attr != name:
+                return fn
+
+            def spy(*args):
+                paths.append(args[1])
+                return fn(*args)
+            return spy
+
+    monkeypatch.setattr(conv._build, 'lib', Spy)
+    if direction == 'fwd':
+        got = conv._launch_fwd(xv, wt, bt).float()
+        want = conv.conv3x3_bias_relu_plain(xv.float(), wt.float(),
+                                            bt.float())
+    else:
+        # g: 64 cotangent channels, the unaligned view; y: a ReLU output;
+        # dx: 128 channels through wt (3, 3, 64, 128).
+        y = torch.relu(xv.float() + 0.1).to(torch.bfloat16)
+        got = conv._launch_bwd(xv, y, wt).float()
+        x0 = torch.zeros(1, 19, 37, 128, device=cuda, requires_grad=True)
+        w_fwd = conv.backward_weights(wt).float()     # (3, 3, 128, 64)
+        pre = F.conv2d(x0.permute(0, 3, 1, 2), w_fwd.permute(3, 2, 0, 1),
+                       padding=1)
+        want = torch.autograd.grad(pre.permute(0, 2, 3, 1), x0,
+                                   xv.float() * (y > 0).float())[0]
+    assert paths == [conv._PATH_CODES[conv.TILE]]
+    assert float((got - want).abs().max()) <= 3e-2 * max(
+        1.0, float(want.abs().max()))

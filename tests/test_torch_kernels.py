@@ -91,11 +91,14 @@ def test_plain_style_matches_pallas_interpret(shape):
 
 
 def test_cpu_tensors_take_the_plain_versions_without_launching():
-    before = (conv.fwd_launches, conv.bwd_launches, style.launches)
+    def counts():
+        return conv.launches('fwd'), conv.launches('bwd'), style.launches
+
+    before = counts()
     x, w, b, g = _conv_case(5, (1, 5, 7, 3), 64)
     _plain_fwd_bwd(x, w, b, g)
     style.fused_style_branch(torch.ones(1, 3, 5, 8), torch.zeros(8, 8))
-    assert (conv.fwd_launches, conv.bwd_launches, style.launches) == before
+    assert counts() == before
 
 
 def test_other_devices_raise():
@@ -206,12 +209,22 @@ def test_bwd_plan_keeps_the_tile_for_full_grids(shape):
     assert conv.bwd_plan(*shape, F32, 132) == (conv.TILE, 1, shape[3])
 
 
-def test_bwd_plan_bfloat16_splits_nothing_but_takes_narrow():
-    for shape, _ in UNDERFILLED:
-        assert conv.bwd_plan(*shape, torch.bfloat16, 132) == (
-            conv.TILE, 1, shape[3])
-    assert conv.bwd_plan(1, 384, 512, 64, 3, torch.bfloat16, 132) == (
-        conv.NARROW, 1, 64)
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize('shape', [
+    (1, 384, 512, 64, 64), (1, 192, 256, 128, 128), (1, 136, 181, 256, 256),
+    (1, 768, 1024, 64, 64), (1, 192, 256, 256, 256), (1, 68, 91, 512, 512),
+    (1, 384, 512, 64, 3), (1, 768, 1024, 64, 3)])
+def test_bwd_plan_bfloat16_splits_nothing_but_takes_narrow(shape):
+    """At grids of most of a wave or more the bf16 backward takes the
+    wgmma kernel unsplit; conv1_1's dx (3 channels) takes the narrow
+    kernel."""
+    path = conv.bwd_plan(*shape, BF16, 132)
+    if shape[4] <= 8:
+        assert path == (conv.NARROW, 1, shape[3])
+    else:
+        assert path == (conv.WGMMA, 1, shape[3])
 
 
 @pytest.mark.parametrize('shape', [s for s, _ in UNDERFILLED] + FULL_ENOUGH
@@ -291,10 +304,130 @@ def test_fwd_plan_takes_the_scalar_path_unless_channels_come_in_fours(shape):
     assert conv.fwd_plan(1, *shape, F32, 132) == (conv.SCALAR, 1, shape[2])
 
 
-def test_fwd_plan_bfloat16_never_splits():
-    for shape in FORWARDS:
-        assert conv.fwd_plan(1, *shape, torch.bfloat16, 132) == (
-            conv.TILE, 1, shape[2])
+@pytest.mark.parametrize('shape', FWD_SHALLOW_1024 + [
+    (543, 724, 64, 64), (272, 362, 128, 128), (136, 181, 256, 256),
+    (68, 91, 512, 512), (192, 256, 256, 256)])
+def test_fwd_plan_bfloat16_never_splits(shape):
+    """At grids of most of a wave or more the bf16 forward never splits:
+    the wgmma kernel, unsplit."""
+    assert conv.fwd_plan(1, *shape, BF16, 132) == (conv.WGMMA, 1, shape[2])
+
+
+def _ladder_forwards():
+    """(H, W, Cin, Cout) of every forward of the 1024px ladder's 7 rungs."""
+    rungs = [(96, 128), (136, 181), (192, 256), (272, 362), (384, 512),
+             (543, 724), (768, 1024)]
+    return sorted({s for hw in rungs for s in split_sweep.trunk_convs(*hw)})
+
+
+BF16_FORWARDS = sorted(set(FORWARDS) | set(_ladder_forwards()))
+
+
+def _wgmma_blocks(h, w, cout):
+    return (-(-h // conv._WG_TH) * -(-w // conv._WG_TW)
+            * -(-cout // conv.wgmma_bn(cout)))
+
+
+@pytest.mark.parametrize('shape', BF16_FORWARDS)
+@pytest.mark.parametrize('direction', ['fwd', 'bwd'])
+def test_bf16_plans_at_every_main_path_ladder_and_style_shape(shape,
+                                                              direction):
+    """Every bf16 conv of the 512px path, the style image and the 1024px
+    ladder: conv1_1 (3 channels) on the mma.sync forward and the narrow
+    backward, every other shape on the wgmma kernel, split only where its
+    grid fills less than one wave of the 132-SM card or ends in a wave
+    that leaves half of it idle, each split's ranges a multiple of 16
+    channels covering the summed channels once."""
+    h, w, cin, cout = shape
+    if direction == 'fwd':
+        path, splits, kspan = conv.fwd_plan(1, h, w, cin, cout, BF16, 132)
+        k, out = cin, cout
+    else:
+        path, splits, kspan = conv.bwd_plan(1, h, w, cout, cin, BF16, 132)
+        k, out = cout, cin
+    if out <= 8 and direction == 'bwd':
+        assert (path, splits, kspan) == (conv.NARROW, 1, k)
+    elif k % 8:
+        assert (path, splits, kspan) == (conv.TILE, 1, k)
+    elif (_wgmma_blocks(h, w, out) >= 132
+          and not 0 < _wgmma_blocks(h, w, out) % 132 <= 66):
+        assert (path, splits, kspan) == (conv.WGMMA, 1, k)
+    else:
+        assert path in (conv.WGMMA, conv.WGMMA_SPLIT)
+    if path == conv.WGMMA_SPLIT:
+        assert splits >= 2 and kspan % 16 == 0 and kspan >= 32
+        assert (splits - 1) * kspan < k <= splits * kspan
+    else:
+        assert (splits, kspan) == (1, k)
+
+
+# The 512px conv4 forwards and backwards and the style image's conv4_x and
+# conv5_1: grids of 16 to 96 blocks of 16 x 16 pixels by 128 channels on a
+# 132-SM card, (H, W, summed channels, output channels).
+BF16_UNDERFILLED = [(48, 64, 256, 512), (48, 64, 512, 512),
+                    (52, 64, 512, 512), (26, 32, 512, 512),
+                    (48, 64, 512, 256)]
+
+
+@pytest.mark.parametrize('shape', BF16_UNDERFILLED)
+@pytest.mark.parametrize('plan', ['fwd_plan', 'bwd_plan'])
+def test_bf16_plan_splits_the_underfilled_grids(shape, plan):
+    path, splits, kspan = getattr(conv, plan)(1, *shape, BF16, 132)
+    assert path == conv.WGMMA_SPLIT and splits >= 2 and kspan % 16 == 0
+
+
+@pytest.mark.parametrize('plan', ['fwd_plan', 'bwd_plan'])
+def test_bf16_plan_follows_the_sm_count(plan):
+    """The 48-block grid of the 512px conv4_2 splits on 132 SMs and not on
+    24, which it fills in two whole waves."""
+    shape = (1, 48, 64, 512, 512)
+    assert getattr(conv, plan)(*shape, BF16, 132)[0] == conv.WGMMA_SPLIT
+    assert getattr(conv, plan)(*shape, BF16, 24) == (conv.WGMMA, 1, 512)
+
+
+@pytest.mark.parametrize('shape', [(384, 512, 3, 64), (410, 512, 3, 64),
+                                   (37, 45, 20, 64), (19, 21, 64, 12),
+                                   (9, 33, 130, 24)])
+def test_bf16_plan_takes_mma_sync_unless_channels_come_in_eights(shape):
+    """conv1_1 (Cin = 3), Cin or Cout not a multiple of 8: the mma.sync
+    tile kernel, which takes any shape."""
+    assert conv.fwd_plan(1, *shape, BF16, 132) == (conv.TILE, 1, shape[2])
+    h, w, cin, cout = shape
+    if cin > 8:
+        assert conv.bwd_plan(1, h, w, cout, cin, BF16, 132) == (
+            conv.TILE, 1, cout)
+
+
+@pytest.mark.parametrize('cin,cout', [(64, 64), (40, 24), (512, 256),
+                                      (3, 128), (128, 136)])
+def test_wgmma_weights_block_each_slice_in_stage_order(cin, cout):
+    """wgmma_weights(w)[cb, ks, dy, dx, kb, nb, r, c] is w[dy, dx, 16 ks +
+    8 kb + r, BN cb + 8 nb + c], zero past Cin and Cout."""
+    w = torch.from_numpy(np.float32(np.random.RandomState(cin).randn(
+        3, 3, cin, cout)))
+    bn = conv.wgmma_bn(cout)
+    wb = conv.wgmma_weights(w)
+    assert wb.shape == (-(-cout // bn), -(-cin // 16), 3, 3, 2, bn // 8, 8,
+                        8) and wb.is_contiguous()
+    cb, ks, dy, dx, kb, nb, r, c = np.meshgrid(
+        *[np.arange(n) for n in wb.shape], indexing='ij')
+    k = 16 * ks + 8 * kb + r
+    n = bn * cb + 8 * nb + c
+    inside = (k < cin) & (n < cout)
+    want = np.zeros(wb.shape, np.float32)
+    want[inside] = w.numpy()[dy[inside], dx[inside], k[inside], n[inside]]
+    np.testing.assert_array_equal(wb.numpy(), want)
+
+
+def test_wgmma_weights_are_blocked_once_per_tensor():
+    w = torch.zeros(3, 3, 16, 64)
+    first = conv._wgmma_weights(w)
+    assert conv._wgmma_weights(w) is first
+    assert conv._wgmma_weights(torch.zeros(3, 3, 16, 64)) is not first
+    w.add_(1.0)                 # an in-place update makes the copy stale
+    second = conv._wgmma_weights(w)
+    assert second is not first and float(second.max()) == 1.0
+    assert conv._wgmma_weights(w) is second
 
 
 def test_fwd_plan_follows_the_sm_count():
@@ -345,6 +478,39 @@ def test_ab_compare_reports_each_group_and_the_step_sums(tmp_path):
     assert len(step) == 10
     np.testing.assert_allclose(sums['fwd_ms'], [11.0, 11.0])
     np.testing.assert_allclose(sums['bwd_ms'], [20.0, 20.0])
+    assert sums['fwd_device_ms'] is None          # not in these runs
+    assert abs(groups['fwd_ms']['sum_ratio'] - 1.1) < 1e-12
+    assert groups['fwd_ms']['parent_sum'] == 8.0
+
+
+def test_ab_compare_sums_device_times_and_skips_unmeasured_rows(tmp_path):
+    """device_ms rows: one row the parent's profile missed (None) leaves
+    its group; the group sums hold the rest."""
+    import json
+    from style_transfer2_tpu_torch import ab_compare
+    shapes = list(dict.fromkeys(split_sweep.trunk_convs(384, 512)))
+
+    def run(name, dev, missing=None):
+        rows = [{'kernel': 'conv3x3', 'dtype': 'bfloat16', 'where': '512',
+                 'shape': list(s), 'fwd_ms': 1.0, 'bwd_ms': 1.0,
+                 'fwd_device_ms': None if s == missing else dev,
+                 'bwd_device_ms': dev, 'fwd_host_us': 25.0,
+                 'bwd_host_us': 25.0} for s in shapes]
+        path = tmp_path / name
+        path.write_text(json.dumps(rows))
+        return str(path)
+
+    tree = ab_compare.load([run('t', 0.5)])
+    parent = ab_compare.load([run('p', 1.0, missing=shapes[0])])
+    groups = {g['field']: g for g in ab_compare.compare(tree, parent, 1.03)}
+    assert groups['fwd_device_ms']['rows'] == len(shapes) - 1
+    assert groups['bwd_device_ms']['rows'] == len(shapes)
+    assert abs(groups['bwd_device_ms']['sum_ratio'] - 0.5) < 1e-12
+    assert groups['fwd_host_us']['sum_ratio'] == 1.0
+    sums = ab_compare.step_sums(tree)['bfloat16']['512']
+    np.testing.assert_allclose(sums['bwd_device_ms'], [5.0, 5.0])
+    assert ab_compare.step_sums(parent)['bfloat16']['512'][
+        'fwd_device_ms'] is None
 
 
 def test_split_sweep_fit_scores_each_constant_and_restores_them():
@@ -402,8 +568,8 @@ def test_build_dir_is_keyed_by_sources():
     d = _build.build_dir()
     assert d == _build.build_dir()
     assert d.parent == _build.BUILD_ROOT and len(d.name) == 16
-    assert {p.name for p in _build._sources()} == {'conv3x3.cu', 'image.cu',
-                                                  'style.cu'}
+    assert {p.name for p in _build._sources()} == {
+        'conv3x3.cu', 'conv3x3_wgmma.cu', 'image.cu', 'style.cu'}
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

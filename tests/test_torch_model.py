@@ -125,5 +125,10 @@ def test_resolve_params(tmp_path):
     loaded = weights.resolve_params(str(path), tmp_path)
     np.testing.assert_array_equal(loaded['conv5_4']['w'],
                                   jweights.random_params(4)['conv5_4']['w'])
+    caffemodel = tmp_path / 'w.caffemodel'
+    jweights.write_caffemodel(jweights.random_params(5), caffemodel)
+    loaded = weights.resolve_params('w.caffemodel', tmp_path)
+    np.testing.assert_array_equal(loaded['conv3_1']['w'],
+                                  jweights.random_params(5)['conv3_1']['w'])
     with pytest.raises(ValueError):
-        weights.resolve_params('w.caffemodel', tmp_path)
+        weights.resolve_params('w.pth', tmp_path)
