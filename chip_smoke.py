@@ -55,7 +55,24 @@ exits non-zero:
   6. parity  — the CUDA engine against the CPU engine (the plain versions)
                on small inputs, 5 steps at one size and a 2-rung ladder:
                every trace key within the golden rtol.
-  7. profile — every kernel and library call timed in phase 3, on the
+  7. serve   — the web app (style_transfer2_tpu_torch.serve.app) on the
+               card with config.ini's dispatch defaults (adaptive 60, depth
+               2, latency target 2.0 s), driven over a real localhost
+               socket by the browser protocol, full-width VGG-19 with
+               random_params(0), the example images, initial_weights.yaml:
+               (a) float32 at 512px: start, 60 iterates, applyParams with
+               a style weight and the step size changed (newParams with no
+               error), a resize to 768 (newSize, 30 iterates at the new
+               grid), pause, /output a PNG of that grid, /stats naming the
+               card; (b) bfloat16 with serve_ladder 20, ladder_min_scale
+               256, serve_polish 10 at float32 to 512: each rung's grid,
+               the driver respawned at float32 for the polish, the pause
+               the schedule makes. Both: finite losses, falling over the
+               first rung, the engine on CUDA, every kernel launched; each
+               session's it/s (host clock and the app's itsPerS), first
+               iterate, the control latency and the polish respawn's
+               seconds printed; serve.json.
+  8. profile — every kernel and library call timed in phase 3, on the
                same inputs: host_us, the host clock over HOST_CALLS
                back-to-back calls with no sync (the enqueue cost), then
                device_ms, its kernels' own time from torch.profiler's CUDA
@@ -142,6 +159,23 @@ SOURCES = {
     'deprocess': (('style_transfer2_tpu_torch/csrc/image.cu',),
                   'style_transfer2_tpu/ops/pallas/preprocess.py:40'),
 }
+
+# The serve phase: session (a) runs float32 at 512px, SERVE_ITERATES
+# iterates, then a weight change and a resize to 768 with at least
+# SERVE_RESIZE_ITERATES iterates there; session (b) climbs bfloat16 rungs
+# (SERVE_LADDER iterations each) from SERVE_MIN_SCALE to 512, then a
+# SERVE_POLISH-iteration float32 polish. SERVE_TIMEOUT bounds each.
+SERVE_SIZE = 512
+SERVE_RESIZE = 768
+SERVE_ITERATES = 60          # session (a) at 512 before the weight change
+SERVE_RESIZE_ITERATES = 30   # session (a) at the 768 grid
+SERVE_LADDER = 20            # session (b): iterations a rung
+SERVE_MIN_SCALE = 256
+SERVE_POLISH = 10
+SERVE_TIMEOUT = 240          # seconds, each session
+SERVE_DEVICE = 'cuda'        # the app's device key (the CPU tests set cpu)
+# The grids of session (b): utils.scales((384, 512), min_size=256).
+SERVE_RUNGS = [(192, 256), (272, 362), (384, 512)]
 
 # The ladder run's --size and --min-scale, and its rungs
 # (utils.scales((768, 1024), min_size=96)).
@@ -1186,9 +1220,360 @@ def phase_parity(torch):
                                                       PARITY_RTOL))
 
 
+class GridLog:
+    """Records (method, iterate counter, grid after) for every engine call
+    that changes the iterate's grid or the objective: iterates numbered
+    above the counter ran after it (the driver applies control with no
+    dispatch in flight)."""
+
+    METHODS = ('set_input', 'resample_input', 'set_weights')
+
+    def __init__(self, cls):
+        self.cls = cls
+        self.events = []
+        self.saved = {name: getattr(cls, name) for name in self.METHODS}
+        for name, real in self.saved.items():
+            setattr(cls, name, self._wrap(name, real))
+
+    def _wrap(self, name, real):
+        def wrapped(engine, *args, **kw):
+            out = real(engine, *args, **kw)
+            self.events.append((name, engine.t, engine.input_hw))
+            return out
+        return wrapped
+
+    def restore(self):
+        for name, real in self.saved.items():
+            setattr(self.cls, name, real)
+
+
+class Browser:
+    """A browser over the app's real localhost socket: every frame it
+    receives, with the host clock at receipt."""
+
+    def __init__(self, http, base):
+        self.http = http
+        self.base = base
+        self.ws = None
+        self.frames = []
+
+    async def connect(self):
+        self.ws = await self.http.ws_connect(self.base + '/websocket')
+
+    async def send(self, kind, **fields):
+        await self.ws.send_str(json.dumps(dict(fields, type=kind)))
+        return time.perf_counter()
+
+    async def recv(self, timeout=SERVE_TIMEOUT):
+        import aiohttp
+        msg = await self.ws.receive(timeout=timeout)
+        require(msg.type == aiohttp.WSMsgType.TEXT, 'websocket: %r' % (msg,))
+        data = json.loads(msg.data)
+        self.frames.append((time.perf_counter(), data))
+        return data
+
+    async def until(self, pred):
+        while True:
+            data = await self.recv()
+            if pred(data):
+                return data
+
+    def iterates(self, since=0):
+        return [(t, d) for t, d in self.frames[since:]
+                if d['type'] == 'iterateInfo']
+
+
+def serve_config(port, **keys):
+    """config.ini as it stands (its dispatch defaults: adaptive 60, depth
+    2, latency target 2.0 s) with the smoke's own keys over it."""
+    from style_transfer2_tpu_torch import utils
+    config = utils.read_config()
+    config.update({'device': SERVE_DEVICE, 'weights': 'random',
+                   'http_host': '127.0.0.1', 'http_port': str(port),
+                   'initial_size': str(SERVE_SIZE)})
+    config.update({k: str(v) for k, v in keys.items()})
+    return config
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def host_it_s(frames):
+    """Iterates a second over received frames: (last i - first i) over the
+    host time between them."""
+    (t0, d0), (t1, d1) = frames[0], frames[-1]
+    return (d1['i'] - d0['i']) / (t1 - t0) if t1 > t0 else float('nan')
+
+
+def after(frames, t):
+    """The iterate frames numbered above iterate counter t."""
+    return [f for f in frames if f[1]['i'] > t]
+
+
+def first_event(log, name, hw):
+    return next(e for e in log.events if e[0] == name and e[2] == hw)
+
+
+async def serve_session(torch, which, log, drive, keys):
+    """Starts the port's app on a free localhost port with these config
+    keys, runs drive(browser, tier, http, log, torch) with the kernel
+    counts set to 0 just before, and returns (counts, drive's result)."""
+    import aiohttp
+    from aiohttp import web
+    from style_transfer2_tpu_torch.serve import app as serve_app
+    port = free_port()
+    app = serve_app.init(config=serve_config(port, **keys))
+    tier = app['tier']
+    runner = web.AppRunner(app)
+    log.events.clear()
+    reset_counters()
+    await runner.setup()
+    try:
+        await web.TCPSite(runner, '127.0.0.1', port).start()
+        async with aiohttp.ClientSession() as http:
+            browser = Browser(http, 'http://127.0.0.1:%d' % port)
+            await browser.connect()
+            result = await drive(browser, tier, http, log, torch)
+            await browser.ws.close()
+    finally:
+        await runner.cleanup()
+    torch.cuda.synchronize()
+    counts = counters()
+    require_all_launched(counts, 'serve ' + which)
+    require_paths('serve ' + which, keys.get('precision', 'float32'))
+    return counts, result
+
+
+async def drive_float32(browser, tier, http, log, torch):
+    """Session (a): start, 60 iterates at 512, a weight and step-size
+    change, a resize to 768 with 30 iterates there, pause, /output and
+    /stats."""
+    import io
+
+    import yaml
+    from PIL import Image
+    from style_transfer2_tpu_torch import utils
+    await browser.until(lambda d: d['type'] == 'thumbnails')
+    while not tier.sess.worker_ready:
+        await browser.recv()
+    require(tier.driver.transfer.device.type == SERVE_DEVICE,
+            'serve float32: engine on %s' % tier.driver.transfer.device)
+    grid0 = tuple(tier.sess.input_arr.shape[:2])
+    t_start = await browser.send('start')
+    await browser.until(lambda d: d['type'] == 'iterateInfo'
+                        and d['i'] >= SERVE_ITERATES)
+    first = browser.iterates()
+    params = yaml.safe_load(tier.sess.params_yaml())
+    params['weights'][0]['style']['conv2_1'] = 2.0
+    params['optimizer_step_size'] = 0.5
+    n = len(log.events)
+    t_apply = await browser.send('applyParams',
+                                 params=yaml.safe_dump(params))
+    reply = await browser.until(lambda d: d['type'] == 'newParams')
+    require(reply.get('errorString') == '', 'applyParams: %r'
+            % reply.get('errorString'))
+    while not any(e[0] == 'set_weights' for e in log.events[n:]):
+        await browser.recv()
+    t_weights = next(e for e in log.events[n:] if e[0] == 'set_weights')[1]
+    await browser.until(lambda d: d['type'] == 'iterateInfo'
+                        and d['i'] > t_weights)
+    control_s = browser.frames[-1][0] - t_apply
+    require(tier.driver.transfer.weights['style']['conv2_1'] == 2.0
+            and tier.driver.transfer.step_size == 0.5,
+            'serve float32: the new weights did not reach the engine')
+
+    params['size'] = SERVE_RESIZE
+    want = tuple(utils.fit_into_square(tier.sess.input_arr.shape[:2],
+                                       SERVE_RESIZE, True))
+    n = len(log.events)
+    t_resize = await browser.send('applyParams',
+                                  params=yaml.safe_dump(params))
+    size = await browser.until(lambda d: d['type'] == 'newSize')
+    grid = (size['height'], size['width'])
+    require(grid == want, 'serve float32: newSize %s' % (grid,))
+    while not any(e[2] == grid for e in log.events[n:]):
+        await browser.recv()
+    t_grid = next(e for e in log.events[n:] if e[2] == grid)[1]
+    await browser.until(lambda d: d['type'] == 'iterateInfo'
+                        and d['i'] >= t_grid + SERVE_RESIZE_ITERATES)
+    await browser.send('pause')
+    await browser.until(lambda d: d['type'] == 'state'
+                        and not d['running'])
+
+    async with http.get(browser.base + '/output') as resp:
+        require(resp.status == 200, '/output %d' % resp.status)
+        png = await resp.read()
+    with Image.open(io.BytesIO(png)) as img:
+        require(img.format == 'PNG' and img.size == grid[::-1],
+                '/output: %s %s' % (img.format, img.size))
+    async with http.get(browser.base + '/stats') as resp:
+        stats = await resp.text()
+    require(torch.cuda.get_device_name(0) in stats,
+            '/stats does not name the card')
+
+    frames = browser.iterates()
+    require(all(math.isfinite(d['trace']['loss']) for _, d in frames),
+            'serve float32: non-finite loss')
+    at512 = [f for f in first if f[1]['i'] >= 2]
+    losses = [d['trace']['loss'] for _, d in first]
+    require(losses[-1] < losses[0], 'serve float32: loss did not fall at '
+            '512: %.6g -> %.6g' % (losses[0], losses[-1]))
+    at768 = after(frames, t_grid)
+    require(len(at768) >= SERVE_RESIZE_ITERATES, 'serve float32: %d '
+            'iterates at %s' % (len(at768), grid))
+    return {'first_iterate_s': tier.first_iterate_s,
+            'first_iterate_host_s': first[0][0] - t_start,
+            'it_s_512': host_it_s(at512),
+            'its_per_s_512': first[-1][1]['itsPerS'],
+            'it_s_768': host_it_s(at768),
+            'its_per_s_768': at768[-1][1]['itsPerS'],
+            'control_s': control_s,
+            'resize_s': at768[0][0] - t_resize,
+            'iterates_512': len(first), 'iterates_768': len(at768),
+            'grid_512': list(grid0), 'grid_768': list(grid),
+            'loss_512': [losses[0], losses[-1]],
+            'loss_768': [at768[0][1]['trace']['loss'],
+                         at768[-1][1]['trace']['loss']]}
+
+
+async def drive_ladder(browser, tier, http, log, torch):
+    """Session (b): bfloat16 up the rungs, the float32 polish respawn, the
+    pause the schedule makes."""
+    await browser.until(lambda d: d['type'] == 'thumbnails')
+    while not tier.sess.worker_ready:
+        await browser.recv()
+    first_driver = tier.driver
+    require(first_driver.transfer.device.type == SERVE_DEVICE
+            and first_driver.transfer.precision == 'bfloat16',
+            'serve ladder: engine %s %s' % (first_driver.transfer.device,
+                                            first_driver.transfer.precision))
+    mark = len(browser.frames)
+    t_start = await browser.send('start')
+    # After the start: newSize at each rung; at the polish, state False
+    # (the engine goes down), workerReady (the float32 engine is up);
+    # state False with the schedule gone is its closing pause.
+    sizes = []
+    t_down = t_ready = None
+    while True:
+        d = await browser.recv()
+        if d['type'] == 'newSize':
+            sizes.append((d['height'], d['width']))
+        elif d['type'] == 'state' and not d['running']:
+            if t_down is None:
+                t_down = browser.frames[-1][0]
+            elif t_ready is not None and tier.sched is None:
+                break
+        elif d['type'] == 'workerReady' and t_down is not None:
+            t_ready = browser.frames[-1][0]
+    require(sizes == SERVE_RUNGS, 'serve ladder: grids %s' % (sizes,))
+    polish_driver = tier.driver
+    require(polish_driver is not first_driver
+            and polish_driver.transfer.precision == 'float32'
+            and polish_driver.transfer.device.type == SERVE_DEVICE,
+            'serve ladder: no float32 polish engine on the card')
+    frames = browser.iterates(mark)
+    polish = [f for f in frames if f[0] > t_ready]
+    ladder = [f for f in frames if f[0] < t_down]
+    require(len(polish) >= SERVE_POLISH, 'serve ladder: %d polish '
+            'iterates' % len(polish))
+    require(all(math.isfinite(d['trace']['loss']) for _, d in frames),
+            'serve ladder: non-finite loss')
+    bounds = [first_event(log, 'set_input', SERVE_RUNGS[0])[1]] + [
+        first_event(log, 'resample_input', hw)[1] for hw in SERVE_RUNGS[1:]]
+    rungs = []
+    for r, hw in enumerate(SERVE_RUNGS):
+        rows = [f for f in ladder if f[1]['i'] > bounds[r]
+                and (r + 1 == len(bounds) or f[1]['i'] <= bounds[r + 1])]
+        require(len(rows) >= SERVE_LADDER, 'serve ladder: %d iterates at '
+                '%s' % (len(rows), hw))
+        losses = [d['trace']['loss'] for _, d in rows]
+        if r == 0:
+            require(losses[-1] < losses[0], 'serve ladder: loss did not '
+                    'fall at %s: %.6g -> %.6g' % (hw, losses[0],
+                                                   losses[-1]))
+        rungs.append({'hw': list(hw), 'iterates': len(rows),
+                      'it_s': host_it_s(rows),
+                      'its_per_s': rows[-1][1]['itsPerS'],
+                      'loss': [losses[0], losses[-1]]})
+    return {'first_iterate_s': tier.first_iterate_s,
+            'first_iterate_host_s': frames[0][0] - t_start,
+            'rungs': rungs,
+            'polish_respawn_s': polish[0][0] - t_down,
+            'polish_ready_s': t_ready - t_down,
+            'polish_it_s': host_it_s(polish),
+            'polish_iterates': len(polish),
+            'polish_loss': [polish[0][1]['trace']['loss'],
+                            polish[-1][1]['trace']['loss']]}
+
+
+def phase_serve(torch, smi):
+    """The port's web app on the card, two sessions over a real localhost
+    socket, the full-width VGG-19 with random_params(0), config.ini's
+    dispatch defaults."""
+    import asyncio
+    from style_transfer2_tpu_torch.engine.transfer import StyleTransfer
+    launches = dict.fromkeys(KERNELS, 0)
+    log = GridLog(StyleTransfer)
+    results = {}
+    try:
+        for which, drive, keys in (
+                ('float32', drive_float32, {'precision': 'float32'}),
+                ('bfloat16 ladder', drive_ladder, {
+                    'precision': 'bfloat16', 'serve_ladder': SERVE_LADDER,
+                    'ladder_min_scale': SERVE_MIN_SCALE,
+                    'serve_polish': SERVE_POLISH,
+                    'polish_precision': 'float32'})):
+            counts, results[which] = asyncio.run(asyncio.wait_for(
+                serve_session(torch, which, log, drive, keys),
+                SERVE_TIMEOUT))
+            results[which]['launches'] = counts
+            for name, n in counts.items():
+                launches[name] += n
+    finally:
+        log.restore()
+    a, b = results['float32'], results['bfloat16 ladder']
+    say('serve', '%s; float32 at %dx%d: %d iterates, %.2f it/s (host '
+        'clock), itsPerS %.2f, first iterate %.2f s (app) / %.2f s (host), '
+        'loss %.6g -> %.6g' % (
+            smi, a['grid_512'][0], a['grid_512'][1], a['iterates_512'],
+            a['it_s_512'], a['its_per_s_512'],
+            a['first_iterate_s'], a['first_iterate_host_s'],
+            a['loss_512'][0], a['loss_512'][1]))
+    say('serve', '%s; float32 control latency (applyParams to the first '
+        'iterate under the new weights) %.3f s; resize to %dx%d: %.3f s '
+        'to its first iterate, %d iterates, %.2f it/s (host clock), '
+        'itsPerS %.2f' % (smi, a['control_s'], a['grid_768'][0],
+                          a['grid_768'][1], a['resize_s'],
+                          a['iterates_768'], a['it_s_768'],
+                          a['its_per_s_768']))
+    for rung in b['rungs']:
+        say('serve', '%s; bfloat16 rung %dx%d: %d iterates, %.2f it/s (host '
+            'clock), itsPerS %.2f, loss %.6g -> %.6g' % (
+                smi, rung['hw'][0], rung['hw'][1], rung['iterates'],
+                rung['it_s'], rung['its_per_s'], rung['loss'][0],
+                rung['loss'][1]))
+    say('serve', '%s; bfloat16 first iterate %.2f s (app) / %.2f s (host); '
+        'float32 polish respawn %.3f s (engine down to first polish '
+        'iterate; %.3f s to workerReady), %d iterates, %.2f it/s, loss '
+        '%.6g -> %.6g' % (
+            smi, b['first_iterate_s'], b['first_iterate_host_s'],
+            b['polish_respawn_s'], b['polish_ready_s'], b['polish_iterates'],
+            b['polish_it_s'], b['polish_loss'][0], b['polish_loss'][1]))
+    say('serve', 'launches: float32 %s; bfloat16 ladder %s' % (
+        a['launches'], b['launches']))
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / 'serve.json').write_text(json.dumps(
+        dict(results, device=smi), indent=1))
+    return launches
+
+
 def main():
     import torch
-    phase_device(torch)
+    smi = phase_device(torch)
     phase_build()
     from style_transfer2_tpu_torch.utils import tf32
     with tf32(False):              # TF32 off for the plain versions
@@ -1199,6 +1584,8 @@ def main():
     for name, n in phase_ladder(torch, log).items():
         launches[name] += n
     phase_parity(torch)
+    for name, n in phase_serve(torch, smi).items():
+        launches[name] += n
     with tf32(False):
         phase_costs(torch, rows, parts, pending, steps)
     step = summarize(parts)
@@ -1215,8 +1602,8 @@ def main():
         'preprocess, deprocess) over the 7 rungs of the 1024px ladder '
         '(library: torch.sub, torch.add); device_ms: the kernels\' own '
         'time (torch.profiler); host_us: the host\'s enqueue cost a call; '
-        'launches over the main and ladder runs; 512px it/s float32 %.3f, '
-        'bfloat16 %.3f' % (rates['float32'], rates['bfloat16']))
+        'launches over the main, ladder and serve runs; 512px it/s float32 '
+        '%.3f, bfloat16 %.3f' % (rates['float32'], rates['bfloat16']))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -16,6 +16,7 @@ of different precisions can share a process.
 import csv
 import time
 
+import numpy as np
 import torch
 
 from ..models import vgg19
@@ -124,6 +125,10 @@ class StyleTransfer:
     def input_hw(self):
         return None if self._input is None else tuple(self._input.shape[1:3])
 
+    def layers(self):
+        """The model's blob names, which a weights document may name."""
+        return list(vgg19.BLOB_NAMES)
+
     def spec(self):
         return ObjectiveSpec.from_weights(self.weights, self.scalar_params)
 
@@ -152,17 +157,33 @@ class StyleTransfer:
         self.is_running = False
         self.is_starting = False
 
+    def _warm_start(self, size, new_x=None):
+        """Moves the optimizer state to a new grid: the iterate resized to
+        size, or new_x, with the state cleared. An L-BFGS history keeps
+        its dtype, as in the JAX engine, except that bfloat16 pairs
+        restart in float32 on a grid below lbfgs.BF16_HISTORY_MIN_PIXELS:
+        bf16 pairs diverge on small grids (the gate of history_dtype_for),
+        and a history carried down from a larger grid, as a serving
+        ladder's first rung is after the session's first grid, went to NaN
+        within 30 steps on an H100."""
+        with precision_scope(self.precision):
+            state = OPTIMIZERS[self.optimizer_name].resample(
+                self.opt_state, size, new_x=new_x)
+        if self.optimizer_name == 'lbfgs':
+            if (state['sk'].dtype != torch.float32
+                    and lbfgs.history_dtype_for(
+                        self.compute_dtype, state['x'].shape[1:3]) is None):
+                state = lbfgs.init(state['x'], state['sk'].shape[0])
+            self._needs_init = True
+        self.opt_state = state
+        self._input = state['x']
+
     def resample_input(self, size):
         """Resizes the iterate to size and warm-starts the optimizer state
         there (reference worker.py:154-160)."""
         size = tuple(int(s) for s in size)
         if self._input is not None and self.opt_state is not None:
-            mod = OPTIMIZERS[self.optimizer_name]
-            with precision_scope(self.precision):
-                self.opt_state = mod.resample(self.opt_state, size)
-            self._input = self.opt_state['x']
-            if self.optimizer_name == 'lbfgs':
-                self._needs_init = True
+            self._warm_start(size)
         else:
             self._input = self._zeros_image(size)
         self._start()
@@ -225,13 +246,7 @@ class StyleTransfer:
                 self.opt_state = dict(self.opt_state, x=image)
             self.objective_changed()
         elif self.opt_state is not None:
-            mod = OPTIMIZERS[self.optimizer_name]
-            with precision_scope(self.precision):
-                self.opt_state = mod.resample(self.opt_state, None,
-                                              new_x=image)
-            self._input = self.opt_state['x']
-            if self.optimizer_name == 'lbfgs':
-                self._needs_init = True
+            self._warm_start(None, new_x=image)
             self._start()
         else:
             self._input = image
@@ -281,6 +296,15 @@ class StyleTransfer:
         self.scalar_params = dict(params)
         self._weights_cache = None
         self.objective_changed()
+
+    def seed_norms(self, vals, set_):
+        """Seeds first-eval norm state from host values (key -> float, key
+        -> bool), as 0-d tensors on this engine's device: a respawned engine
+        continues the normalized objective its session was anchored at."""
+        self.norm_vals.update({k: self._tensor(np.float32(v))
+                               for k, v in vals.items()})
+        self.norm_set.update({k: self._tensor(np.bool_(bool(v)))
+                              for k, v in set_.items()})
 
     # -- stepping -------------------------------------------------------------
 

@@ -48,8 +48,9 @@ def test_cli_cuda_without_gpu_raises(tmp_path):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """A fresh interpreter that imports the whole port and runs its CLI
-    has neither jax nor the JAX package in sys.modules."""
+    """A fresh interpreter that imports the whole port, its serving tier
+    included, and runs its CLI has neither jax nor the JAX package in
+    sys.modules."""
     code = (
         'import json, sys\n'
         'import style_transfer2_tpu_torch.cli as cli\n'
@@ -58,6 +59,11 @@ def test_port_imports_no_jax(tmp_path):
         'import style_transfer2_tpu_torch.engine.checkpoint, '
         'style_transfer2_tpu_torch.ops.resample, '
         'style_transfer2_tpu_torch.ops.image\n'
+        'import style_transfer2_tpu_torch.serve.app, '
+        'style_transfer2_tpu_torch.serve.driver, '
+        'style_transfer2_tpu_torch.serve.persist, '
+        'style_transfer2_tpu_torch.serve.phases, '
+        'style_transfer2_tpu_torch.utils.logging\n'
         'cli.main(sys.argv[1:])\n'
         'print(json.dumps(sorted(m for m in sys.modules\n'
         '    if m.split(".")[0] in\n'

@@ -519,3 +519,59 @@ def test_bf16_unaligned_view_takes_the_tile_path(cuda, monkeypatch,
     assert paths == [conv._PATH_CODES[conv.TILE]]
     assert float((got - want).abs().max()) <= 3e-2 * max(
         1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('precision', ['float32', 'bfloat16'])
+def test_serve_driver_runs_on_card(cuda, precision):
+    """The serving driver at 64px on the card, a single step and then
+    pipelined chunks: its engine is on CUDA, the iterates are finite and
+    every kernel was launched."""
+    import asyncio
+    from pathlib import Path
+
+    import yaml
+
+    from style_transfer2_tpu_torch.models import random_params
+    from style_transfer2_tpu_torch.serve import messages as m
+    from style_transfer2_tpu_torch.serve.driver import Driver
+
+    root = Path(__file__).resolve().parents[1]
+    weights, scalars = yaml.safe_load(
+        (root / 'initial_weights.yaml').read_text())
+    rng = np.random.RandomState(0)
+    content, style_img, inp = (rng.randint(0, 256, (64, 64, 3)).astype(
+        np.uint8) for _ in range(3))
+
+    def launches():
+        return (conv.launches('fwd'), conv.launches('bwd'), style.launches,
+                image.preprocess_launches, image.deprocess_launches)
+
+    before = launches()
+
+    async def body():
+        driver = Driver(random_params(0), precision=precision,
+                        device='cuda', adaptive_max_steps=4,
+                        pipeline_depth=2)
+        task = asyncio.ensure_future(driver.run())
+        await driver.in_queue.put(m.SetWeights(weights, scalars))
+        await driver.in_queue.put(m.SetImages(None, inp, content, style_img,
+                                              True))
+        await driver.in_queue.put(m.SetOptimizer('lbfgs'))
+        await driver.in_queue.put(m.StartIteration())
+        iterates = []
+        while len(iterates) < 6:
+            msg = await asyncio.wait_for(driver.out_queue.get(), 300)
+            if isinstance(msg, m.Iterate):
+                iterates.append(msg)
+        await driver.in_queue.put(m.Shutdown())
+        await task
+        return driver, iterates
+
+    driver, iterates = asyncio.run(body())
+    assert driver.transfer.device.type == 'cuda'
+    assert [it.i for it in iterates] == list(range(1, 7))
+    assert all(np.isfinite(it.trace['loss']) for it in iterates)
+    assert iterates[-1].image.shape == (64, 64, 3)
+    assert all(n > b for n, b in zip(launches(), before)), (before,
+                                                            launches())

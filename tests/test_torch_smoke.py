@@ -1,8 +1,10 @@
 """chip_smoke.py's pieces that need no card: how a device time is taken
-from several torch.profiler sessions, and the conv paths it requires the
-main and ladder runs to take."""
+from several torch.profiler sessions, the conv paths it requires the
+main and ladder runs to take, and its serve phase against the app on the
+CPU."""
 
 import importlib.util
+import json
 from pathlib import Path
 
 import pytest
@@ -63,3 +65,36 @@ def test_require_paths_names_a_path_never_taken(monkeypatch, precision,
     del conv.path_launches[missing]
     with pytest.raises(RuntimeError, match=missing[1]):
         chip_smoke.require_paths('main', precision)
+
+
+def test_serve_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    """The serve phase's browser script, event log and checks end to end
+    against the app on the CPU at 36x48 (its ladder 18x24 -> 36x48), with
+    the card-only parts stubbed: the kernel counts (no kernel launches
+    here) and torch.cuda's name and sync."""
+    import types
+
+    monkeypatch.setattr(chip_smoke, 'SERVE_DEVICE', 'cpu')
+    monkeypatch.setattr(chip_smoke, 'SERVE_SIZE', 48)
+    monkeypatch.setattr(chip_smoke, 'SERVE_RESIZE', 64)
+    monkeypatch.setattr(chip_smoke, 'SERVE_MIN_SCALE', 24)
+    monkeypatch.setattr(chip_smoke, 'SERVE_RUNGS',
+                        [(18, 24), (25, 34), (36, 48)])
+    monkeypatch.setattr(chip_smoke, 'OUT_DIR', tmp_path)
+    ones = dict.fromkeys(chip_smoke.KERNELS, 1)
+    monkeypatch.setattr(chip_smoke, 'counters', lambda: dict(ones))
+    monkeypatch.setattr(chip_smoke, 'require_paths', lambda *a: None)
+    fake = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        synchronize=lambda: None, get_device_name=lambda i: 'cpu'))
+    assert chip_smoke.phase_serve(fake, 'a CPU') == dict.fromkeys(
+        chip_smoke.KERNELS, 2)
+    a = json.loads((tmp_path / 'serve.json').read_text())
+    assert a['float32']['grid_512'] == [36, 48]
+    assert a['float32']['grid_768'] == [48, 64]
+    assert a['float32']['iterates_768'] >= chip_smoke.SERVE_RESIZE_ITERATES
+    assert a['float32']['control_s'] > 0
+    ladder = a['bfloat16 ladder']
+    assert [r['hw'] for r in ladder['rungs']] == [[18, 24], [25, 34],
+                                                  [36, 48]]
+    assert ladder['polish_iterates'] >= chip_smoke.SERVE_POLISH
+    assert ladder['polish_respawn_s'] >= ladder['polish_ready_s'] > 0
