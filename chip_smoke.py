@@ -25,8 +25,14 @@ exits non-zero:
                mma.sync kernel (tile) also held at every shape, forced
                and on views one element off, and each step's conv
                times summed beside cuDNN's;
+               the batched engine's trunk: the 512px iterate shapes at
+               N = 4 in both precisions, with their paths and cuDNN at
+               N = 4, summed over a 4-lane step;
                the style branch at the taps of the 512px, 543x724 and
-               768x1024 iterates; the image kernels (preprocess from uint8
+               768x1024 iterates, and with a lane axis at the 512px taps,
+               4 lanes in one launch sequence, each lane also held against
+               the one-map kernel on that lane and two torch.bmm timed as
+               the library call; the image kernels (preprocess from uint8
                and float32, deprocess) at every rung of the 1024px ladder,
                bit for bit. The conv forward and backward and the style
                branch must give the same bits on a second call. Each row
@@ -55,7 +61,20 @@ exits non-zero:
   6. parity  — the CUDA engine against the CPU engine (the plain versions)
                on small inputs, 5 steps at one size and a 2-rung ladder:
                every trace key within the golden rtol.
-  7. serve   — the web app (style_transfer2_tpu_torch.serve.app) on the
+  7. batch   — the CLI's --batch --lanes 4 at --size 512, L-BFGS, 20
+               iterations one step a dispatch, in float32 and in bfloat16,
+               full-width VGG-19 with random_params(0), on a directory of
+               golden_gate.jpg, its three flips (one full wave of 4 lanes)
+               and starry_night.jpg (a wave of one lane beside 3 inactive
+               ones): each lane's loss finite and falling, five PNGs of
+               their sizes, every kernel launched and the conv paths
+               planned at N = 4 among the launches; each wave's it/s a
+               lane and in aggregate beside phase 4's single-image it/s,
+               and the peak device memory; then a 2-lane float32
+               BatchedStyleTransfer against two single CUDA engines at
+               48x64, 5 L-BFGS steps, every trace key within the golden
+               rtol; batch.json.
+  8. serve   — the web app (style_transfer2_tpu_torch.serve.app) on the
                card with config.ini's dispatch defaults (adaptive 60, depth
                2, latency target 2.0 s), driven over a real localhost
                socket by the browser protocol, full-width VGG-19 with
@@ -72,7 +91,7 @@ exits non-zero:
                session's it/s (host clock and the app's itsPerS), first
                iterate, the control latency and the polish respawn's
                seconds printed; serve.json.
-  8. profile — every kernel and library call timed in phase 3, on the
+  9. profile — every kernel and library call timed in phase 3, on the
                same inputs: host_us, the host clock over HOST_CALLS
                back-to-back calls with no sync (the enqueue cost), then
                device_ms, its kernels' own time from torch.profiler's CUDA
@@ -95,6 +114,7 @@ import json
 import logging
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -209,8 +229,16 @@ STYLE_CONVS = [
 
 
 # The iterate sizes whose conv rows chip_smoke sums over one step, by the
-# `where` of their rows.
-STEP_SIZES = {'512': '384x512', '543x724': '543x724', '1024': '768x1024'}
+# `where` of their rows; '512x4' is the batch phase's step, four lanes of
+# the 384x512 iterate at N = 4.
+STEP_SIZES = {'512': '384x512', '543x724': '543x724', '1024': '768x1024',
+              '512x4': '4 x 384x512'}
+# Lanes of the batch phase's wave, and of the kernels phase's N = 4 conv
+# rows and B = 4 style rows; the batch phase's --size and device (the CPU
+# tests set a small size and cpu).
+LANES = 4
+BATCH_SIZE = 512
+BATCH_DEVICE = 'cuda'
 
 
 def style_taps(h, w):
@@ -244,16 +272,17 @@ def bound(flops, nbytes, dtype_name='float32'):
     return (t_ops, 'operations') if t_ops >= t_mem else (t_mem, 'bytes')
 
 
-def conv_bounds(shape, dtype_name):
+def conv_bounds(shape, dtype_name, n=1):
     """Bounds (ms, kind) of the forward and the masked backward at (H, W,
-    Cin, Cout): 2*9*H*W*Cin*Cout operations each; the forward moves x, w,
-    b and y, the backward g, y, w and dx."""
+    Cin, Cout) over n images: 2*9*n*H*W*Cin*Cout operations each; the
+    forward moves x, w, b and y, the backward g, y, w and dx."""
     h, w, cin, cout = shape
-    flops = 2 * 9 * h * w * cin * cout
+    px = n * h * w
+    flops = 2 * 9 * px * cin * cout
     size = ITEMSIZE[dtype_name]
-    fwd = bound(flops, size * (h * w * (cin + cout) + 9 * cin * cout + cout),
+    fwd = bound(flops, size * (px * (cin + cout) + 9 * cin * cout + cout),
                 dtype_name)
-    bwd = bound(flops, size * (h * w * (2 * cout + cin) + 9 * cin * cout),
+    bwd = bound(flops, size * (px * (2 * cout + cin) + 9 * cin * cout),
                 dtype_name)
     return fwd, bwd
 
@@ -434,10 +463,11 @@ def phase_build():
         say('build', line)
 
 
-def check_conv(torch, rng, shape, dtype_name, where, pending):
-    """Holds the conv kernels against the plain version at one shape and
-    times both. Returns the row for kernels.json; appends to `pending` the
-    (row, field, fn) of each device time to profile later."""
+def check_conv(torch, rng, shape, dtype_name, where, pending, n=1):
+    """Holds the conv kernels against the plain version at one shape, over
+    n images (the batched engine's lanes), and times both. Returns the row
+    for kernels.json; appends to `pending` the (row, field, fn) of each
+    device time to profile later."""
     import torch.nn.functional as F
     from style_transfer2_tpu_torch.ops import conv
     h, w, cin, cout = shape
@@ -448,10 +478,10 @@ def check_conv(torch, rng, shape, dtype_name, where, pending):
     def as_t(a):
         return torch.as_tensor(np.float32(a), device=dev).to(dtype)
 
-    x = as_t(rng.randn(1, h, w, cin))
+    x = as_t(rng.randn(n, h, w, cin))
     wt = as_t(rng.normal(0, np.sqrt(2.0 / (9 * cin)), (3, 3, cin, cout)))
     b = as_t(rng.randn(cout) * 0.1)
-    g = as_t(rng.randn(1, h, w, cout))
+    g = as_t(rng.randn(n, h, w, cout))
 
     # The reference is the plain version in float32 on the same (for bf16:
     # bf16-valued) inputs, TF32 off: the kernel computes that sum and
@@ -507,8 +537,8 @@ def check_conv(torch, rng, shape, dtype_name, where, pending):
                         conv._launch_bwd(g, y, w_bwd)),
             'conv bwd %s %s: two calls differ' % (dtype_name, shape))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    fpath, fsplits, _ = conv.fwd_plan(1, h, w, cin, cout, dtype, sms)
-    path, splits, _ = conv.bwd_plan(1, h, w, cout, cin, dtype, sms)
+    fpath, fsplits, _ = conv.fwd_plan(n, h, w, cin, cout, dtype, sms)
+    path, splits, _ = conv.bwd_plan(n, h, w, cout, cin, dtype, sms)
     def fwd():
         return conv._launch_fwd(x, wt, b)
 
@@ -547,8 +577,8 @@ def check_conv(torch, rng, shape, dtype_name, where, pending):
 
     fwd_l = median_ms(fwd_lib, torch)
     bwd_l = median_ms(bwd_lib, torch)
-    (fwd_b, fwd_by), (bwd_b, bwd_by) = conv_bounds(shape, dtype_name)
-    gflop = 2 * 9 * h * w * cin * cout / 1e9
+    (fwd_b, fwd_by), (bwd_b, bwd_by) = conv_bounds(shape, dtype_name, n)
+    gflop = 2 * 9 * n * h * w * cin * cout / 1e9
     say('kernels', 'conv %-8s %-8s %-21s fwd %s%s %.3f ms (plain %.3f, '
         'x%.2f; cuDNN %.3f, x%.2f; %.1f TFLOP/s, %.0f%% of bound %.3f) bwd '
         '%s%s %.3f ms (plain %.3f, x%.2f; cuDNN dgrad %.3f; %.0f%% of bound '
@@ -567,8 +597,8 @@ def check_conv(torch, rng, shape, dtype_name, where, pending):
                     alt['fwd_unaligned_rel_err'], alt['bwd_tile_rel_err'],
                     alt['bwd_unaligned_rel_err']))))
     row = {'kernel': 'conv3x3', 'dtype': dtype_name, 'where': where,
-            'shape': list(shape), 'fwd_ms': fwd_k, 'fwd_plain_ms': fwd_p,
-            'fwd_library_ms': fwd_l, 'fwd_bound_ms': fwd_b,
+            'shape': list(shape), 'n': n, 'fwd_ms': fwd_k,
+            'fwd_plain_ms': fwd_p, 'fwd_library_ms': fwd_l, 'fwd_bound_ms': fwd_b,
             'fwd_bound_by': fwd_by, 'bwd_bound_by': bwd_by,
             'bwd_ms': bwd_k, 'bwd_plain_ms': bwd_p, 'bwd_library_ms': bwd_l,
             'bwd_bound_ms': bwd_b, 'fwd_path': fpath, 'fwd_splits': fsplits,
@@ -631,53 +661,109 @@ def check_mma_sync(torch, x, wt, b, g, y, w_bwd, y_r, dx_r, what):
     return errs
 
 
-def check_style(torch, rng, tap, where, pending):
+def check_style(torch, rng, tap, where, pending, lanes=1):
+    """Holds the style branch against its plain version at one tap and
+    times both: one map with its (c, c) target, or `lanes` maps with their
+    (lanes, c, c) targets in one launch sequence, each lane then also held
+    against the one-map kernel on that lane alone and timed beside two
+    torch.bmm (the Gram and the gradient product) as the library call."""
     from style_transfer2_tpu_torch.ops import style
     h, w, c = tap
+    m = h * w
     dev = torch.device('cuda')
-    feat = torch.relu(torch.as_tensor(np.float32(rng.randn(1, h, w, c)),
+    feat = torch.relu(torch.as_tensor(np.float32(rng.randn(lanes, h, w, c)),
                                       device=dev))
-    other = torch.relu(torch.as_tensor(np.float32(rng.randn(1, h, w, c)),
+    other = torch.relu(torch.as_tensor(np.float32(rng.randn(lanes, m, c)),
                                        device=dev))
-    flat = other.reshape(-1, c)
-    gram_style = flat.T @ flat / flat.numel()
+    gram_style = torch.bmm(other.transpose(1, 2), other) / (m * c)
+    if lanes == 1:
+        feat, gram_style = feat[:1], gram_style[0]
     s_k, gd_k = style.fused_style_branch(feat, gram_style)
     s_p, gd_p = style.fused_style_branch_plain(feat, gram_style)
     s_2, gd_2 = style.fused_style_branch(feat, gram_style)
     torch.cuda.synchronize()
     require(torch.equal(s_k, s_2) and torch.equal(gd_k, gd_2),
-            'style %s: two calls differ' % (tap,))
-    # s_grad is ~1e-9 in magnitude: its error is relative to its own max;
-    # gram_diff's to the larger of its and the target's max.
-    se = float((s_k - s_p).abs().max())
-    sr = se / float(s_p.abs().max())
-    ge = float((gd_k - gd_p).abs().max())
-    gr = ge / max(float(gd_p.abs().max()), float(gram_style.abs().max()))
+            'style %s x%d: two calls differ' % (tap, lanes))
+
+    def errs(s_got, gd_got, s_want, gd_want, target):
+        """s_grad is ~1e-9 in magnitude: its error is relative to its own
+        max; gram_diff's to the larger of its and the target's max."""
+        se = float((s_got - s_want).abs().max())
+        ge = float((gd_got - gd_want).abs().max())
+        return (se, se / float(s_want.abs().max()), ge,
+                ge / max(float(gd_want.abs().max()),
+                         float(target.abs().max())))
+
+    se, sr, ge, gr = errs(s_k, gd_k, s_p, gd_p, gram_style)
     require(math.isfinite(sr) and sr <= STYLE_TOL,
-            'style s_grad %s: rel err %.3g' % (tap, sr))
+            'style s_grad %s x%d: rel err %.3g' % (tap, lanes, sr))
     require(math.isfinite(gr) and gr <= STYLE_TOL,
-            'style gram_diff %s: rel err %.3g' % (tap, gr))
+            'style gram_diff %s x%d: rel err %.3g' % (tap, lanes, gr))
+    lane_err = f64_err = None
+    if lanes > 1:
+        # s_grad of the kernel, of the plain version and of two torch.bmm
+        # against a float64 reference, each relative to the reference's max.
+        x64 = feat.double().reshape(lanes, m, c)
+        scale = 2.0 / (c * c * m * c)
+        gd64 = (torch.bmm(x64.transpose(1, 2), x64) / (m * c)
+                - gram_style.double())
+        s64 = torch.bmm(x64, gd64).reshape(feat.shape) * scale
+        del x64, gd64
+        flat = feat.reshape(lanes, m, c)
+        gd_b = torch.bmm(flat.transpose(1, 2), flat) / (m * c) - gram_style
+        s_b = torch.bmm(flat, gd_b).reshape(feat.shape) * scale
+        f64_err = {name: float((got.double() - s64).abs().max()
+                               / s64.abs().max())
+                   for name, got in (('kernel', s_k), ('plain', s_p),
+                                     ('bmm', s_b))}
+        del s64, gd_b, s_b
+        lane_err = 0.0
+        for lane in range(lanes):
+            s_1, gd_1 = style.fused_style_branch(feat[lane:lane + 1],
+                                                 gram_style[lane])
+            _, lsr, _, lgr = errs(s_k[lane:lane + 1], gd_k[lane], s_1, gd_1,
+                                  gram_style[lane])
+            require(max(lsr, lgr) <= STYLE_TOL, 'style %s lane %d of %d '
+                    'against the one-map kernel: rel err %.3g/%.3g'
+                    % (tap, lane, lanes, lsr, lgr))
+            lane_err = max(lane_err, lsr, lgr)
+
     def kernel():
         return style._launch(feat, gram_style)
 
     t_k = median_ms(kernel, torch)
     t_p = median_ms(
         lambda: style.fused_style_branch_plain(feat, gram_style), torch)
+    lib, t_l = None, None
+    if lanes > 1:
+        def lib():
+            return (torch.bmm(flat.transpose(1, 2), flat),
+                    torch.bmm(flat, gd_k))
+
+        t_l = median_ms(lib, torch)
     # Operations: M*C*(C+1) for the Gram (symmetric: the upper triangle
     # with its diagonal) and 2*M*C^2 for the gradient product; bytes: X and
-    # G_style read, and G_diff and s_grad written, once.
-    m = h * w
-    t_b, t_by = bound(m * c * (c + 1) + 2 * m * c * c,
-                      4 * (2 * m * c + 2 * c * c))
+    # G_style read, and G_diff and s_grad written, once; each per lane.
+    t_b, t_by = bound(lanes * (m * c * (c + 1) + 2 * m * c * c),
+                      lanes * 4 * (2 * m * c + 2 * c * c))
     say('kernels', 'style float32 %-8s %-16s %.3f ms (plain, two cuBLAS '
         'matmuls, %.3f; x%.2f; %.0f%% of bound %.3f) err %.2g/%.2g; '
-        'bitwise repeatable' % (where, tap, t_k, t_p, t_k / t_p,
-                                100 * t_b / t_k, t_b, sr, gr))
+        'bitwise repeatable%s' % (
+            where, tap, t_k, t_p, t_k / t_p, 100 * t_b / t_k, t_b, sr, gr,
+            '' if lanes == 1 else '; %d lanes in one launch, two torch.bmm '
+            '%.3f (x%.2f), each lane within %.2g of the one-map kernel; '
+            's_grad against float64: kernel %.2g, plain %.2g, torch.bmm '
+            '%.2g' % (lanes, t_l, t_k / t_l, lane_err, f64_err['kernel'],
+                      f64_err['plain'], f64_err['bmm'])))
     row = {'kernel': 'fused_style_branch', 'dtype': 'float32',
-           'where': where, 'shape': list(tap), 'ms': t_k, 'plain_ms': t_p,
-           'bound_ms': t_b, 'bound_by': t_by, 's_grad_rel_err': sr,
-           'gram_diff_rel_err': gr, 'abs_err': max(se, ge)}
+           'where': where, 'shape': list(tap), 'lanes': lanes, 'ms': t_k,
+           'plain_ms': t_p, 'library_ms': t_l, 'bound_ms': t_b,
+           'bound_by': t_by, 's_grad_rel_err': sr, 'gram_diff_rel_err': gr,
+           'lane_rel_err': lane_err, 'f64_rel_err': f64_err,
+           'abs_err': max(se, ge)}
     pending.append((row, '', kernel))
+    if lib is not None:
+        pending.append((row, 'library_', lib))
     return row
 
 
@@ -781,17 +867,25 @@ def phase_kernels(torch):
     # shape run three times a step three times.
     steps = {}
 
+    # The N = 4 rows draw from their own generator, so that the rows above
+    # keep their inputs.
+    lanes_rng = np.random.RandomState(LANES)
     for dtype_name in ('float32', 'bfloat16'):
         cases = ([(s, '512') for s in ITERATE_CONVS]
                  + [(s, 'style') for s in STYLE_CONVS]
                  + [(s, '543x724') for s in trunk_convs(543, 724)]
-                 + [(s, '1024') for s in trunk_convs(768, 1024)])
+                 + [(s, '1024') for s in trunk_convs(768, 1024)]
+                 + [(s, '512x4') for s in ITERATE_CONVS])
         seen = {}
         for shape, where in cases:
             key = (shape, where)
             if key not in seen:
-                seen[key] = check_conv(torch, rng, shape, dtype_name, where,
-                                       pending)
+                if where == '512x4':
+                    seen[key] = check_conv(torch, lanes_rng, shape,
+                                           dtype_name, where, pending, LANES)
+                else:
+                    seen[key] = check_conv(torch, rng, shape, dtype_name,
+                                           where, pending)
                 rows.append(seen[key])
             row = seen[key]
             worst['conv3x3_bias_relu_fwd'] = max(
@@ -806,10 +900,15 @@ def phase_kernels(torch):
         for where, size in STEP_SIZES.items():
             step_sums(steps[(dtype_name, where)], dtype_name, size)
 
-    for where, taps in STYLE_TAPS.items():
+    for where, taps in list(STYLE_TAPS.items()) + [
+            ('512x4', STYLE_TAPS['512'])]:
         total = [0.0, 0.0, 0.0]
         for tap in taps:
-            row = check_style(torch, rng, tap, where, pending)
+            if where == '512x4':
+                row = check_style(torch, lanes_rng, tap, where, pending,
+                                  LANES)
+            else:
+                row = check_style(torch, rng, tap, where, pending)
             rows.append(row)
             worst['fused_style_branch'] = max(worst['fused_style_branch'],
                                               row['abs_err'])
@@ -1510,6 +1609,203 @@ async def drive_ladder(browser, tier, http, log, torch):
                             polish[-1][1]['trace']['loss']]}
 
 
+def batch_inputs():
+    """The batch phase's input directory under OUT_DIR: golden_gate.jpg and
+    its left-right, top-bottom and double flips (one grid, 384x512 at
+    BATCH_SIZE 512: one full wave of LANES lanes) and starry_night.jpg
+    (410x512: a wave of one lane beside LANES - 1 inactive ones). Returns
+    (directory, {output name: (width, height)}, the full wave's (h, w),
+    the lone lane's (h, w))."""
+    from PIL import Image
+    from style_transfer2_tpu_torch.utils import fit_into_square
+    indir = OUT_DIR / 'batch_in'
+    shutil.rmtree(indir, ignore_errors=True)
+    indir.mkdir(parents=True)
+    with Image.open(CONTENT) as img:
+        pixels = np.asarray(img.convert('RGB'))
+    for name, flipped in (('golden_gate', pixels),
+                          ('golden_gate_lr', pixels[:, ::-1]),
+                          ('golden_gate_tb', pixels[::-1]),
+                          ('golden_gate_both', pixels[::-1, ::-1])):
+        Image.fromarray(np.ascontiguousarray(flipped)).save(
+            indir / (name + '.png'))
+    shutil.copy(STYLE, indir / STYLE.name)
+    fitted = []
+    for path in (CONTENT, STYLE):
+        with Image.open(path) as img:
+            fitted.append(tuple(fit_into_square(img.size, BATCH_SIZE,
+                                                scale_up=True)))
+    sizes = {'golden_gate%s_styled.png' % v: fitted[0]
+             for v in ('', '_lr', '_tb', '_both')}
+    sizes[STYLE.stem + '_styled.png'] = fitted[1]
+    return indir, sizes, fitted[0][::-1], fitted[1][::-1]
+
+
+def batch_paths(torch, precision):
+    """The (direction, path) pairs the planners pick for the 384x512
+    iterate's trunk at N = LANES."""
+    from style_transfer2_tpu_torch.ops import conv
+    dtype = {'float32': torch.float32, 'bfloat16': torch.bfloat16}[precision]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = set()
+    for h, w, cin, cout in ITERATE_CONVS:
+        want.add(('fwd', conv.fwd_plan(LANES, h, w, cin, cout, dtype,
+                                       sms)[0]))
+        want.add(('bwd', conv.bwd_plan(LANES, h, w, cout, cin, dtype,
+                                       sms)[0]))
+    return sorted(want)
+
+
+def wave_rates(log, start):
+    """{(h, w): (lanes, steady per-lane it/s, the wave line's seconds and
+    aggregate it/s)} from the CLI's records after index `start`: the
+    steady rate from the times of its per-iterate collects (one step a
+    dispatch), first to last, as phase 4 reads its trace."""
+    records = log.records[start:]
+    times = {}
+    for r in records:
+        if r.msg == 'wave at %dx%d iterate %d loss %s':
+            times.setdefault(r.args[:2], []).append(r.created)
+    out = {}
+    for r in records:
+        if r.msg.startswith('wave of %d at %dx%d'):
+            n, h, w, _, dt, agg = r.args
+            t = times[(h, w)]
+            out[(h, w)] = (n, (len(t) - 1) / (t[-1] - t[0]), dt, agg)
+    return out
+
+
+def phase_batch(torch, log, rates, smi):
+    """The CLI's --batch on the card: LANES lanes at 512px, L-BFGS, one
+    step a dispatch (as phase 4), in float32 and in bfloat16, full-width
+    VGG-19 with random_params(0); then the batched engine against single
+    engines at 48x64."""
+    from PIL import Image
+    from style_transfer2_tpu_torch import cli
+    from style_transfer2_tpu_torch.ops import conv
+    indir, sizes, full_hw, lone_hw = batch_inputs()
+    launches = dict.fromkeys(KERNELS, 0)
+    results = {}
+    for precision in ('float32', 'bfloat16'):
+        outdir = OUT_DIR / ('batch_%s' % precision)
+        shutil.rmtree(outdir, ignore_errors=True)
+        start = len(log.records)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        rc = cli.main([str(indir), str(STYLE), '--batch', '-o', str(outdir),
+                       '--lanes', str(LANES), '--size', str(BATCH_SIZE),
+                       '--iterations', str(ITERATIONS), '--optimizer',
+                       'lbfgs', '--precision', precision, '--model-weights',
+                       'random', '--steps-per-dispatch', '1',
+                       '--pipeline-depth', '1', '--device', BATCH_DEVICE])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = counters()
+        paths = path_counts()
+        peak_all = torch.cuda.max_memory_allocated()
+        peak = peak_all - base
+        require(rc == 0, 'batch %s: cli.main returned %r' % (precision, rc))
+        require_all_launched(counts, 'batch ' + precision)
+        for key in batch_paths(torch, precision):
+            require(conv.path_launches.get(key, 0) > 0, 'batch %s: no %s '
+                    'launches on the %s path planned at N = %d'
+                    % (precision, key[0], key[1], LANES))
+        for name, n in counts.items():
+            launches[name] += n
+        losses = {r.args[0]: r.args[2:] for r in log.records[start:]
+                  if r.msg == '%s -> %s (loss %.6g -> %.6g)'}
+        require(len(losses) == len(sizes), 'batch %s: %d images styled'
+                % (precision, len(losses)))
+        for name, (first, last) in losses.items():
+            require(math.isfinite(first) and math.isfinite(last)
+                    and last < first, 'batch %s %s: loss %.6g -> %.6g'
+                    % (precision, name, first, last))
+        for name, size in sizes.items():
+            with Image.open(outdir / name) as img:
+                require(img.size == size, 'batch %s %s: PNG size %s'
+                        % (precision, name, img.size))
+        waves = wave_rates(log, start)
+        n, lane_it_s, dt, agg = waves[full_hw]
+        one = waves[lone_hw]
+        require(n == LANES and one[0] == 1, 'batch %s: waves %s'
+                % (precision, waves))
+        results[precision] = {
+            'lanes': n, 'lane_it_s': lane_it_s,
+            'aggregate_it_s': n * lane_it_s, 'wave_s': dt,
+            'wave_aggregate_it_s': agg, 'single_it_s': rates[precision],
+            'lone_lane_it_s': one[1], 'peak_bytes': peak,
+            'max_memory_allocated': peak_all, 'wall_s': wall,
+            'launches': counts, 'paths': paths,
+            'losses': {k: list(v) for k, v in losses.items()}}
+        say('batch', '%s; %s: %d lanes at %dx%d, %d L-BFGS iterations '
+            'one step a dispatch: %.2f it/s a lane, %.2f aggregate (the '
+            'wave line: %.2f s, %.2f aggregate it/s) against %.2f it/s '
+            'single-image (phase 4), x%.2f; a lone lane of %d at %dx%d '
+            '%.2f it/s; peak device memory %.0f MiB over the start '
+            '(max_memory_allocated %.0f MiB); %.1f s wall; launches %s; '
+            'conv paths %s' % (
+                smi, precision, n, full_hw[0], full_hw[1], ITERATIONS,
+                lane_it_s, n * lane_it_s, dt, agg, rates[precision],
+                n * lane_it_s / rates[precision], LANES, lone_hw[0],
+                lone_hw[1], one[1], peak / 2 ** 20, peak_all / 2 ** 20, wall,
+                counts, paths))
+        say('batch', '%s: losses %s' % (precision, ', '.join(
+            '%s %.6g -> %.6g' % (k, *v) for k, v in sorted(losses.items()))))
+    results['parity_worst_rel_err'] = batch_parity(torch)
+    (OUT_DIR / 'batch.json').write_text(json.dumps(
+        dict(results, device=smi), indent=1))
+    return launches
+
+
+def batch_parity(torch):
+    """A 2-lane float32 BatchedStyleTransfer on the card against two single
+    CUDA StyleTransfer engines at 48x64, 5 L-BFGS steps: every trace key
+    within PARITY_RTOL. Returns the worst relative error."""
+    from style_transfer2_tpu_torch.engine import StyleTransfer
+    from style_transfer2_tpu_torch.engine.batched import BatchedStyleTransfer
+    from style_transfer2_tpu_torch.models import random_params
+    rng = np.random.RandomState(1)
+    jobs = [[rng.randint(0, 256, (48, 64, 3)).astype(np.uint8)
+             for _ in range(3)] for _ in range(2)]
+    weights = {'content': {'conv4_2': 0.08},
+               'style': {n: 1.0 for n in
+                         ('conv1_1', 'conv2_1', 'conv3_1', 'conv4_1')}}
+    scalars = {'p': 50.0, 'p_power': 6.0, 'tv': 5.0, 'tv_power': 2.0}
+    params = random_params(0)
+    bt = BatchedStyleTransfer(params, weights, scalars, (48, 64),
+                              max_lanes=2, optimizer='lbfgs',
+                              device=BATCH_DEVICE)
+    for job in jobs:
+        bt.add_job(*job)
+    got = [bt.step_all() for _ in range(5)]
+    worst = 0.0
+    for lane, (content, style_img, inp) in enumerate(jobs):
+        st = StyleTransfer(params, 'float32', device=BATCH_DEVICE)
+        st.set_weights(weights, scalars)
+        st.set_content(content)
+        st.set_style(style_img)
+        st.set_input(inp)
+        require(st.start(), 'batch parity engine did not start')
+        for i in range(5):
+            want = st.step(fetch_image=False)[1]
+            for key, value in want.items():
+                if key == 'time':
+                    continue
+                err = abs(got[i][lane][key] - value) / max(abs(value),
+                                                           1e-30)
+                worst = max(worst, err)
+                require(err <= PARITY_RTOL, 'batch parity lane %d %s at '
+                        'step %d: lanes %.6g single %.6g' % (
+                            lane, key, i, got[i][lane][key], value))
+    say('batch', '2 float32 lanes against 2 single CUDA engines at 48x64, '
+        '5 L-BFGS steps: worst trace rel err %.3g (rtol %g)' % (
+            worst, PARITY_RTOL))
+    return worst
+
+
 def phase_serve(torch, smi):
     """The port's web app on the card, two sessions over a real localhost
     socket, the full-width VGG-19 with random_params(0), config.ini's
@@ -1584,6 +1880,8 @@ def main():
     for name, n in phase_ladder(torch, log).items():
         launches[name] += n
     phase_parity(torch)
+    for name, n in phase_batch(torch, log, rates, smi).items():
+        launches[name] += n
     for name, n in phase_serve(torch, smi).items():
         launches[name] += n
     with tf32(False):

@@ -52,7 +52,7 @@ _SIGNATURES = {
                         _I, _I, _P],
     'st2_conv3x3_bwd': [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _P],
-    'st2_style_branch': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+    'st2_style_branch': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                          _P],
     'st2_preprocess': [_P, _P, _P, _P],
     'st2_deprocess': [_P, _P, _P, _P],

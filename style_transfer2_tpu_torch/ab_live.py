@@ -2,7 +2,7 @@
 and with one yardstick.
 
     python -m style_transfer2_tpu_torch.ab_live build/parent \\
-        [--host-rounds 6] [--device-rounds 2]
+        [--host-rounds 6] [--device-rounds 2] [--only style]
 
 Run from the repository root on a machine with a card (it takes
 chip_smoke.py's host_us and device_ms). The other checkout, a `git
@@ -21,6 +21,10 @@ called on the same inputs, each call on both sides back to back in turns
               the 7 rungs of the 1024px ladder. Two profiler sessions that
               saw the most kernels must agree, as in chip_smoke.py; a
               group with a call not measured has no sum in that round.
+
+--only GROUP times just the groups whose name holds GROUP, host_us and
+device_ms both (the style branch's host_us, say, which the default
+leaves out).
 
 Prints one JSON line: for each group, each side's sums by round, their
 medians and the ratio of the medians (this / other). The same, call by
@@ -115,6 +119,15 @@ def inputs(chip_smoke, dev, seed=0):
     return cases
 
 
+def keeps(only=''):
+    """(host keep, device keep): which groups each measurement takes. By
+    default the bfloat16 conv groups' host_us and every group's device_ms;
+    with `only`, the groups whose name holds it, in both."""
+    if only:
+        return (lambda g: only in g), (lambda g: only in g)
+    return (lambda g: 'bfloat16' in g), (lambda g: True)
+
+
 def measure(sides, measure_fn, rounds, keep):
     """{side: {(group, call): [value by round]}}, only the calls whose group
     passes keep(group). Each call is taken on both sides back to back, in
@@ -162,6 +175,8 @@ def main(argv=None):
     p.add_argument('other', help='root of the other checkout')
     p.add_argument('--host-rounds', type=int, default=6)
     p.add_argument('--device-rounds', type=int, default=2)
+    p.add_argument('--only', default='',
+                   help='time only the groups whose name holds this')
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError('ab_live needs CUDA')
@@ -179,12 +194,13 @@ def main(argv=None):
             fn()                                        # warm-up
     torch.cuda.synchronize()
 
+    host_keep, device_keep = keeps(args.only)
     with utils.tf32(False):
         host = measure(sides, lambda fn: chip_smoke.host_us(fn, torch),
-                       args.host_rounds, lambda g: 'bfloat16' in g)
+                       args.host_rounds, host_keep)
         os.environ['TEARDOWN_CUPTI'] = '0'     # as chip_smoke.phase_costs
         device = measure(sides, lambda fn: chip_smoke.device_ms(fn, torch),
-                         args.device_rounds, lambda g: True)
+                         args.device_rounds, device_keep)
     result = {
         'card': subprocess.run(
             ['nvidia-smi', '--query-gpu=name,power.limit',

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Command-line style transfer with the PyTorch/CUDA port: the single-image
-path of style_transfer2_tpu/cli.py. Single-scale runs, the coarse-to-fine
+"""Command-line style transfer with the PyTorch/CUDA port
+(style_transfer2_tpu/cli.py). Single-scale runs, the coarse-to-fine
 sqrt(2) ladder with warm-started optimizer state (--multi-scale), a
 full-precision polish tail (--polish), K-step chunks kept --pipeline-depth
-deep, in-progress snapshots, checkpoint/resume and the trace CSV.
+deep, in-progress snapshots, checkpoint/resume and the trace CSV; and
+--batch, which styles a directory of images as lanes of one batched step
+(engine/batched.py).
 
-Example:
+Examples:
   python -m style_transfer2_tpu_torch.cli content.jpg style.jpg -o out.png \\
       --size 1024 --multi-scale --iterations 150 --precision bfloat16 \\
       --polish 50
+  python -m style_transfer2_tpu_torch.cli photos/ style.jpg --batch \\
+      -o styled/ --lanes 4 --size 512 --skip-existing
 
 --device cuda (the default) runs the hand-written kernels on the card and
 raises if CUDA is not available; --device cpu runs their plain PyTorch
-versions. Not ported yet: --batch, --mesh, --data-mesh, --remat,
---prewarm-ladder, --pallas (the kernels are always on), --profile and
---platform.
+versions. Not ported yet: --mesh, --data-mesh (ROADMAP queue 1, item 7),
+--remat, --prewarm-ladder, --pallas (the kernels are always on), --profile
+and --platform.
 """
 
 import argparse
@@ -62,6 +66,22 @@ def parse_args(argv=None):
                         'with warm-started optimizer state')
     p.add_argument('--min-scale', type=int, default=96,
                    help='smallest rung of the multi-scale ladder')
+    p.add_argument('--batch', action='store_true',
+                   help='content is a directory (or glob): style every '
+                        'image, batched as lanes of one step (--output '
+                        'becomes a directory)')
+    p.add_argument('--lanes', type=int, default=4,
+                   help='concurrent images per dispatch in --batch mode')
+    p.add_argument('--skip-existing', action='store_true',
+                   help='--batch: skip inputs whose styled output already '
+                        'exists, so an interrupted batch restarts where '
+                        'it died (images are independent jobs)')
+    p.add_argument('--data-mesh', default='',
+                   help='not ported: sharding --batch lanes over several '
+                        'GPUs (ROADMAP queue 1, item 7); exits if set')
+    p.add_argument('--mesh', default='',
+                   help='not ported: spatial sharding over several GPUs '
+                        '(ROADMAP queue 1, item 7); exits if set')
     p.add_argument('--init', choices=('random', 'content'), default='random',
                    help='initial iterate')
     p.add_argument('--seed', type=int, default=0)
@@ -164,20 +184,153 @@ def setup(args):
     return st, inputs, (wh[1], wh[0])
 
 
-def dispatch_chunks(st, iterations, chunk, depth):
+def dispatch_chunks(st, iterations, chunk, depth, begin=None):
     """Enqueues `iterations` steps in chunks of at most `chunk`, keeping up
     to `depth` chunks in flight, and yields each handle in dispatch order
     for the caller to collect; the next chunk is enqueued before the
     collect of the one yielded, so the device never waits on the host's
-    read-back. The chunk plan is fixed up front."""
+    read-back. The chunk plan is fixed up front. A chunk is st.begin_steps,
+    or `begin` where given (the batched engine's begin_steps_all)."""
+    begin = begin or st.begin_steps
     handles = deque()
     remaining = iterations
     while remaining > 0 or handles:
         while remaining > 0 and len(handles) < max(1, depth):
             n = min(chunk, remaining)
-            handles.append(st.begin_steps(n))
+            handles.append(begin(n))
             remaining -= n
         yield handles.popleft()
+
+
+IMAGE_SUFFIXES = ('.png', '.jpg', '.jpeg', '.webp', '.bmp')
+
+
+def batch_paths(args):
+    """The --batch inputs still to style: every image of the content
+    directory (or glob), less, with --skip-existing, those whose output
+    exists and is a whole PNG."""
+    src = Path(args.content)
+    if src.is_dir():
+        paths = sorted(p for p in src.iterdir()
+                       if p.suffix.lower() in IMAGE_SUFFIXES)
+    else:
+        import glob
+        paths = [Path(p) for p in sorted(glob.glob(args.content))]
+    if not paths:
+        raise SystemExit('--batch: no images match %r' % args.content)
+    if not args.skip_existing:
+        return paths
+
+    def styled_ok(p):
+        """A half-written PNG (the run died mid-save) is NOT done: verify()
+        catches truncation without a full decode."""
+        out = Path(args.output) / (p.stem + '_styled.png')
+        if not out.exists():
+            return False
+        try:
+            with Image.open(out) as img:
+                img.verify()
+            return True
+        except Exception:
+            logger.warning('--skip-existing: %s is corrupt; redoing',
+                           out.name)
+            return False
+
+    todo = [p for p in paths if not styled_ok(p)]
+    if len(todo) < len(paths):
+        logger.info('--skip-existing: %d of %d already styled',
+                    len(paths) - len(todo), len(paths))
+    return todo
+
+
+def run_batch(args):
+    """Batch mode: every content image under `content` is styled against
+    one style image, the images as lanes of one batched step (one chain of
+    launches a step for the whole wave, the trunk at N = lanes). Images
+    group by their fitted grid so that nothing is distorted; each grid's
+    images run in lane-sized waves, each wave's chunks --pipeline-depth
+    deep."""
+    from .engine import resolve_device
+    from .engine.batched import BatchedStyleTransfer
+    from .models.weights import resolve_params
+
+    outdir = Path(args.output)
+    if outdir.suffix:
+        raise SystemExit('--batch: --output must be a directory')
+    if args.multi_scale or args.mesh:
+        raise SystemExit('--batch does not combine with --multi-scale or '
+                         'the spatial --mesh')
+    if args.data_mesh:
+        raise SystemExit('--data-mesh: sharding lanes over several GPUs is '
+                         'not ported (ROADMAP queue 1, item 7)')
+    device = resolve_device(args.device)
+    outdir.mkdir(parents=True, exist_ok=True)
+    paths = batch_paths(args)
+    if not paths:
+        logger.info('--skip-existing: nothing to do')
+        return 0
+
+    params = resolve_params(args.model_weights, ROOT_DIR)
+    weights, scalar_params = load_weights_doc(args.weights)
+    with Image.open(args.style) as img:
+        style_pil = img.convert('RGB')
+    style_np = np.uint8(im.resize_to_fit(style_pil,
+                                         args.style_size or args.size))
+    rng = np.random.RandomState(args.seed)
+
+    groups = {}
+    for path in paths:
+        with Image.open(path) as img:
+            wh = im.fit_into_square(img.size, args.size, scale_up=True)
+        groups.setdefault((wh[1], wh[0]), []).append(path)
+    logger.info('%d images in %d grid group(s): %s', len(paths),
+                len(groups), {hw: len(g) for hw, g in groups.items()})
+
+    total_t0 = time.perf_counter()
+    n_done = 0
+    for hw, group in sorted(groups.items()):
+        engine = BatchedStyleTransfer(
+            params, weights, scalar_params, hw, max_lanes=args.lanes,
+            optimizer=args.optimizer, precision=args.precision,
+            device=device)
+        for wave_start in range(0, len(group), args.lanes):
+            wave = group[wave_start:wave_start + args.lanes]
+            lanes = {}
+            for path in wave:
+                with Image.open(path) as img:
+                    content = fit_content(img.convert('RGB'), hw)
+                init = (content if args.init == 'content' else
+                        rng.uniform(0, 255, hw + (3,)).astype(np.uint8))
+                lane = engine.add_job(content, style_np, init,
+                                      step_size=args.step_size)
+                lanes[lane] = path
+            t0 = time.perf_counter()
+            first = {}
+            for handle in dispatch_chunks(
+                    engine, args.iterations, args.steps_per_dispatch,
+                    args.pipeline_depth, engine.begin_steps_all):
+                traces = engine.collect_steps_all(handle)
+                for lane, lane_traces in traces.items():
+                    first.setdefault(lane, lane_traces[0]['loss'])
+                logger.info('wave at %dx%d iterate %d loss %s', hw[0], hw[1],
+                            max(t[-1]['fevals'] for t in traces.values()),
+                            ' '.join('%.6g' % traces[lane][-1]['loss']
+                                     for lane in sorted(traces)))
+            dt = time.perf_counter() - t0
+            for lane, path in lanes.items():
+                out = outdir / (path.stem + '_styled.png')
+                im.as_pil(engine.lane_image(lane)).save(out)
+                logger.info('%s -> %s (loss %.6g -> %.6g)', path.name, out,
+                            first[lane], traces[lane][-1]['loss'])
+                engine.remove_job(lane)
+            n_done += len(wave)
+            logger.info('wave of %d at %dx%d: %d iters in %.2fs '
+                        '(%.2f aggregate it/s)', len(wave), hw[0], hw[1],
+                        args.iterations, dt,
+                        len(wave) * args.iterations / dt)
+    logger.info('styled %d images in %.1fs', n_done,
+                time.perf_counter() - total_t0)
+    return 0
 
 
 def main(argv=None):
@@ -186,6 +339,11 @@ def main(argv=None):
         level=logging.DEBUG if args.debug else logging.INFO,
         format='%(asctime)s.%(msecs)03d %(process)d %(name)s %(levelname)s: '
                '%(message)s', datefmt='%H:%M:%S')
+    if args.batch:
+        return run_batch(args)
+    if args.mesh or args.data_mesh:
+        raise SystemExit('--mesh, --data-mesh: sharding over several GPUs '
+                         'is not ported (ROADMAP queue 1, item 7)')
 
     from .engine import load_checkpoint, save_checkpoint
     st, inputs, target_hw = setup(args)

@@ -24,13 +24,23 @@
 //       identical from run to run. It stays a launch of its own: folded
 //       into (a), the last block of a tile would sum all of that tile's
 //       partials alone, one SM reading 16 MB at C = 64; here up to 32
-//       chunk lanes per element share the sum, in a fixed order;
+//       chunk ways per element share the sum, in a fixed order;
 //   (c) s_grad = X G_diff with * 2/(C^2 size) in the epilogue, on 64-row
 //       tiles, or 32-row tiles where M is too short to fill the card.
 // The ragged M edge (and any C that is not a multiple of 64) is masked, so
 // M is never padded; C must be a multiple of 4 and X 16-byte aligned (the
 // wrapper sees to both). The split and the tile rows come from the card's
 // SM count (ops/style.py: gram_plan, grad_tile_rows).
+//
+// Lanes: the batched engine runs B independent jobs, and each style layer
+// has B feature maps and B target Grams, stacked lane-major. Every launch
+// takes the lane in its last grid dimension (z for (a) and (c), y for (b)),
+// and each lane reads and writes only its own slices of x, G_style, the
+// partials, G_diff and s_grad, in the same fixed order as a lone map: no
+// sum runs across lanes, so each lane's bits do not depend on the others.
+// (a) and (c) index the lanes' stacked rows rather than offset a pointer,
+// which would spill (a) at its register cap.
+// One lane launches the grids it always did.
 //
 // What bounds it on this card: the FP32 FMA rate. At the 512px taps the two
 // products need M*C*(C+1) (the symmetric Gram's upper triangle) plus
@@ -121,7 +131,7 @@ __device__ __forceinline__ void tile_of(int t, int nt, int& i, int& j) {
 }
 
 // (a) partials[s, t] = sum over rows m of chunk s of X[m, i-tile]^T
-// X[m, j-tile]. Grid: (n_tiles, n_chunks).
+// X[m, j-tile]. Grid: (n_tiles, n_chunks, lanes).
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 gram_partials_kernel(const float* __restrict__ x,
                      float* __restrict__ partials, int m, int c, int nt,
@@ -133,8 +143,11 @@ gram_partials_kernel(const float* __restrict__ x,
   const bool diag = ti == tj;
   const int i0 = ti * T;
   const int j0 = tj * T;
-  const int m_begin = blockIdx.y * chunk;
-  const int m_end = min(m_begin + chunk, m);
+  // The lanes' maps are one (lanes * m, c) matrix, lane z owning rows
+  // z*m .. z*m + m - 1: the lane moves the chunk's row range, and no
+  // pointer is offset (a live 64-bit offset spills at this kernel's cap).
+  const int m_begin = blockIdx.z * m + blockIdx.y * chunk;
+  const int m_end = min(m_begin + chunk, (int)(blockIdx.z + 1) * m);
   const int tid = threadIdx.x;
   const int tx = tid % 8;
   const int ty = tid / 8;
@@ -190,8 +203,8 @@ gram_partials_kernel(const float* __restrict__ x,
     __syncthreads();
   }
 
-  float* dst =
-      partials + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * T * T;
+  float* dst = partials + (((size_t)blockIdx.z * gridDim.y + blockIdx.y) *
+                                gridDim.x + blockIdx.x) * T * T;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     float* row = dst + lane8(ty, i) * T;
@@ -204,32 +217,36 @@ gram_partials_kernel(const float* __restrict__ x,
 
 // (b) G = sum_s partials[s, t]; gdiff = G * inv_size - gram_style at
 // (i, j) and its mirror (j, i). A block of RED_THREADS takes RED_THREADS /
-// lanes consecutive elements of the upper tiles (coalesced reads) by
-// `lanes` chunk lanes (a power of two, about 32 chunks a lane): lane y
-// sums the chunks y, y + lanes, ..., then lanes 0 .. lanes-1 are added in
-// that order, so the order of every sum is fixed by n_chunks alone.
+// ways consecutive elements of the upper tiles (coalesced reads) by `ways`
+// chunk ways (a power of two, about 32 chunks a way): way y sums the
+// chunks y, y + ways, ..., then ways 0 .. ways-1 are added in that order,
+// so the order of every sum is fixed by n_chunks alone. Grid:
+// (n_tiles * T * T * ways / RED_THREADS, lanes).
 constexpr int RED_THREADS = 256;
 
 __global__ void __launch_bounds__(RED_THREADS)
 gram_diff_kernel(const float* __restrict__ partials,
                  const float* __restrict__ gram_style,
                  float* __restrict__ gdiff, int c, int nt, int n_tiles,
-                 int n_chunks, int lanes, float inv_size) {
+                 int n_chunks, int ways, float inv_size) {
   __shared__ float s_sum[RED_THREADS];
-  const int width = RED_THREADS / lanes;
+  const int width = RED_THREADS / ways;
   const int x = threadIdx.x % width;
-  const int lane = threadIdx.x / width;
+  const int way = threadIdx.x / width;
   const int e = blockIdx.x * width + x;   // n_tiles * T * T is a multiple
   const size_t stride = (size_t)n_tiles * T * T;
+  partials += (size_t)blockIdx.y * n_chunks * stride;
+  gram_style += (size_t)blockIdx.y * c * c;
+  gdiff += (size_t)blockIdx.y * c * c;
   float sum = 0.f;
 #pragma unroll 4
-  for (int s = lane; s < n_chunks; s += lanes)
+  for (int s = way; s < n_chunks; s += ways)
     sum += partials[s * stride + e];
   s_sum[threadIdx.x] = sum;
   __syncthreads();
-  if (lane != 0) return;
+  if (way != 0) return;
   float total = s_sum[x];
-  for (int y = 1; y < lanes; ++y) total += s_sum[y * width + x];
+  for (int y = 1; y < ways; ++y) total += s_sum[y * width + x];
   int ti, tj;
   tile_of(e / (T * T), nt, ti, tj);
   const int gi = ti * T + (e % (T * T)) / T;
@@ -244,7 +261,7 @@ gram_diff_kernel(const float* __restrict__ partials,
 // (c) sgrad[m, j] = scale * sum_k X[m, k] gdiff[k, j]. RT rows per thread:
 // 8 (a 64-row tile, thread rows as lane8) or 4 (a 32-row tile, rows
 // 4*ty .. 4*ty + 3), the latter for a short M whose 64-row grid would
-// leave the card half empty. Grid: (ceil(M/(8*RT)), ceil(C/T)).
+// leave the card half empty. Grid: (ceil(M/(8*RT)), ceil(C/T), lanes).
 template <int RT>
 __global__ void __launch_bounds__(THREADS, GRAD_MIN_BLOCKS)
 style_grad_kernel(const float* __restrict__ x,
@@ -255,7 +272,11 @@ style_grad_kernel(const float* __restrict__ x,
   static_assert(A_COPIES * THREADS * 4 == TM * KD, "stage splits evenly");
   __shared__ __align__(16) float s_a[STAGES][TM][KD];  // X rows as they are
   __shared__ __align__(16) float s_b[STAGES][KD][T];   // gdiff rows
-  const int r0 = blockIdx.x * TM;
+  // Rows of x and sgrad, and of gdiff, are the lanes' stacked: lane z
+  // owns rows z*m .. z*m + m - 1 of x and sgrad, z*c .. z*c + c - 1 of
+  // gdiff (no pointer is offset, as in the Gram).
+  const int r0 = blockIdx.z * m + blockIdx.x * TM;
+  const int r_end = (blockIdx.z + 1) * m;
   const int j0 = blockIdx.y * T;
   const int tid = threadIdx.x;
   const int tx = tid % 8;
@@ -269,7 +290,7 @@ style_grad_kernel(const float* __restrict__ x,
       const int q = e % (KD / 4);
       const int gr = r0 + row;
       const int gk = k0 + 4 * q;
-      const bool ok = gr < m && gk < c;
+      const bool ok = gr < r_end && gk < c;
       cp_async16(&s_a[st][row][4 * q],
                  x + (ok ? (size_t)gr * c + gk : 0), ok);
     }
@@ -282,7 +303,8 @@ style_grad_kernel(const float* __restrict__ x,
       const int gj = j0 + 4 * q;
       const bool ok = gk < c && gj < c;
       cp_async16(&s_b[st][kk][4 * q],
-                 gdiff + (ok ? (size_t)gk * c + gj : 0), ok);
+                 gdiff + (ok ? (size_t)(blockIdx.z * c + gk) * c + gj : 0),
+                 ok);
     }
     cp_async_commit();
   };
@@ -332,7 +354,7 @@ style_grad_kernel(const float* __restrict__ x,
 #pragma unroll
   for (int i = 0; i < RT; ++i) {
     const int gr = r0 + row_of(i);
-    if (gr >= m) continue;
+    if (gr >= r_end) continue;
     float* row = sgrad + (size_t)gr * c;
     const int ja = j0 + 4 * tx;
     const int jb = j0 + 32 + 4 * tx;
@@ -349,36 +371,39 @@ style_grad_kernel(const float* __restrict__ x,
 
 }  // namespace
 
-// x: (m, c) float32, 16-byte aligned, c a multiple of 4; gram_style,
-// gdiff: (c, c); partials: (n_chunks, n_tiles, 64, 64) scratch with
-// n_tiles = nt (nt + 1) / 2, nt = ceil(c / 64); sgrad: (m, c).
-// chunk * n_chunks >= m, chunk a multiple of 16; grad_rows: the gradient
-// product's tile rows, 64 or 32. Returns the first nonzero
+// x: (lanes, m, c) float32, 16-byte aligned, c a multiple of 4, lanes * m
+// and lanes * c below 2^31 (the kernels index the lanes' stacked rows);
+// gram_style, gdiff: (lanes, c, c); partials: (lanes, n_chunks, n_tiles,
+// 64, 64) scratch with n_tiles = nt (nt + 1) / 2, nt = ceil(c / 64); sgrad:
+// (lanes, m, c). chunk * n_chunks >= m, chunk a multiple of 16; grad_rows:
+// the gradient product's tile rows, 64 or 32. Returns the first nonzero
 // cudaGetLastError() of the three launches, or -1 for arguments the
 // kernels do not take.
 extern "C" int st2_style_branch(const float* x, const float* gram_style,
                                 float* partials, float* gdiff, float* sgrad,
                                 int m, int c, int chunk, int n_chunks,
-                                int grad_rows, float inv_size,
+                                int grad_rows, int lanes, float inv_size,
                                 float grad_scale, void* stream) {
   if (c % 4 != 0 || ((uintptr_t)x | (uintptr_t)gdiff) % 16 != 0 ||
-      (grad_rows != 64 && grad_rows != 32))
+      (grad_rows != 64 && grad_rows != 32) || lanes < 1 || lanes > 65535 ||
+      (int64_t)lanes * (m > c ? m : c) > INT32_MAX)
     return -1;
   cudaStream_t st = (cudaStream_t)stream;
   const int nt = (c + T - 1) / T;
   const int n_tiles = nt * (nt + 1) / 2;
-  gram_partials_kernel<<<dim3(n_tiles, n_chunks), THREADS, 0, st>>>(
+  gram_partials_kernel<<<dim3(n_tiles, n_chunks, lanes), THREADS, 0, st>>>(
       x, partials, m, c, nt, chunk);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  int lanes = 1;
-  while (lanes < 32 && lanes * 64 <= n_chunks) lanes *= 2;
-  gram_diff_kernel<<<n_tiles * T * T * lanes / RED_THREADS, RED_THREADS, 0,
-                     st>>>(partials, gram_style, gdiff, c, nt, n_tiles,
-                           n_chunks, lanes, inv_size);
+  int ways = 1;
+  while (ways < 32 && ways * 64 <= n_chunks) ways *= 2;
+  gram_diff_kernel<<<dim3(n_tiles * T * T * ways / RED_THREADS, lanes),
+                     RED_THREADS, 0, st>>>(partials, gram_style, gdiff, c,
+                                           nt, n_tiles, n_chunks, ways,
+                                           inv_size);
   err = (int)cudaGetLastError();
   if (err) return err;
-  const dim3 grid((m + grad_rows - 1) / grad_rows, nt);
+  const dim3 grid((m + grad_rows - 1) / grad_rows, nt, lanes);
   if (grad_rows == 64)
     style_grad_kernel<8><<<grid, THREADS, 0, st>>>(x, gdiff, sgrad, m, c,
                                                    grad_scale);

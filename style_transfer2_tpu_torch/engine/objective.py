@@ -14,6 +14,12 @@ reference StyleTransfer.opfunc, worker.py:231-301).
   * The trace: per-branch loss and gradient-RMS scalars in evaluation order,
     then scd_loss, t_loss, p_loss, scd_grad, t_grad, p_grad, loss, grad.
 
+make_lane_objective is the same objective over B independent images
+stacked on a leading lane axis (the batched engine; JAX: jax.vmap of the
+objective): one trunk forward and backward at N = B, the style branch over
+all lanes in one call, every weight, scalar and norm a (B,) value and
+every reduction per lane, so that nothing mixes two lanes.
+
 This ports the JAX package's float32-feed branches. In bfloat16 mode the
 trunk runs in bf16 and its taps come back as float32, so every loss here is
 float32 math in both modes. The JAX package's bf16 loss-feed variants
@@ -27,7 +33,7 @@ import numpy as np
 import torch
 
 from ..models import vgg19
-from ..ops.losses import p_norm, tv_norm
+from ..ops.losses import p_norm, p_norm_lanes, tv_norm, tv_norm_lanes
 from ..ops.style import fused_style_branch
 
 # Weights with |w| <= this are treated as absent (reference worker.py:234,250).
@@ -38,6 +44,17 @@ SCALAR_LOSS_NAMES = ('tv', 'tv_power', 'p', 'p_power')
 
 def _rms(x):
     return torch.sqrt(torch.mean(torch.square(x)))
+
+
+def _rms_lanes(x):
+    """(B,) RMS of each lane of a (B, ...) tensor."""
+    return torch.sqrt(torch.mean(torch.square(x),
+                                 dim=tuple(range(1, x.dim()))))
+
+
+def _col(v):
+    """A (B,) tensor as (B, 1, 1, 1), to scale (B, h, w, c) lanes."""
+    return v[:, None, None, None]
 
 
 @dataclass(frozen=True)
@@ -223,6 +240,106 @@ def make_objective(spec):
 
         trace.append(loss)        # loss
         trace.append(_rms(grad))  # grad
+        return loss, grad, (new_vals, new_set), tuple(trace)
+
+    return objective
+
+
+def make_lane_objective(spec):
+    """make_objective over B lanes: objective(model, x, content_feats,
+    grams, layer_weights, scalars, norms_vals, norms_set) -> (loss, grad,
+    (norms_vals', norms_set'), trace) with x (B, H, W, 3), content_feats
+    (B, h, w, c) per layer, grams (B, c, c), layer_weights (B, 3), scalars
+    and norms (B,) per key; loss (B,), grad (B, H, W, 3), the trace a tuple
+    of (B,) tensors in spec.trace_keys order."""
+
+    def objective(model, x, content_feats, grams, layer_weights, scalars,
+                  norms_vals, norms_set):
+        feats, vjp = model.features_and_vjp(x, spec.layers)
+        n_lanes = x.shape[0]
+        loss = torch.zeros(n_lanes, dtype=torch.float32, device=x.device)
+        trace = []
+        diffs = {}
+        new_vals = dict(norms_vals)
+        new_set = dict(norms_set)
+        is_set = torch.ones(n_lanes, dtype=torch.bool, device=x.device)
+
+        def norm_of(key, fresh):
+            """norm_of of make_objective, per lane."""
+            value = torch.where(norms_set[key], norms_vals[key], fresh)
+            new_vals[key] = value
+            new_set[key] = is_set
+            return value
+
+        for layer, has_c, has_s, has_d in spec.branches:
+            feat = feats[layer]
+            size = float(feat[0].numel())
+            w = layer_weights[layer]
+            diff = torch.zeros_like(feat, dtype=torch.float32)
+
+            if has_c:
+                cw = w[:, 0]
+                c_diff = feat - content_feats[layer]
+                c_grad = (2.0 / size) * c_diff
+                cn = norm_of(layer + ':c', _rms_lanes(c_grad))
+                c_loss = cw * torch.mean(torch.square(c_diff),
+                                         dim=(1, 2, 3)) / cn
+                trace.append(c_loss)
+                loss = loss + c_loss
+                term = _col(cw) * c_grad / _col(cn)
+                trace.append(_rms_lanes(term))
+                diff = diff + term
+
+            if has_s:
+                sw = w[:, 1]
+                s_grad, gram_diff = fused_style_branch(feat, grams[layer])
+                sn = norm_of(layer + ':s', _rms_lanes(s_grad))
+                s_loss = sw * torch.mean(torch.square(gram_diff),
+                                         dim=(1, 2)) / sn
+                trace.append(s_loss)
+                loss = loss + s_loss
+                term = _col(sw / sn) * s_grad
+                trace.append(_rms_lanes(term))
+                diff = diff + term
+
+            if has_d:
+                dw = w[:, 2]
+                d_grad = (-2.0 / size) * feat
+                dn = norm_of(layer + ':d', _rms_lanes(d_grad))
+                d_loss = -dw * torch.mean(torch.square(feat),
+                                          dim=(1, 2, 3)) / dn
+                trace.append(d_loss)
+                loss = loss + d_loss
+                term = _col(dw) * d_grad / _col(dn)
+                trace.append(_rms_lanes(term))
+                diff = diff + term
+
+            diffs[layer] = diff.to(feat.dtype)
+
+        trace.append(loss)  # scd_loss
+
+        x_scaled = x / 255.0
+        tv_loss, tv_grad = tv_norm_lanes(x_scaled, spec.tv_power)
+        t_loss = scalars['tv'] * tv_loss
+        trace.append(t_loss)
+        loss = loss + t_loss
+
+        p_loss, p_grad = p_norm_lanes(x_scaled, spec.p_power)
+        pl = scalars['p'] * p_loss
+        trace.append(pl)
+        loss = loss + pl
+
+        grad = vjp(diffs)
+        trace.append(_rms_lanes(grad))  # scd_grad
+        tv_term = _col(scalars['tv']) * tv_grad
+        trace.append(_rms_lanes(tv_term))  # t_grad
+        grad = grad + tv_term
+        p_term = _col(scalars['p']) * p_grad
+        trace.append(_rms_lanes(p_term))  # p_grad
+        grad = grad + p_term
+
+        trace.append(loss)              # loss
+        trace.append(_rms_lanes(grad))  # grad
         return loss, grad, (new_vals, new_set), tuple(trace)
 
     return objective

@@ -20,6 +20,15 @@ In bfloat16 mode on grids of at least BF16_HISTORY_MIN_PIXELS the pairs
 are stored in bfloat16, and s.y is the dot of the pair as stored: taken
 before rounding it admitted pairs of negative stored curvature, which
 diverged (JAX package, optim/lbfgs.py:40-69,154-187).
+
+The *_lanes functions step B independent states stacked on a leading lane
+axis (the batched engine; JAX: jax.vmap of these functions): x and grad
+(B, H, W, 3), sk and yk (B, n_corr, H, W, 3), syk (B, n_corr), loss,
+count and pos (B,), the step size (B,). Every dot is taken per lane, each
+lane reads and writes its own history slot, and an optional (B,) bool run
+mask freezes the lanes it leaves out: their pair is rejected, so their
+slot is rewritten with its own contents, and x, grad and loss keep their
+old values.
 """
 
 import torch
@@ -44,6 +53,18 @@ def _vdot(a, b):
     """Float32 dot of two same-shaped tensors (bf16 operands are widened;
     each bf16 product is exact in float32)."""
     return torch.dot(a.reshape(-1).float(), b.reshape(-1).float())
+
+
+def _vdot_lanes(a, b):
+    """(B,) float32 dots of the lanes of two same-shaped (B, ...) tensors."""
+    n = a.shape[0]
+    return torch.sum(a.reshape(n, -1).float() * b.reshape(n, -1).float(),
+                     dim=1)
+
+
+def _col(v):
+    """A (B,) tensor as (B, 1, 1, 1), to scale (B, H, W, C) lanes."""
+    return v[:, None, None, None]
 
 
 def _slot(buf, index):
@@ -186,3 +207,106 @@ def resample(state, hw, new_x=None):
     else:
         x = resize_nhwc(state['x'], tuple(hw), 'lanczos3')
     return init(x, state['sk'].shape[0], history_dtype=state['sk'].dtype)
+
+
+def _keep(run, new, old):
+    """new where the lane runs, else old (run None: every lane runs)."""
+    if run is None:
+        return new
+    return torch.where(run.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
+def initial_eval_lanes(state, opfunc, run=None):
+    """initial_eval of every lane of a stacked state; lanes outside the
+    (B,) run mask keep their cache."""
+    loss, grad, aux = opfunc(state['x'])
+    state = dict(state)
+    state['loss'] = _keep(run, loss, state['loss'])
+    state['grad'] = _keep(run, grad, state['grad'])
+    return state, loss, aux
+
+
+def inv_hv_lanes(state, p):
+    """inv_hv of each lane of a stacked state on the (B, H, W, 3) p: the
+    two-loop recursion over each lane's own circular history."""
+    sk, yk, syk = state['sk'], state['yk'], state['syk']
+    count, pos = state['count'], state['pos']
+    n_lanes, n_corr = syk.shape
+    lanes = torch.arange(n_lanes, device=p.device)
+    one = torch.ones((), dtype=torch.float32, device=p.device)
+    zero = torch.zeros((), dtype=torch.float32, device=p.device)
+
+    alphas = []
+    for k in range(n_corr):
+        valid = count > k
+        slot = torch.remainder(pos - 1 - k, n_corr)
+        s, y, sy = sk[lanes, slot], yk[lanes, slot], syk[lanes, slot]
+        alpha = torch.where(
+            valid, _vdot_lanes(s, p) / torch.where(valid, sy, one), zero)
+        p = p - _col(alpha) * y.float()
+        alphas.append(alpha)
+    alphas = torch.stack(alphas, dim=1)
+
+    newest = torch.remainder(pos - 1, n_corr)
+    y_last, sy_last = yk[lanes, newest], syk[lanes, newest]
+    yy = _vdot_lanes(y_last, y_last)
+    scale_hist = sy_last / torch.where(yy > 0, yy, one)
+    rms = torch.sqrt(_vdot_lanes(p, p) / p[0].numel())
+    scale_rms = 1.0 / torch.where(rms > 0, rms, one)
+    p = p * _col(torch.where(count > 0, scale_hist, scale_rms))
+
+    for j in range(n_corr):
+        valid = count > j
+        slot = torch.remainder(pos - count + j, n_corr)
+        s, y, sy = sk[lanes, slot], yk[lanes, slot], syk[lanes, slot]
+        beta = _vdot_lanes(y, p) / torch.where(valid, sy, one)
+        alpha = alphas[lanes, torch.clamp(count - 1 - j, min=0)]
+        p = p + _col(torch.where(valid, alpha - beta, zero)) * s.float()
+    return p
+
+
+def store_curvature_pair_lanes(state, s, y, run=None):
+    """store_curvature_pair for each lane at its own cursor, in place: a
+    lane's pair is accepted where its s.y > SY_MIN and it runs. Returns
+    (sk, yk, syk, count, pos)."""
+    sk, yk, syk = state['sk'], state['yk'], state['syk']
+    n_corr = syk.shape[1]
+    pos = state['pos']
+    hist = sk.dtype
+    s, y = s.to(hist), y.to(hist)
+    sy = _vdot_lanes(s, y)
+    accept = sy > SY_MIN
+    if run is not None:
+        accept = accept & run
+    lanes = torch.arange(syk.shape[0], device=syk.device)
+    # A rejected pair, or a lane that does not run, rewrites its slot with
+    # its own contents.
+    sk[lanes, pos] = torch.where(_col(accept), s, sk[lanes, pos])
+    yk[lanes, pos] = torch.where(_col(accept), y, yk[lanes, pos])
+    syk[lanes, pos] = torch.where(accept, sy, syk[lanes, pos])
+    count = torch.where(accept, torch.clamp(state['count'] + 1, max=n_corr),
+                        state['count'])
+    pos = torch.where(accept, torch.remainder(pos + 1, n_corr), pos)
+    return sk, yk, syk, count, pos
+
+
+def step_lanes(state, opfunc, step_sizes, run=None):
+    """step for every lane of a stacked state with (B,) step sizes; lanes
+    outside the (B,) run mask still compute but keep their state. The
+    (loss, grad) caches must be primed (initial_eval_lanes) first."""
+    s = -_col(step_sizes) * inv_hv_lanes(state, state['grad'])
+    x_new = state['x'] + s
+    loss, grad, aux = opfunc(x_new)
+    sk, yk, syk, count, pos = store_curvature_pair_lanes(
+        state, s, grad - state['grad'], run)
+    state_new = {
+        'x': _keep(run, x_new, state['x']),
+        'loss': _keep(run, loss, state['loss']),
+        'grad': _keep(run, grad, state['grad']),
+        'sk': sk,
+        'yk': yk,
+        'syk': syk,
+        'count': count,
+        'pos': pos,
+    }
+    return state_new, loss, aux

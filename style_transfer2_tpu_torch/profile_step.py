@@ -6,7 +6,9 @@ Builds the engine exactly as the CLI does (the CLI's flags pass through;
 --content and --style default to the two example images), runs --warmup
 steps, times --steps steps with the host clock (each step ends in the
 trace's host sync), then runs --steps more under torch.profiler and prints
-one JSON line:
+one JSON line. With --batch, the engine is the batched one with --lanes
+lanes, each a job on the content image from its own random start, and a
+step advances every lane:
 the step's wall ms, the device-kernel ms summed per step, the device's idle
 share (1 - kernel ms / wall ms), kernels launched per step, and the costliest
 kernels. Needs CUDA; there is no CPU fallback.
@@ -22,6 +24,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import cli
+from .utils import fit_into_square
 
 
 def parse_args(argv=None):
@@ -39,24 +42,54 @@ def parse_args(argv=None):
     return args, cli.parse_args([args.content, args.style] + rest)
 
 
+def batched_steps(cli_args):
+    """(run_steps(n), hw) of a BatchedStyleTransfer with cli_args.lanes
+    jobs on the content image, built as the CLI's --batch builds it."""
+    from .engine import resolve_device
+    from .engine.batched import BatchedStyleTransfer
+    device = resolve_device(cli_args.device)
+    params, (weights, scalars), content_pil, style_np = cli.load_inputs(
+        cli_args)
+    wh = fit_into_square(content_pil.size, cli_args.size, scale_up=True)
+    hw = (wh[1], wh[0])
+    engine = BatchedStyleTransfer(
+        params, weights, scalars, hw, max_lanes=cli_args.lanes,
+        optimizer=cli_args.optimizer, precision=cli_args.precision,
+        device=device)
+    content = cli.fit_content(content_pil, hw)
+    rng = np.random.RandomState(cli_args.seed)
+    for _ in range(cli_args.lanes):
+        engine.add_job(content, style_np,
+                       rng.uniform(0, 255, hw + (3,)).astype(np.uint8),
+                       step_size=cli_args.step_size)
+    return engine.run_steps_all, hw
+
+
+def single_steps(cli_args):
+    """(run_steps(n), hw) of the CLI's single-image engine."""
+    st, inputs, hw = cli.setup(cli_args)
+    cli.start_first_rung(st, cli_args, cli.fit_content(inputs[2], hw), hw,
+                         np.random.RandomState(cli_args.seed))
+    return lambda n: st.run_steps(n, fetch_image=False), hw
+
+
 def main(argv=None):
     args, cli_args = parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError('profile_step needs CUDA')
-    st, inputs, hw = cli.setup(cli_args)
-    cli.start_first_rung(st, cli_args, cli.fit_content(inputs[2], hw), hw,
-                         np.random.RandomState(cli_args.seed))
-    st.run_steps(args.warmup, fetch_image=False)
+    run_steps, hw = (batched_steps if cli_args.batch
+                     else single_steps)(cli_args)
+    run_steps(args.warmup)
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    st.run_steps(args.steps, fetch_image=False)
+    run_steps(args.steps)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        st.run_steps(args.steps, fetch_image=False)
+        run_steps(args.steps)
         torch.cuda.synchronize()
     kernels = {}
     launches = 0
@@ -73,6 +106,7 @@ def main(argv=None):
     print(json.dumps({
         'device': torch.cuda.get_device_name(0),
         'precision': cli_args.precision, 'hw': list(hw),
+        'lanes': cli_args.lanes if cli_args.batch else 1,
         'wall_ms_per_step': wall_ms, 'kernel_ms_per_step': busy_ms,
         'idle_share': 1.0 - busy_ms / wall_ms,
         'kernels_per_step': launches / args.steps,

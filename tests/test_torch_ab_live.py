@@ -60,3 +60,14 @@ def test_group_sums_leave_a_round_with_a_missing_call_unsummed():
     del sums['g']['this'][2]
     assert ab_live.summarize(sums)['g']['ratio'] == 5.0 / 4.0
     assert ab_live.summarize(sums)['h']['ratio'] is None
+
+
+@pytest.mark.parametrize('only,host,device', [
+    ('', ['conv fwd bfloat16 512'],
+     ['conv fwd bfloat16 512', 'conv fwd float32 512', 'style 512']),
+    ('style', ['style 512'], ['style 512'])])
+def test_keeps_pick_the_groups_each_measurement_takes(only, host, device):
+    groups = ['conv fwd bfloat16 512', 'conv fwd float32 512', 'style 512']
+    host_keep, device_keep = ab_live.keeps(only)
+    assert [g for g in groups if host_keep(g)] == host
+    assert [g for g in groups if device_keep(g)] == device

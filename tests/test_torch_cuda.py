@@ -575,3 +575,161 @@ def test_serve_driver_runs_on_card(cuda, precision):
     assert iterates[-1].image.shape == (64, 64, 3)
     assert all(n > b for n, b in zip(launches(), before)), (before,
                                                             launches())
+
+
+# The four style taps of the 512px iterate (conv1_1 .. conv4_1).
+STYLE_TAPS_512 = [(384, 512, 64), (192, 256, 128), (96, 128, 256),
+                  (48, 64, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tap', STYLE_TAPS_512)
+def test_style_kernel_lanes_match_plain_and_repeat(cuda, tap):
+    """The style branch with a lane axis: four lanes in one launch
+    sequence against the plain version (two matmuls a lane), the same
+    bits on a second call, and each lane within the same tolerance of the
+    one-map kernel on that lane alone."""
+    h, w, c = tap
+    rng = np.random.RandomState(c)
+    feat = torch.relu(torch.from_numpy(np.float32(rng.randn(4, h, w, c)))
+                      ).to(cuda)
+    other = torch.relu(torch.from_numpy(np.float32(rng.randn(4, h * w, c)))
+                       ).to(cuda)
+    grams = torch.bmm(other.transpose(1, 2), other) / (h * w * c)
+    before = style.launches
+    s, gd = style.fused_style_branch(feat, grams)
+    assert style.launches == before + 1
+    s2, gd2 = style.fused_style_branch(feat, grams)
+    assert torch.equal(s, s2) and torch.equal(gd, gd2)
+    s_ref, gd_ref = style.fused_style_branch_plain(feat, grams)
+    torch.testing.assert_close(gd, gd_ref, rtol=1e-4,
+                               atol=1e-4 * float(grams.abs().max()))
+    torch.testing.assert_close(s, s_ref, rtol=1e-4,
+                               atol=1e-4 * float(s_ref.abs().max()))
+    for lane in range(4):
+        s1, gd1 = style.fused_style_branch(feat[lane:lane + 1], grams[lane])
+        torch.testing.assert_close(gd[lane], gd1, rtol=1e-4,
+                                   atol=1e-4 * float(grams.abs().max()))
+        torch.testing.assert_close(s[lane], s1[0], rtol=1e-4,
+                                   atol=1e-4 * float(s1.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize('shape,cout', [((4, 384, 512, 3), 64),
+                                        ((4, 192, 256, 128), 128),
+                                        ((4, 96, 128, 128), 256),
+                                        ((4, 48, 64, 512), 512)])
+def test_conv_kernels_at_four_lanes_match_cudnn(cuda, shape, cout, dtype,
+                                                tol):
+    """The conv kernels at N = 4, the batched engine's trunk, against cuDNN
+    in float32 with TF32 off: the forward against conv2d with the bias and
+    the ReLU, the backward against conv2d's input gradient of the
+    cotangent masked by the kernel's own forward."""
+    x, w, b, g = _conv_case(11, shape, cout)
+    xt, wt, bt, gt = (torch.from_numpy(a).to(cuda, dtype)
+                      for a in (x, w, b, g))
+    xk = xt.clone().requires_grad_(True)
+    y = conv.conv3x3_bias_relu(xk, wt, bt, conv.backward_weights(wt))
+    dx = torch.autograd.grad(y, xk, gt)[0]
+    x_c = xt.float().permute(0, 3, 1, 2)
+    w_c = wt.float().permute(3, 2, 0, 1)
+    y_ref = torch.relu(F.conv2d(x_c, w_c, bt.float(), padding=1)).permute(
+        0, 2, 3, 1)
+    g_c = (gt.float() * (y > 0).float()).permute(0, 3, 1, 2)
+    dx_ref = torch.nn.grad.conv2d_input(x_c.shape, w_c, g_c,
+                                        padding=1).permute(0, 2, 3, 1)
+    for got, want in ((y, y_ref), (dx, dx_ref)):
+        err = float((got.float() - want).abs().max())
+        assert err <= tol * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('optimizer', ['adam', 'lbfgs'])
+def test_batched_engine_on_card_matches_cpu(cuda, optimizer):
+    """A 2-lane BatchedStyleTransfer on the card against the same on the
+    CPU (the plain versions), an inactive lane between them: every trace
+    key within the golden rtol over single steps and a chunk, and every
+    kernel launched."""
+    from style_transfer2_tpu_torch.engine.batched import (
+        BatchedStyleTransfer)
+    from style_transfer2_tpu_torch.models import random_params
+    weights = {'content': {'conv4_2': 0.08},
+               'style': {n: 1.0 for n in
+                         ('conv1_1', 'conv2_1', 'conv3_1', 'conv4_1')}}
+    scalars = {'p': 50.0, 'p_power': 6.0, 'tv': 5.0, 'tv_power': 2.0}
+    rng = np.random.RandomState(0)
+    jobs = [[rng.randint(0, 256, (48, 64, 3)).astype(np.uint8)
+             for _ in range(3)] for _ in range(2)]
+    params = random_params(0)
+    traces = {}
+    before = (conv.launches('fwd'), conv.launches('bwd'), style.launches)
+    for device in ('cpu', 'cuda'):
+        bt = BatchedStyleTransfer(params, weights, scalars, (48, 64),
+                                  max_lanes=3, optimizer=optimizer,
+                                  device=device)
+        for job, lane in zip(jobs, (0, 2)):
+            bt.add_job(*job, lane=lane)
+        rows = [bt.step_all() for _ in range(3)]
+        rows.append({lane: t[-1] for lane, t in bt.run_steps_all(3).items()})
+        traces[device] = rows
+    after = (conv.launches('fwd'), conv.launches('bwd'), style.launches)
+    assert all(n > b for n, b in zip(after, before)), (before, after)
+    for want, got in zip(traces['cpu'], traces['cuda']):
+        assert set(want) == set(got) == {0, 2}
+        for lane in want:
+            for key, value in want[lane].items():
+                np.testing.assert_allclose(got[lane][key], value, rtol=5e-3,
+                                           err_msg='lane %d %s' % (lane,
+                                                                   key))
+
+
+@pytest.mark.cuda
+def test_style_kernel_lanes_do_not_depend_on_each_other(cuda):
+    """Each lane's bits depend on its own map and target only: lanes 0-2
+    are the same bits whatever lane 3 holds, NaN included."""
+    h, w, c = STYLE_TAPS_512[1]
+    rng = np.random.RandomState(3)
+    feat = torch.relu(torch.from_numpy(np.float32(rng.randn(4, h, w, c)))
+                      ).to(cuda)
+    grams = torch.from_numpy(np.float32(rng.rand(4, c, c))).to(cuda)
+    s, gd = style.fused_style_branch(feat, grams)
+    other = feat.clone()
+    other[3] = float('nan')
+    s_o, gd_o = style.fused_style_branch(other, grams)
+    assert torch.equal(s[:3], s_o[:3]) and torch.equal(gd[:3], gd_o[:3])
+    assert torch.isnan(s_o[3]).all()
+
+
+@pytest.mark.cuda
+def test_batched_engine_on_card_keeps_nans_in_their_lane(cuda):
+    """An inactive lane between two active ones, its iterate and norms NaN,
+    on the card: its neighbours' traces are the bits they have beside a
+    clean inactive lane (the kernels are deterministic, and nothing
+    reduces across lanes)."""
+    from style_transfer2_tpu_torch.engine.batched import (
+        BatchedStyleTransfer)
+    from style_transfer2_tpu_torch.models import random_params
+    weights = {'content': {'conv2_2': 0.1},
+               'style': {'conv1_1': 1.0, 'conv2_1': 1.0}}
+    scalars = {'p': 50.0, 'p_power': 6.0, 'tv': 5.0, 'tv_power': 2.0}
+    rng = np.random.RandomState(2)
+    jobs = [[rng.randint(0, 256, (40, 56, 3)).astype(np.uint8)
+             for _ in range(3)] for _ in range(2)]
+    params = random_params(0)
+    runs = []
+    for poison in (False, True):
+        bt = BatchedStyleTransfer(params, weights, scalars, (40, 56),
+                                  max_lanes=3, optimizer='lbfgs',
+                                  device='cuda')
+        for job, lane in zip(jobs, (0, 2)):
+            bt.add_job(*job, lane=lane)
+        if poison:
+            bt.states['x'][1] = float('nan')
+            for k in bt.spec.norm_keys:
+                bt.inputs['norms_vals'][k][1] = float('nan')
+                bt.inputs['norms_set'][k][1] = True
+        runs.append([bt.step_all() for _ in range(3)]
+                    + [bt.run_steps_all(2)])
+    assert runs[0] == runs[1]

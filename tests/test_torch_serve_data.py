@@ -220,6 +220,8 @@ def test_serve_app_imports_no_jax():
         'import style_transfer2_tpu_torch.serve.driver, '
         'style_transfer2_tpu_torch.serve.persist, '
         'style_transfer2_tpu_torch.serve.phases\n'
+        'import style_transfer2_tpu_torch.engine.batched, '
+        'style_transfer2_tpu_torch.parallel.batch\n'
         'cp = configparser.ConfigParser()\n'
         'cp.read("config.ini")\n'
         'config = cp["DEFAULT"]\n'

@@ -8,6 +8,7 @@ import json
 from pathlib import Path
 
 import pytest
+import torch
 
 from style_transfer2_tpu_torch.ops import conv
 
@@ -15,6 +16,16 @@ _SPEC = importlib.util.spec_from_file_location(
     'chip_smoke', Path(__file__).resolve().parents[1] / 'chip_smoke.py')
 chip_smoke = importlib.util.module_from_spec(_SPEC)
 _SPEC.loader.exec_module(chip_smoke)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: these shapes are tiny, and where the test runner
+    runs several workers at once, more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize('sessions,want', [
@@ -98,3 +109,53 @@ def test_serve_phase_runs_on_the_cpu(monkeypatch, tmp_path):
                                                   [36, 48]]
     assert ladder['polish_iterates'] >= chip_smoke.SERVE_POLISH
     assert ladder['polish_respawn_s'] >= ladder['polish_ready_s'] > 0
+
+
+@pytest.mark.usefixtures('one_thread')
+def test_batch_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    """The batch phase end to end on the CPU at --size 32: its inputs (the
+    four flips of golden_gate in one wave, starry_night alone in another),
+    the CLI's --batch, the per-lane losses, the PNG sizes, the wave rates
+    read from the CLI's log and the 48x64 batch parity, with the card-only
+    parts stubbed (kernel counts, planned paths, memory statistics)."""
+    import logging
+    import types
+
+    monkeypatch.setattr(chip_smoke, 'BATCH_DEVICE', 'cpu')
+    monkeypatch.setattr(chip_smoke, 'BATCH_SIZE', 32)
+    monkeypatch.setattr(chip_smoke, 'ITERATIONS', 3)
+    monkeypatch.setattr(chip_smoke, 'OUT_DIR', tmp_path)
+    ones = dict.fromkeys(chip_smoke.KERNELS, 1)
+    monkeypatch.setattr(chip_smoke, 'counters', lambda: dict(ones))
+    monkeypatch.setattr(chip_smoke, 'batch_paths', lambda *a: [])
+    fake = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        synchronize=lambda: None, memory_allocated=lambda: 0,
+        reset_peak_memory_stats=lambda: None,
+        max_memory_allocated=lambda: 2 ** 20))
+    log = chip_smoke.CliLog()
+    logger = logging.getLogger('cli')
+    level = logger.level
+    logger.addHandler(log)
+    logger.setLevel(logging.INFO)
+    try:
+        got = chip_smoke.phase_batch(fake, log, {'float32': 10.0,
+                                                 'bfloat16': 20.0}, 'a CPU')
+    finally:
+        logger.removeHandler(log)
+        logger.setLevel(level)
+    assert got == dict.fromkeys(chip_smoke.KERNELS, 2)
+    result = json.loads((tmp_path / 'batch.json').read_text())
+    for precision in ('float32', 'bfloat16'):
+        run = result[precision]
+        assert run['lanes'] == chip_smoke.LANES
+        assert run['aggregate_it_s'] == pytest.approx(
+            chip_smoke.LANES * run['lane_it_s'])
+        assert run['single_it_s'] == {'float32': 10.0,
+                                      'bfloat16': 20.0}[precision]
+        assert len(run['losses']) == 5
+        assert sorted(p.name for p in (tmp_path / ('batch_' + precision))
+                      .iterdir()) == sorted(
+            ['golden_gate%s_styled.png' % v
+             for v in ('', '_both', '_lr', '_tb')]
+            + ['starry_night_styled.png'])
+    assert result['parity_worst_rel_err'] <= chip_smoke.PARITY_RTOL
