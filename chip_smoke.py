@@ -25,9 +25,11 @@ exits non-zero:
                mma.sync kernel (tile) also held at every shape, forced
                and on views one element off, and each step's conv
                times summed beside cuDNN's;
-               the batched engine's trunk: the 512px iterate shapes at
-               N = 4 in both precisions, with their paths and cuDNN at
-               N = 4, summed over a 4-lane step;
+               the batched engine's trunk: the iterate shapes of each of
+               the pool's buckets (384x512, 288x384, 192x256) at N = 4 in
+               both precisions, with their paths (the smaller grids take
+               the split paths) and cuDNN at N = 4, summed over a 4-lane
+               step;
                the style branch at the taps of the 512px, 543x724 and
                768x1024 iterates, and with a lane axis at the 512px taps,
                4 lanes in one launch sequence, each lane also held against
@@ -91,7 +93,36 @@ exits non-zero:
                session's it/s (host clock and the app's itsPerS), first
                iterate, the control latency and the polish respawn's
                seconds printed; serve.json.
-  9. profile — every kernel and library call timed in phase 3, on the
+  9. pool    — the pooled server (style_transfer2_tpu_torch.serve.pool)
+               on the card, config.ini with its pool defaults (4 lanes,
+               Adam, one step a dispatch, images fetched at most every
+               0.25 s) and pool_sizes 256, 384, 512 over it, full-width
+               VGG-19 with random_params(0), driven over real localhost
+               sockets: (a) float32, four browsers (each its own cookie
+               jar) on lanes 0-3 of the 384x512 bucket, a fifth refused
+               with 503, all four to 60 iterates, browser 0's applyParams
+               (a style weight and the step size: lane 0's values change,
+               lanes 1-3's do not), browser 1's resize to 384 (a warm
+               migration into a new 288x384 bucket, 30 iterates there,
+               its first loss far below its first at 512), each /output a
+               PNG of its grid, /stats naming the card with 4 of 8 lanes
+               in use, all paused; (b) bfloat16 through the port's router
+               (the pool registers on its control port; two browsers
+               speak only to its proxy port), serve_ladder 20 up the
+               192x256, 288x384 and 384x512 buckets, then serve_polish 10
+               in the float32 bucket at 384x512 and the schedule's pause,
+               the router's /stats showing the instance. Both: finite
+               losses, falling over the first 60 iterates or the first
+               rung, every bucket on CUDA, every kernel launched and the
+               conv paths planned at N = 4 for each bucket's grid and
+               precision among the launches; each
+               session's and the aggregate it/s (host clock, the window
+               where all of a tier's sessions run) beside the batch
+               phase's 4-lane aggregate, the first iterate, the control
+               latency, the resize and polish migrations' seconds (and a
+               new bucket's first iterate beside a warm one), each rung's
+               it/s, the peak device memory; pool.json.
+ 10. profile — every kernel and library call timed in phase 3, on the
                same inputs: host_us, the host clock over HOST_CALLS
                back-to-back calls with no sync (the enqueue cost), then
                device_ms, its kernels' own time from torch.profiler's CUDA
@@ -109,6 +140,7 @@ numbers; the last line is {"ok": true, "device": {...}}. Outputs go to
 chiprun_out/chip_smoke/.
 """
 
+import asyncio
 import csv
 import json
 import logging
@@ -197,6 +229,27 @@ SERVE_DEVICE = 'cuda'        # the app's device key (the CPU tests set cpu)
 # The grids of session (b): utils.scales((384, 512), min_size=256).
 SERVE_RUNGS = [(192, 256), (272, 362), (384, 512)]
 
+# The pool phase: tier (a) runs POOL_LANES float32 sessions on the
+# POOL_SIZE bucket to POOL_ITERATES iterates, then one resizes to
+# POOL_RESIZE with at least POOL_RESIZE_ITERATES iterates there; tier (b)
+# climbs POOL_BROWSERS_B bfloat16 sessions up the POOL_SIZES buckets
+# (POOL_LADDER iterations each), then a POOL_POLISH-iteration float32
+# polish. POOL_TIMEOUT bounds each tier.
+POOL_SIZES = (256, 384, 512)
+POOL_SIZE = 512
+POOL_RESIZE = 384
+POOL_LANES = 4               # config.ini's default pool_lanes
+POOL_ITERATES = 60
+POOL_RESIZE_ITERATES = 30
+POOL_BROWSERS_B = 2
+POOL_LADDER = 20
+POOL_POLISH = 10
+POOL_TIMEOUT = 240
+POOL_DEVICE = 'cuda'         # the pool's device key (the CPU tests set cpu)
+# A warm migration's first loss over the session's first loss at
+# POOL_SIZE: a cold reseed would start near the random start's loss.
+POOL_WARM_MAX = 0.5
+
 # The ladder run's --size and --min-scale, and its rungs
 # (utils.scales((768, 1024), min_size=96)).
 LADDER_SIZE = 1024
@@ -230,9 +283,13 @@ STYLE_CONVS = [
 
 # The iterate sizes whose conv rows chip_smoke sums over one step, by the
 # `where` of their rows; '512x4' is the batch phase's step, four lanes of
-# the 384x512 iterate at N = 4.
+# the 384x512 iterate at N = 4, and '384x4', '256x4' the pool's smaller
+# buckets' steps at N = 4.
 STEP_SIZES = {'512': '384x512', '543x724': '543x724', '1024': '768x1024',
-              '512x4': '4 x 384x512'}
+              '512x4': '4 x 384x512', '384x4': '4 x 288x384',
+              '256x4': '4 x 192x256'}
+# The grid of each N = 4 `where`.
+LANE_GRIDS = {'512x4': (384, 512), '384x4': (288, 384), '256x4': (192, 256)}
 # Lanes of the batch phase's wave, and of the kernels phase's N = 4 conv
 # rows and B = 4 style rows; the batch phase's --size and device (the CPU
 # tests set a small size and cpu).
@@ -867,22 +924,25 @@ def phase_kernels(torch):
     # shape run three times a step three times.
     steps = {}
 
-    # The N = 4 rows draw from their own generator, so that the rows above
-    # keep their inputs.
+    # The N = 4 rows draw from their own generator, and the pool's smaller
+    # grids from another, so that the rows before them keep their inputs.
     lanes_rng = np.random.RandomState(LANES)
+    grids_rng = np.random.RandomState(2 * LANES)
     for dtype_name in ('float32', 'bfloat16'):
         cases = ([(s, '512') for s in ITERATE_CONVS]
                  + [(s, 'style') for s in STYLE_CONVS]
                  + [(s, '543x724') for s in trunk_convs(543, 724)]
                  + [(s, '1024') for s in trunk_convs(768, 1024)]
-                 + [(s, '512x4') for s in ITERATE_CONVS])
+                 + [(s, where) for where, hw in LANE_GRIDS.items()
+                    for s in trunk_convs(*hw)])
         seen = {}
         for shape, where in cases:
             key = (shape, where)
             if key not in seen:
-                if where == '512x4':
-                    seen[key] = check_conv(torch, lanes_rng, shape,
-                                           dtype_name, where, pending, LANES)
+                if where in LANE_GRIDS:
+                    seen[key] = check_conv(
+                        torch, lanes_rng if where == '512x4' else grids_rng,
+                        shape, dtype_name, where, pending, LANES)
                 else:
                     seen[key] = check_conv(torch, rng, shape, dtype_name,
                                            where, pending)
@@ -1641,19 +1701,30 @@ def batch_inputs():
     return indir, sizes, fitted[0][::-1], fitted[1][::-1]
 
 
-def batch_paths(torch, precision):
-    """The (direction, path) pairs the planners pick for the 384x512
-    iterate's trunk at N = LANES."""
+def planned_paths(torch, precision, hw, n):
+    """The (direction, path) pairs the planners pick for the trunk of an
+    hw iterate at N = n."""
     from style_transfer2_tpu_torch.ops import conv
     dtype = {'float32': torch.float32, 'bfloat16': torch.bfloat16}[precision]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     want = set()
-    for h, w, cin, cout in ITERATE_CONVS:
-        want.add(('fwd', conv.fwd_plan(LANES, h, w, cin, cout, dtype,
-                                       sms)[0]))
-        want.add(('bwd', conv.bwd_plan(LANES, h, w, cout, cin, dtype,
-                                       sms)[0]))
+    for h, w, cin, cout in trunk_convs(*hw):
+        want.add(('fwd', conv.fwd_plan(n, h, w, cin, cout, dtype, sms)[0]))
+        want.add(('bwd', conv.bwd_plan(n, h, w, cout, cin, dtype, sms)[0]))
     return sorted(want)
+
+
+def require_planned(torch, what, buckets, n):
+    """Each (direction, path) pair planned for the trunk of each
+    (precision, hw) bucket at N = n is among the launches. The counts are
+    by direction and path only, so a path two precisions share counts
+    for both."""
+    from style_transfer2_tpu_torch.ops import conv
+    for precision, hw in buckets:
+        for key in planned_paths(torch, precision, tuple(hw), n):
+            require(conv.path_launches.get(key, 0) > 0, '%s: no %s '
+                    'launches on the %s path planned for %s %dx%d at N = %d'
+                    % (what, key[0], key[1], precision, hw[0], hw[1], n))
 
 
 def wave_rates(log, start):
@@ -1679,10 +1750,10 @@ def phase_batch(torch, log, rates, smi):
     """The CLI's --batch on the card: LANES lanes at 512px, L-BFGS, one
     step a dispatch (as phase 4), in float32 and in bfloat16, full-width
     VGG-19 with random_params(0); then the batched engine against single
-    engines at 48x64."""
+    engines at 48x64. Returns the kernel counts and the 4-lane aggregate
+    it/s of each precision."""
     from PIL import Image
     from style_transfer2_tpu_torch import cli
-    from style_transfer2_tpu_torch.ops import conv
     indir, sizes, full_hw, lone_hw = batch_inputs()
     launches = dict.fromkeys(KERNELS, 0)
     results = {}
@@ -1709,10 +1780,8 @@ def phase_batch(torch, log, rates, smi):
         peak = peak_all - base
         require(rc == 0, 'batch %s: cli.main returned %r' % (precision, rc))
         require_all_launched(counts, 'batch ' + precision)
-        for key in batch_paths(torch, precision):
-            require(conv.path_launches.get(key, 0) > 0, 'batch %s: no %s '
-                    'launches on the %s path planned at N = %d'
-                    % (precision, key[0], key[1], LANES))
+        require_planned(torch, 'batch ' + precision, [(precision, full_hw)],
+                        LANES)
         for name, n in counts.items():
             launches[name] += n
         losses = {r.args[0]: r.args[2:] for r in log.records[start:]
@@ -1757,7 +1826,8 @@ def phase_batch(torch, log, rates, smi):
     results['parity_worst_rel_err'] = batch_parity(torch)
     (OUT_DIR / 'batch.json').write_text(json.dumps(
         dict(results, device=smi), indent=1))
-    return launches
+    return launches, {p: results[p]['aggregate_it_s']
+                      for p in ('float32', 'bfloat16')}
 
 
 def batch_parity(torch):
@@ -1810,7 +1880,6 @@ def phase_serve(torch, smi):
     """The port's web app on the card, two sessions over a real localhost
     socket, the full-width VGG-19 with random_params(0), config.ini's
     dispatch defaults."""
-    import asyncio
     from style_transfer2_tpu_torch.engine.transfer import StyleTransfer
     launches = dict.fromkeys(KERNELS, 0)
     log = GridLog(StyleTransfer)
@@ -1867,6 +1936,462 @@ def phase_serve(torch, smi):
     return launches
 
 
+def time_migrations(tier):
+    """Wraps this tier's migrate (the instance's attribute, which
+    migrate_session calls) to keep each migration's session and its
+    seconds on the device thread, in order."""
+    seconds = []
+    real = tier.migrate
+
+    def migrate(sess, *args, **kw):
+        t0 = time.perf_counter()
+        real(sess, *args, **kw)
+        seconds.append((sess.session_id, time.perf_counter() - t0))
+
+    tier.migrate = migrate
+    return seconds
+
+
+class PoolBrowser(Browser):
+    """A user of its own: its own HTTP session and cookie jar, so the pool
+    (and the router before it) tell it from the others."""
+
+    async def open(self):
+        async with self.http.get(self.base + '/') as resp:
+            require(resp.status == 200, 'pool: GET / %d' % resp.status)
+        await self.connect()
+        return self
+
+    def cookie(self, name):
+        return next(c.value for c in self.http.cookie_jar if c.key == name)
+
+    def last(self, kind):
+        return next(d for _, d in reversed(self.frames) if d['type'] == kind)
+
+    def moves(self, since):
+        """Each newSize frame from frame `since` on: the grid, and the
+        session's iterate counter at the move, the last iterateInfo's
+        before it (the pool pushes newSize before the new bucket's first
+        tick; iterates numbered above it ran at the new grid)."""
+        out, i = [], 0
+        for k, (_, d) in enumerate(self.frames):
+            if d['type'] == 'iterateInfo':
+                i = d['i']
+            elif d['type'] == 'newSize' and k >= since:
+                out.append({'t': i, 'hw': (d['height'], d['width'])})
+        return out
+
+
+def pool_config(port, **keys):
+    """config.ini as it stands (its pool keys commented out, so the pool's
+    defaults: 4 Adam lanes, one step a dispatch, images at most every
+    0.25 s) with the smoke's own keys over it."""
+    config = serve_config(port, device=POOL_DEVICE, initial_size=POOL_SIZE,
+                          pool_sizes=', '.join(str(s) for s in POOL_SIZES))
+    config.update({k: str(v) for k, v in keys.items()})
+    return config
+
+
+async def serve_apps(stack, *apps):
+    """Serves each (aiohttp app, port) on localhost until the stack
+    closes, the last first."""
+    from aiohttp import web
+    for app, port in apps:
+        runner = web.AppRunner(app)
+        await runner.setup()
+        stack.push_async_callback(runner.cleanup)
+        await web.TCPSite(runner, '127.0.0.1', port).start()
+
+
+async def pool_browser(stack, base):
+    import aiohttp
+    http = await stack.enter_async_context(aiohttp.ClientSession(
+        cookie_jar=aiohttp.CookieJar(unsafe=True)))
+    return await PoolBrowser(http, base).open()
+
+
+async def get_text(http, url):
+    async with http.get(url) as resp:
+        require(resp.status == 200, '%s: %d' % (url, resp.status))
+        return await resp.text()
+
+
+def window_rates(browsers, t0, t1):
+    """Each browser's it/s (host clock) over its iterate frames received
+    between t0 and t1, and their sum."""
+    rates = [host_it_s([f for f in b.iterates() if t0 <= f[0] <= t1])
+             for b in browsers]
+    return rates, sum(rates)
+
+
+def frames_between(frames, lo, hi=None):
+    """The iterate frames numbered above lo and at most hi."""
+    return [f for f in frames if f[1]['i'] > lo
+            and (hi is None or f[1]['i'] <= hi)]
+
+
+def require_falling(frames, what):
+    losses = [d['trace']['loss'] for _, d in frames]
+    require(all(math.isfinite(v) for v in losses), '%s: non-finite loss'
+            % what)
+    require(losses[-1] < losses[0], '%s: loss did not fall: %.6g -> %.6g'
+            % (what, losses[0], losses[-1]))
+    return [losses[0], losses[-1]]
+
+
+def require_on_device(tier, what):
+    for key, engine in tier.engines.items():
+        require(engine.device.type == POOL_DEVICE, '%s: bucket %s on %s'
+                % (what, key, engine.device))
+
+
+async def drive_pool_float32(stack, tier, base, torch, migrations):
+    """Tier (a): POOL_LANES float32 sessions on one bucket, a fifth
+    refused, a weight change on lane 0, a warm resize of another."""
+    import io
+
+    import aiohttp
+    import yaml
+    from PIL import Image
+    grid = tier.hw_for(POOL_SIZE)
+    require(tier.default_hw == grid, 'pool float32: default bucket %s'
+            % (tier.default_hw,))
+    browsers = [await pool_browser(stack, base) for _ in range(POOL_LANES)]
+    sessions = [tier.sessions[b.cookie('pool_session')] for b in browsers]
+    lanes = [s.lane for s in sessions]
+    require(lanes == list(range(POOL_LANES))
+            and all(s.bucket_hw == grid for s in sessions),
+            'pool float32: lanes %s' % [(s.lane, s.bucket_hw)
+                                        for s in sessions])
+    async with aiohttp.ClientSession() as http:
+        async with http.get(base + '/') as resp:
+            require(resp.status == 503, 'pool float32: a fifth session '
+                    'got %d, not 503' % resp.status)
+    for b in browsers:
+        await b.until(lambda d: d['type'] == 'thumbnails')
+    engine = tier.engine_of(sessions[0])
+    starts = [await b.send('start') for b in browsers]
+    await asyncio.gather(*(b.until(lambda d: d['type'] == 'iterateInfo'
+                                   and d['i'] >= POOL_ITERATES)
+                           for b in browsers))
+    firsts = [b.iterates() for b in browsers]
+    t0 = max(f[0][0] for f in firsts)
+    t1 = min(next(t for t, d in f if d['i'] >= POOL_ITERATES)
+             for f in firsts)
+    rates, aggregate = window_rates(browsers, t0, t1)
+    losses = [require_falling([x for x in f if x[1]['i'] <= POOL_ITERATES],
+                              'pool float32 lane %d' % k)
+              for k, f in enumerate(firsts)]
+
+    # Browser 0 changes a style weight and the step size.
+    b0, b1 = browsers[:2]
+    lane0 = sessions[0].lane
+    rows, steps = engine._weights.copy(), engine._step_sizes.copy()
+    params = yaml.safe_load(b0.last('newParams')['params'])
+    params['weights'][0]['style']['conv2_1'] = 2.0
+    params['optimizer_step_size'] = 5.0
+    t_apply = await b0.send('applyParams', params=yaml.safe_dump(params))
+    reply = await b0.until(lambda d: d['type'] == 'newParams')
+    require(reply.get('errorString') == '', 'pool applyParams: %r'
+            % reply.get('errorString'))
+    # The pool sets the weights between ticks and then pushes newParams,
+    # so every iterate after it ran under the new weights.
+    await b0.until(lambda d: d['type'] == 'iterateInfo')
+    control_s = b0.frames[-1][0] - t_apply
+    changed = [bool(np.any(engine._weights[k] != rows[k])
+                    or engine._step_sizes[k] != steps[k])
+               for k in range(POOL_LANES)]
+    require(changed == [k == lane0 for k in range(POOL_LANES)]
+            and engine._step_sizes[lane0] == 5.0,
+            'pool applyParams: lanes changed %s, step sizes %s'
+            % (changed, engine._step_sizes))
+
+    # Browser 1 resizes: a warm migration into a new bucket.
+    sess1 = sessions[1]
+    first_loss = firsts[1][0][1]['trace']['loss']
+    params = yaml.safe_load(b1.last('newParams')['params'])
+    params['size'] = POOL_RESIZE
+    mark = len(b1.frames)
+    t_resize = await b1.send('applyParams', params=yaml.safe_dump(params))
+    size = await b1.until(lambda d: d['type'] == 'newSize')
+    t_size = b1.frames[-1][0]
+    resized = (size['height'], size['width'])
+    require(resized == tier.hw_for(POOL_RESIZE), 'pool resize: newSize %s'
+            % (resized,))
+    reply = await b1.until(lambda d: d['type'] == 'newParams')
+    require(reply.get('errorString') == '', 'pool resize: %r'
+            % reply.get('errorString'))
+    moved, = b1.moves(mark)
+    require(sess1.bucket_hw == resized and tier.engine_of(sess1).device.type
+            == POOL_DEVICE and [sid for sid, _ in migrations]
+            == [sess1.session_id], 'pool resize: bucket %s on %s, '
+            'migrations %s' % (sess1.bucket_hw,
+                               tier.engine_of(sess1).device, migrations))
+    await b1.until(lambda d: d['type'] == 'iterateInfo'
+                   and d['i'] >= moved['t'] + POOL_RESIZE_ITERATES)
+    at_new = frames_between(b1.iterates(), moved['t'])
+    new_loss = at_new[0][1]['trace']['loss']
+    require(math.isfinite(new_loss) and new_loss
+            <= POOL_WARM_MAX * first_loss, 'pool resize: first loss at %s '
+            '%.6g against %.6g at the start (a cold reseed?)'
+            % (resized, new_loss, first_loss))
+    gaps = np.diff([t for t, _ in at_new])
+
+    outputs = {}
+    for k, b in enumerate(browsers):
+        async with b.http.get(base + '/output') as resp:
+            require(resp.status == 200, '/output %d' % resp.status)
+            png = await resp.read()
+        want = resized if k == 1 else grid
+        with Image.open(io.BytesIO(png)) as img:
+            require(img.format == 'PNG' and img.size == want[::-1],
+                    'pool /output %d: %s %s' % (k, img.format, img.size))
+        outputs[k] = list(want)
+    stats = await get_text(b0.http, base + '/stats')
+    require(torch.cuda.get_device_name(0) in stats,
+            'pool /stats does not name the card')
+    require('%d/%d engine lanes in use' % (POOL_LANES, 2 * POOL_LANES)
+            in stats, 'pool /stats: lanes in use')
+    for b in browsers:
+        await b.send('pause')
+    for b in browsers:
+        await b.until(lambda d: d['type'] == 'state' and not d['running'])
+    require_on_device(tier, 'pool float32')
+    return {'grid': list(grid), 'resize_grid': list(resized),
+            'lanes': lanes,
+            'first_iterate_s': tier.first_iterate_s,
+            'first_iterate_host_s': min(f[0][0] for f in firsts)
+            - min(starts),
+            'window_s': t1 - t0, 'session_it_s': rates,
+            'aggregate_it_s': aggregate, 'losses': losses,
+            'control_s': control_s,
+            'resize_s': at_new[0][0] - t_resize,
+            'resize_device_thread_s': migrations[0][1],
+            'resize_first_dispatch_s': at_new[0][0] - t_size,
+            'resize_warm_dispatch_s': float(np.median(gaps)),
+            'resize_iterates': len(at_new),
+            'resize_it_s': host_it_s(at_new),
+            'resize_loss': [first_loss, new_loss,
+                            at_new[-1][1]['trace']['loss']],
+            'outputs': outputs,
+            'buckets': [['float32', list(grid)], ['float32', list(resized)]]}
+
+
+async def drive_pool_ladder(stack, tier, base, torch, migrations, router_app,
+                            router_base):
+    """Tier (b): POOL_BROWSERS_B bfloat16 sessions through the router, up
+    the buckets, then the float32 polish bucket and the schedule's
+    pause."""
+    for _ in range(300):      # the pool's heartbeat registers it
+        if router_app['addrs']:
+            break
+        await asyncio.sleep(0.1)
+    require(len(router_app['addrs']) == 1, 'pool ladder: the pool did not '
+            'register with the router')
+    browsers = [await pool_browser(stack, router_base)
+                for _ in range(POOL_BROWSERS_B)]
+    sids = [b.cookie('pool_session') for b in browsers]
+    for b in browsers:
+        await b.until(lambda d: d['type'] == 'thumbnails')
+    rungs = [tier.hw_for(s) for s in POOL_SIZES]
+    marks = [len(b.frames) for b in browsers]
+    starts = [await b.send('start') for b in browsers]
+
+    async def climb(b, sid):
+        """Each bucket the session moved into, (grid, precision, device)
+        as the tier's table gives them when its newSize arrives."""
+        buckets = []
+        while True:
+            d = await b.recv()
+            if d['type'] == 'newSize':
+                engine = tier.engine_of(tier.sessions[sid])
+                buckets.append(((d['height'], d['width']), engine.precision,
+                                engine.device.type))
+            elif (d['type'] == 'state' and not d['running']
+                  and len(buckets) > len(rungs)):
+                return buckets
+    climbed = await asyncio.gather(*(climb(b, sid)
+                                     for b, sid in zip(browsers, sids)))
+    want = ([(hw, 'bfloat16', POOL_DEVICE) for hw in rungs]
+            + [(rungs[-1], 'float32', POOL_DEVICE)])
+    sessions = []
+    for k, (b, sid, buckets) in enumerate(zip(browsers, sids, climbed)):
+        what = 'pool ladder session %d' % k
+        require(buckets == want, '%s: buckets %s' % (what, buckets))
+        seconds = [sec for s, sec in migrations if s == sid]
+        require(len(seconds) == len(want), '%s: %d migrations'
+                % (what, len(seconds)))
+        sess = tier.sessions[sid]
+        require(sess.precision == 'float32' and not sess.running
+                and sess.sched is None, '%s: ends %s running=%s'
+                % (what, sess.precision, sess.running))
+        frames = b.iterates()
+        bounds = [m['t'] for m in b.moves(marks[k])]
+        per_rung = []
+        for r, hw in enumerate(rungs):
+            rows = frames_between(frames, bounds[r], bounds[r + 1])
+            require(len(rows) >= POOL_LADDER, '%s: %d iterates at %s'
+                    % (what, len(rows), hw))
+            if r == 0:
+                require_falling(rows, '%s at %s' % (what, hw))
+            loss = [rows[0][1]['trace']['loss'], rows[-1][1]['trace']['loss']]
+            per_rung.append({'hw': list(hw), 'iterates': len(rows),
+                             'it_s': host_it_s(rows), 'loss': loss})
+        polish = frames_between(frames, bounds[-1])
+        require(len(polish) >= POOL_POLISH, '%s: %d polish iterates'
+                % (what, len(polish)))
+        ladder_end = frames_between(frames, 0, bounds[-1])[-1]
+        require(all(math.isfinite(d['trace']['loss']) for _, d in frames),
+                '%s: non-finite loss' % what)
+        sessions.append({
+            'rungs': per_rung, 'polish_iterates': len(polish),
+            'polish_it_s': host_it_s(polish),
+            'polish_migration_s': polish[0][0] - ladder_end[0],
+            'polish_device_thread_s': seconds[-1],
+            'rung_migration_s': [
+                frames_between(frames, bounds[r])[0][0]
+                - frames_between(frames, 0, bounds[r])[-1][0]
+                for r in range(1, len(rungs))],
+            'polish_loss': [polish[0][1]['trace']['loss'],
+                            polish[-1][1]['trace']['loss']],
+            'first_iterate_host_s': frames[0][0] - starts[k]})
+    t0 = max(b.iterates()[0][0] for b in browsers)
+    t1 = min(frames_between(b.iterates(), 0, b.moves(mark)[-1]['t'])[-1][0]
+             for b, mark in zip(browsers, marks))
+    rates, aggregate = window_rates(browsers, t0, t1)
+    stats = await get_text(browsers[0].http, router_base + '/stats')
+    require('%d/%d session slots in use' % (POOL_BROWSERS_B, POOL_LANES)
+            in stats, 'router /stats does not show the pool instance')
+    require_on_device(tier, 'pool ladder')
+    return {'rungs': [list(hw) for hw in rungs],
+            'first_iterate_s': tier.first_iterate_s,
+            'window_s': t1 - t0, 'session_it_s': rates,
+            'aggregate_it_s': aggregate, 'sessions': sessions,
+            'buckets': [[precision, list(hw)] for hw, precision, _ in want]}
+
+
+async def pool_tier(torch, which, precision, **keys):
+    """Serves the port's pool (and, for the bfloat16 tier, the port's
+    router in front of it) on free localhost ports, drives it with the
+    kernel counts set to 0 and the peak memory reset just before, requires
+    every kernel launched and the conv paths planned for each bucket the
+    drive used, and returns (counts, the drive's result with the peak
+    bytes over the start)."""
+    import contextlib
+
+    from style_transfer2_tpu_torch.serve import pool, router
+    port = free_port()
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    async with contextlib.AsyncExitStack() as stack:
+        if precision == 'float32':
+            app = pool.init(config=pool_config(port, precision=precision))
+            await serve_apps(stack, (app, port))
+            result = await drive_pool_float32(
+                stack, app['tier'], 'http://127.0.0.1:%d' % port, torch,
+                time_migrations(app['tier']))
+        else:
+            router_port, control_port = free_port(), free_port()
+            config = pool_config(port, precision=precision,
+                                 router_host='127.0.0.1',
+                                 router_port=router_port,
+                                 router_control_port=control_port, **keys)
+            router_app = router.init(config=config, state_file=str(
+                OUT_DIR / 'pool_router_state.json'))
+            await serve_apps(stack, (router_app, router_port))
+            # The control app shares the registry the router's startup
+            # made; the pool's cleanup (first) unregisters through it.
+            await serve_apps(stack, (router.make_control_app(router_app),
+                                     control_port))
+            app = pool.init(config=config)
+            await serve_apps(stack, (app, port))
+            result = await drive_pool_ladder(
+                stack, app['tier'], 'http://127.0.0.1:%d' % port, torch,
+                time_migrations(app['tier']), router_app,
+                'http://127.0.0.1:%d' % router_port)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = counters()
+    require_all_launched(counts, 'pool ' + which)
+    require_paths('pool ' + which, precision)
+    require_planned(torch, 'pool ' + which, result['buckets'], POOL_LANES)
+    result.update(launches=counts, paths=path_counts(),
+                  peak_bytes=peak - base_bytes, max_memory_allocated=peak)
+    return counts, result
+
+
+def phase_pool(torch, smi, batch_it_s):
+    """The port's pooled server on the card: four float32 sessions on one
+    bucket, then two bfloat16 sessions through the router up the buckets
+    and into the float32 polish bucket. batch_it_s: the batch phase's
+    4-lane aggregate it/s, by precision, printed beside the pool's."""
+    launches = dict.fromkeys(KERNELS, 0)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)   # the router's state file
+    results = {}
+    for which, precision, keys in (
+            ('float32', 'float32', {}),
+            ('bfloat16 ladder', 'bfloat16', {
+                'serve_ladder': POOL_LADDER,
+                'serve_polish': POOL_POLISH,
+                'polish_precision': 'float32'})):
+        counts, results[which] = asyncio.run(asyncio.wait_for(
+            pool_tier(torch, which, precision, **keys), POOL_TIMEOUT))
+        for name, n in counts.items():
+            launches[name] += n
+    a, b = results['float32'], results['bfloat16 ladder']
+    say('pool', '%s; float32, %d sessions on lanes %s of the %dx%d bucket, '
+        'one Adam step a dispatch: %s it/s a session, %.2f aggregate over '
+        'the %.2f s all ran (host clock), against the batch phase\'s '
+        '4-lane L-BFGS aggregate %.2f (x%.2f); first iterate %.2f s; '
+        'losses %s' % (
+            smi, POOL_LANES, a['lanes'], a['grid'][0], a['grid'][1],
+            ', '.join('%.2f' % r for r in a['session_it_s']),
+            a['aggregate_it_s'], a['window_s'], batch_it_s['float32'],
+            a['aggregate_it_s'] / batch_it_s['float32'],
+            a['first_iterate_s'], ', '.join(
+                '%.6g -> %.6g' % tuple(v) for v in a['losses'])))
+    say('pool', '%s; float32 control latency (applyParams to the first '
+        'iterate under lane 0\'s new weights) %.3f s; resize to %dx%d: '
+        '%.3f s to its first iterate there (%.3f s on the device thread; '
+        'the new bucket\'s first dispatch %.3f s against %.3f s a warm '
+        'one), %d iterates, %.2f it/s, loss %.6g at the start, %.6g -> '
+        '%.6g after the move' % (
+            smi, a['control_s'], a['resize_grid'][0], a['resize_grid'][1],
+            a['resize_s'], a['resize_device_thread_s'],
+            a['resize_first_dispatch_s'], a['resize_warm_dispatch_s'],
+            a['resize_iterates'], a['resize_it_s'], *a['resize_loss']))
+    for k, sess in enumerate(b['sessions']):
+        say('pool', '%s; bfloat16 session %d through the router: %s; '
+            'rung moves %s s; float32 polish move %.3f s (%.3f s on the '
+            'device thread), %d iterates, %.2f it/s, loss %.6g -> %.6g' % (
+                smi, k, '; '.join(
+                    '%dx%d %d iterates %.2f it/s loss %.6g -> %.6g' % (
+                        r['hw'][0], r['hw'][1], r['iterates'], r['it_s'],
+                        *r['loss']) for r in sess['rungs']),
+                ', '.join('%.3f' % s for s in sess['rung_migration_s']),
+                sess['polish_migration_s'], sess['polish_device_thread_s'],
+                sess['polish_iterates'], sess['polish_it_s'],
+                *sess['polish_loss']))
+    say('pool', '%s; bfloat16 %s it/s a session, %.2f aggregate over the '
+        '%.2f s both climbed, against the batch phase\'s 4-lane L-BFGS '
+        'aggregate %.2f; first iterate %.2f s; peak device memory over '
+        'the start: float32 %.0f MiB, bfloat16 ladder %.0f MiB '
+        '(max_memory_allocated %.0f, %.0f MiB)' % (
+            smi, ', '.join('%.2f' % r for r in b['session_it_s']),
+            b['aggregate_it_s'], b['window_s'], batch_it_s['bfloat16'],
+            b['first_iterate_s'], a['peak_bytes'] / 2 ** 20,
+            b['peak_bytes'] / 2 ** 20, a['max_memory_allocated'] / 2 ** 20,
+            b['max_memory_allocated'] / 2 ** 20))
+    say('pool', 'launches: float32 %s; bfloat16 ladder %s' % (
+        a['launches'], b['launches']))
+    (OUT_DIR / 'pool.json').write_text(json.dumps(
+        dict(results, batch_aggregate_it_s=batch_it_s, device=smi),
+        indent=1))
+    return launches
+
+
 def main():
     import torch
     smi = phase_device(torch)
@@ -1880,9 +2405,12 @@ def main():
     for name, n in phase_ladder(torch, log).items():
         launches[name] += n
     phase_parity(torch)
-    for name, n in phase_batch(torch, log, rates, smi).items():
+    counts, batch_it_s = phase_batch(torch, log, rates, smi)
+    for name, n in counts.items():
         launches[name] += n
     for name, n in phase_serve(torch, smi).items():
+        launches[name] += n
+    for name, n in phase_pool(torch, smi, batch_it_s).items():
         launches[name] += n
     with tf32(False):
         phase_costs(torch, rows, parts, pending, steps)
@@ -1900,7 +2428,8 @@ def main():
         'preprocess, deprocess) over the 7 rungs of the 1024px ladder '
         '(library: torch.sub, torch.add); device_ms: the kernels\' own '
         'time (torch.profiler); host_us: the host\'s enqueue cost a call; '
-        'launches over the main, ladder and serve runs; 512px it/s float32 '
+        'launches over the main, ladder, batch, serve and pool runs; '
+        '512px it/s float32 '
         '%.3f, bfloat16 %.3f' % (rates['float32'], rates['bfloat16']))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

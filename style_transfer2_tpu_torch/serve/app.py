@@ -58,6 +58,14 @@ logger = logging.getLogger('app')
 IGNORED_KEYS = ('pallas', 'platform', 'prewarm_sizes', 'remat')
 
 
+def device_name(config):
+    """The config's device for /stats: the card's name on CUDA."""
+    device = resolve_device(config.get('device', 'cuda'))
+    if device.type != 'cuda':
+        return str(device)
+    return torch.cuda.get_device_name(device)
+
+
 def snap_size(size, snap):
     """Quantizes a requested size to a multiple of `snap`, so that user
     resizes land on a few grids. snap <= 0 disables (reference
@@ -821,19 +829,12 @@ class SingleSessionTier(sn.EngineActions):
         await self.accept_upload(await request.post())
         return web.Response()
 
-    def _device_names(self):
-        """The engine's device, by the card's name on CUDA."""
-        device = resolve_device(self.config.get('device', 'cuda'))
-        if device.type != 'cuda':
-            return str(device)
-        return torch.cuda.get_device_name(device)
-
     async def handle_stats(self, request):
         return render('stats.html', {
             'sessions': 1, 'instances': 1,
             'timestamp': time.asctime(time.gmtime()),
             'loadavg': os.getloadavg(),
-            'devices': self._device_names(),
+            'devices': device_name(self.config),
             'first_iterate_s': self.first_iterate_s,
             'ga_tracking_code': self.config.get('ga_tracking_code', '')})
 

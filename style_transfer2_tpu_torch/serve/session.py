@@ -1,9 +1,9 @@
 """Shared session layer for the interactive serving tiers: a copy of
 style_transfer2_tpu/serve/session.py on top of the port's utils.
 
-The single-session app (serve/app.py, one user on a dedicated engine) and,
-in the JAX package, the pooled app (many users as lanes of one batched
-engine) speak the same browser protocol: the reference's
+Both serving tiers — the single-session app (serve/app.py, one user on a
+dedicated engine) and the pooled app (serve/pool.py, many users as lanes of
+one batched engine) — speak the same browser protocol: the reference's
 HTTP routes and WS JSON message types (reference app.py:61-290 is the
 behavior spec). This module holds everything that protocol implies about a
 session, independent of which engine backs it:

@@ -733,3 +733,84 @@ def test_batched_engine_on_card_keeps_nans_in_their_lane(cuda):
         runs.append([bt.step_all() for _ in range(3)]
                     + [bt.run_steps_all(2)])
     assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+def test_pool_runs_on_card_with_a_warm_migration(cuda):
+    """The pooled tier on the card: 2 float32 Adam lanes at 64px, both
+    sessions iterate, one resizes to 48 (a warm migration into a new
+    bucket, the iterate counter carried); every bucket is on CUDA, the
+    losses are finite and every kernel was launched."""
+    import asyncio
+    import configparser
+    import json
+
+    import aiohttp
+    import yaml
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from style_transfer2_tpu_torch.serve import pool
+
+    cp = configparser.ConfigParser()
+    cp['DEFAULT'] = {
+        'initial_content': 'examples/golden_gate.jpg',
+        'initial_style': 'examples/starry_night.jpg',
+        'initial_size': '64', 'initial_weights': 'initial_weights.yaml',
+        'http_host': '127.0.0.1', 'http_port': '8000', 'weights': 'random',
+        'precision': 'float32', 'pool_lanes': '2', 'pool_sizes': '48 64',
+        'device': 'cuda'}
+
+    def launches():
+        return (conv.launches('fwd'), conv.launches('bwd'), style.launches,
+                image.preprocess_launches, image.deprocess_launches)
+
+    before = launches()
+
+    async def until(ws, kind, pred=lambda d: True):
+        while True:
+            data = json.loads((await ws.receive(timeout=300)).data)
+            if data['type'] == kind and pred(data):
+                return data
+
+    async def body():
+        app = pool.init(config=cp['DEFAULT'])
+        client = TestClient(TestServer(app),
+                            cookie_jar=aiohttp.DummyCookieJar())
+        await client.start_server()
+        tier = app['tier']
+        try:
+            sockets = []
+            for _ in range(2):
+                resp = await client.get('/')
+                assert resp.status == 200
+                cookie = resp.cookies['pool_session'].value
+                ws = await client.ws_connect('/websocket', headers={
+                    'Cookie': 'pool_session=' + cookie})
+                params = await until(ws, 'newParams')
+                await ws.send_str(json.dumps({'type': 'start'}))
+                sockets.append((ws, tier.sessions[cookie], params))
+            for ws, _, _ in sockets:
+                await until(ws, 'iterateInfo', lambda d: d['i'] >= 5)
+            ws, sess, params = sockets[1]
+            doc = yaml.safe_load(params['params'])
+            doc['size'] = 48
+            await ws.send_str(json.dumps({'type': 'applyParams',
+                                          'params': yaml.safe_dump(doc)}))
+            size = await until(ws, 'newSize')
+            assert max(size['height'], size['width']) == 48
+            i_moved = sess.i
+            assert i_moved >= 5
+            info = await until(ws, 'iterateInfo',
+                               lambda d: d['i'] >= i_moved + 3)
+            assert np.isfinite(info['trace']['loss'])
+            assert len(tier.engines) == 2
+            assert all(e.device.type == 'cuda'
+                       for e in tier.engines.values())
+            for ws, _, _ in sockets:
+                await ws.close()
+        finally:
+            await client.close()
+
+    asyncio.run(asyncio.wait_for(body(), 600))
+    assert all(n > b for n, b in zip(launches(), before)), (before,
+                                                            launches())

@@ -7,6 +7,7 @@ import filecmp
 import json
 import subprocess
 import sys
+import tempfile
 from dataclasses import fields
 from pathlib import Path
 
@@ -236,6 +237,47 @@ def test_serve_app_imports_no_jax():
         '    if m.split(".")[0] in\n'
         '    ("jax", "jaxlib", "style_transfer2_tpu"))))\n')
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_serve_pool_and_router_import_no_jax():
+    """A fresh interpreter that imports the port's pool and router, starts
+    the pool on the CPU (one session that takes a step) and the router
+    beside it has neither jax nor the JAX package in sys.modules."""
+    code = (
+        'import asyncio, configparser, json, sys\n'
+        'from aiohttp.test_utils import TestClient, TestServer\n'
+        'from style_transfer2_tpu_torch.serve import pool, router\n'
+        'cp = configparser.ConfigParser()\n'
+        'cp.read("config.ini")\n'
+        'config = cp["DEFAULT"]\n'
+        'config.update(device="cpu", weights="random", initial_size="24",\n'
+        '              pool_lanes="2", http_port="0")\n'
+        'async def main():\n'
+        '    client = TestClient(TestServer(pool.init(config=config)))\n'
+        '    await client.start_server()\n'
+        '    resp = await client.get("/")\n'
+        '    cookie = "pool_session=" + resp.cookies["pool_session"].value\n'
+        '    ws = await client.ws_connect("/websocket",\n'
+        '                                 headers={"Cookie": cookie})\n'
+        '    await ws.send_str(json.dumps({"type": "start"}))\n'
+        '    while json.loads((await ws.receive()).data)["type"] != \\\n'
+        '            "iterateInfo":\n'
+        '        pass\n'
+        '    await ws.close()\n'
+        '    await client.close()\n'
+        '    server = TestServer(router.init(config=config,\n'
+        '                                    state_file=sys.argv[1]))\n'
+        '    await server.start_server()\n'
+        '    await server.close()\n'
+        'asyncio.run(main())\n'
+        'print(json.dumps(sorted(m for m in sys.modules\n'
+        '    if m.split(".")[0] in\n'
+        '    ("jax", "jaxlib", "style_transfer2_tpu"))))\n')
+    state = Path(tempfile.mkdtemp()) / 'router_state.json'
+    proc = subprocess.run([sys.executable, '-c', code, str(state)], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

@@ -78,6 +78,37 @@ def test_require_paths_names_a_path_never_taken(monkeypatch, precision,
         chip_smoke.require_paths('main', precision)
 
 
+@pytest.mark.parametrize('precision,hw,missing', [
+    ('float32', (288, 384), ('fwd', conv.SPLIT)),
+    ('float32', (192, 256), ('bwd', conv.SPLIT)),
+    ('bfloat16', (192, 256), ('fwd', conv.WGMMA_SPLIT)),
+    ('bfloat16', (192, 256), ('bwd', conv.WGMMA_SPLIT))])
+def test_require_planned_holds_each_bucket_grid(monkeypatch, precision, hw,
+                                                missing):
+    """The pool's smaller buckets plan the split paths at N = 4 (on an
+    H100's 132 SMs) where the 384x512 grid plans none: launches that
+    cover the 384x512 plan alone fail for the smaller bucket, naming the
+    path never taken."""
+    import types
+
+    fake = types.SimpleNamespace(
+        float32=torch.float32, bfloat16=torch.bfloat16,
+        cuda=types.SimpleNamespace(get_device_properties=lambda i: (
+            types.SimpleNamespace(multi_processor_count=132))))
+    big = chip_smoke.planned_paths(fake, precision, (384, 512), 4)
+    assert missing not in big
+    small = chip_smoke.planned_paths(fake, precision, hw, 4)
+    assert missing in small
+    monkeypatch.setattr(conv, 'path_launches', dict.fromkeys(big, 1))
+    chip_smoke.require_planned(fake, 'pool', [(precision, (384, 512))], 4)
+    with pytest.raises(RuntimeError, match=missing[1]):
+        chip_smoke.require_planned(fake, 'pool', [(precision, (384, 512)),
+                                                  (precision, hw)], 4)
+    monkeypatch.setattr(conv, 'path_launches', dict.fromkeys(big + small, 1))
+    chip_smoke.require_planned(fake, 'pool', [(precision, (384, 512)),
+                                              (precision, hw)], 4)
+
+
 def test_serve_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     """The serve phase's browser script, event log and checks end to end
     against the app on the CPU at 36x48 (its ladder 18x24 -> 36x48), with
@@ -127,7 +158,7 @@ def test_batch_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, 'OUT_DIR', tmp_path)
     ones = dict.fromkeys(chip_smoke.KERNELS, 1)
     monkeypatch.setattr(chip_smoke, 'counters', lambda: dict(ones))
-    monkeypatch.setattr(chip_smoke, 'batch_paths', lambda *a: [])
+    monkeypatch.setattr(chip_smoke, 'planned_paths', lambda *a: [])
     fake = types.SimpleNamespace(cuda=types.SimpleNamespace(
         synchronize=lambda: None, memory_allocated=lambda: 0,
         reset_peak_memory_stats=lambda: None,
@@ -138,8 +169,8 @@ def test_batch_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     logger.addHandler(log)
     logger.setLevel(logging.INFO)
     try:
-        got = chip_smoke.phase_batch(fake, log, {'float32': 10.0,
-                                                 'bfloat16': 20.0}, 'a CPU')
+        got, aggregate = chip_smoke.phase_batch(
+            fake, log, {'float32': 10.0, 'bfloat16': 20.0}, 'a CPU')
     finally:
         logger.removeHandler(log)
         logger.setLevel(level)
@@ -150,6 +181,7 @@ def test_batch_phase_runs_on_the_cpu(monkeypatch, tmp_path):
         assert run['lanes'] == chip_smoke.LANES
         assert run['aggregate_it_s'] == pytest.approx(
             chip_smoke.LANES * run['lane_it_s'])
+        assert aggregate[precision] == run['aggregate_it_s']
         assert run['single_it_s'] == {'float32': 10.0,
                                       'bfloat16': 20.0}[precision]
         assert len(run['losses']) == 5
@@ -159,3 +191,60 @@ def test_batch_phase_runs_on_the_cpu(monkeypatch, tmp_path):
              for v in ('', '_both', '_lr', '_tb')]
             + ['starry_night_styled.png'])
     assert result['parity_worst_rel_err'] <= chip_smoke.PARITY_RTOL
+
+
+@pytest.mark.usefixtures('one_thread')
+def test_pool_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    """The pool phase's browser script, logs and checks end to end against
+    the port's pool and router on the CPU, its buckets at 18x24, 27x36 and
+    36x48, with the card-only parts stubbed: the kernel counts and planned
+    paths (no kernel launches here), torch.cuda's name, sync and memory
+    statistics."""
+    import types
+
+    monkeypatch.setattr(chip_smoke, 'POOL_DEVICE', 'cpu')
+    monkeypatch.setattr(chip_smoke, 'POOL_SIZES', (24, 36, 48))
+    monkeypatch.setattr(chip_smoke, 'POOL_SIZE', 48)
+    monkeypatch.setattr(chip_smoke, 'POOL_RESIZE', 36)
+    monkeypatch.setattr(chip_smoke, 'OUT_DIR', tmp_path)
+    ones = dict.fromkeys(chip_smoke.KERNELS, 1)
+    monkeypatch.setattr(chip_smoke, 'counters', lambda: dict(ones))
+    monkeypatch.setattr(chip_smoke, 'require_paths', lambda *a: None)
+    planned = []
+    monkeypatch.setattr(chip_smoke, 'planned_paths',
+                        lambda torch, *a: planned.append(a) or [])
+    fake = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        synchronize=lambda: None, get_device_name=lambda i: 'cpu',
+        memory_allocated=lambda: 0, reset_peak_memory_stats=lambda: None,
+        max_memory_allocated=lambda: 2 ** 20))
+    got = chip_smoke.phase_pool(fake, 'a CPU', {'float32': 10.0,
+                                                'bfloat16': 20.0})
+    assert got == dict.fromkeys(chip_smoke.KERNELS, 2)
+    result = json.loads((tmp_path / 'pool.json').read_text())
+    a = result['float32']
+    assert a['grid'] == [36, 48] and a['resize_grid'] == [27, 36]
+    assert a['lanes'] == [0, 1, 2, 3]
+    assert len(a['session_it_s']) == 4 and a['aggregate_it_s'] == (
+        pytest.approx(sum(a['session_it_s'])))
+    assert a['control_s'] > 0 and a['resize_s'] > 0
+    assert a['resize_iterates'] >= chip_smoke.POOL_RESIZE_ITERATES
+    assert a['outputs'] == {'0': [36, 48], '1': [27, 36], '2': [36, 48],
+                            '3': [36, 48]}
+    b = result['bfloat16 ladder']
+    assert b['rungs'] == [[18, 24], [27, 36], [36, 48]]
+    assert len(b['sessions']) == chip_smoke.POOL_BROWSERS_B
+    for sess in b['sessions']:
+        assert [r['hw'] for r in sess['rungs']] == b['rungs']
+        assert all(r['iterates'] >= chip_smoke.POOL_LADDER
+                   for r in sess['rungs'])
+        assert sess['polish_iterates'] >= chip_smoke.POOL_POLISH
+        assert sess['polish_migration_s'] > 0
+    assert result['batch_aggregate_it_s'] == {'float32': 10.0,
+                                              'bfloat16': 20.0}
+    # The conv paths are required for every bucket each tier drove, at
+    # the tier's lanes.
+    assert planned == [('float32', (36, 48), 4), ('float32', (27, 36), 4),
+                       ('bfloat16', (18, 24), 4), ('bfloat16', (27, 36), 4),
+                       ('bfloat16', (36, 48), 4), ('float32', (36, 48), 4)]
+    assert a['resize_device_thread_s'] > 0
+    assert all(sess['polish_device_thread_s'] > 0 for sess in b['sessions'])
