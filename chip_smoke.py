@@ -122,7 +122,33 @@ exits non-zero:
                latency, the resize and polish migrations' seconds (and a
                new bucket's first iterate beside a warm one), each rung's
                it/s, the peak device memory; pool.json.
- 10. profile — every kernel and library call timed in phase 3, on the
+ 10. video   — video.main() on 8 frames of a horizontal pan cut from
+               golden_gate.jpg (640x480 windows, 16 px apart), --size 512
+               (512x384), starry_night.jpg, initial_weights.yaml,
+               full-width VGG-19 with random_params(0), L-BFGS, 150
+               iterations on the first frame and 40 on each later one:
+               (a) float32 and (b) bfloat16 with --temporal 1000, (c)
+               float32 with --temporal 0 (the flicker baseline). Each run:
+               8 PNGs of 512x384, every frame's loss finite and falling,
+               frame 1 without temporal keys, in (a) and (b) every chained
+               frame's first trace (the L-BFGS prime, where the warm start
+               and the target hold the same values) at temporal_loss 0.0
+               exactly, every chained frame's first loss far below frame
+               1's, the engine on CUDA, every kernel launched with the
+               precision's conv paths, the preprocess and deprocess
+               launches the loop implies. Printed and in video.json: the
+               first frame's seconds and the steady s/frame (the CLI's log
+               line), each chained frame's seconds and it/s on the device
+               clock (CUDA events after each frame's launches), the
+               flicker (mean over consecutive outputs of mean((a - b)^2))
+               with and without the term, the peak device memory. Then a
+               pipelined VideoStylizer against a serial one at 96x128; the
+               CUDA objective at each of a CPU VideoStylizer's 438
+               evaluations over the pan at 48x64 (150 then 40
+               iterations), every trace key within the golden rtol; and
+               the CLI's --profile in a subprocess, whose trace must name
+               the conv, style and image kernels.
+ 11. profile — every kernel and library call timed in phase 3, on the
                same inputs: host_us, the host clock over HOST_CALLS
                back-to-back calls with no sync (the enqueue cost), then
                device_ms, its kernels' own time from torch.profiler's CUDA
@@ -146,6 +172,7 @@ import json
 import logging
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -249,6 +276,44 @@ POOL_DEVICE = 'cuda'         # the pool's device key (the CPU tests set cpu)
 # A warm migration's first loss over the session's first loss at
 # POOL_SIZE: a cold reseed would start near the random start's loss.
 POOL_WARM_MAX = 0.5
+
+# The video phase: VIDEO_FRAMES frames, each a VIDEO_WINDOW (h, w) window
+# of golden_gate.jpg (800x600) with its top edge at VIDEO_TOP and its left
+# edge at VIDEO_PAN * k (a horizontal pan); --size VIDEO_SIZE fits each to
+# 512x384, 12.8 px of motion a frame. VIDEO_FIRST iterations on the first
+# frame, VIDEO_ITERATIONS on each later one (the JAX video module's
+# documented example).
+VIDEO_FRAMES = 8
+VIDEO_WINDOW = (480, 640)
+VIDEO_TOP = 60
+VIDEO_PAN = 16
+VIDEO_SIZE = 512
+VIDEO_FIRST = 150
+VIDEO_ITERATIONS = 40
+VIDEO_TEMPORAL = 1000.0
+VIDEO_DEVICE = 'cuda'        # the runs' --device (the CPU tests set cpu)
+# A chained frame's first loss over frame 1's first loss (at its random
+# start): a warm start begins near the previous frame's end.
+VIDEO_WARM_MAX = 0.2
+# The small checks. Pipelined against serial: VIDEO_PIPE_ITERATIONS on the
+# first and each later frame of video_small_inputs at VIDEO_PIPE_HW. CUDA
+# against CPU: the pan's frames at VIDEO_PARITY_HW, VIDEO_FIRST then
+# VIDEO_ITERATIONS iterations, the CUDA objective evaluated at each of the
+# CPU run's iterates (video_eval_parity).
+VIDEO_PIPE_ITERATIONS = (6, 4)
+# The relative noise on an iterate that shows how far the CPU objective's
+# own gradient moves there (float32's spacing is 1.2e-7 of a value).
+VIDEO_GRAD_NOISE = (1e-7, 1e-6)
+# The trace's gradient terms, whose largest RMS scales the total's.
+GRAD_TERMS = ('scd_grad', 't_grad', 'p_grad', 'temporal_grad')
+VIDEO_PIPE_HW = (96, 128)
+VIDEO_PARITY_HW = (48, 64)
+# The CLI's --profile check: its --size, and the trace events that must
+# name each kernel family (the kernels' function names in csrc/).
+VIDEO_PROFILE_SIZE = 256
+VIDEO_PROFILE_CATEGORY = 'kernel'
+VIDEO_PROFILE_NAMES = {'conv': 'conv3x3_', 'style': 'style_grad_kernel',
+                       'image': 'mean_shift_kernel'}
 
 # The ladder run's --size and --min-scale, and its rungs
 # (utils.scales((768, 1024), min_size=96)).
@@ -2392,6 +2457,467 @@ def phase_pool(torch, smi, batch_it_s):
     return launches
 
 
+def video_frames():
+    """The video phase's input frames under OUT_DIR: VIDEO_FRAMES windows
+    of golden_gate.jpg, VIDEO_WINDOW (h, w) each, top edge VIDEO_TOP, left
+    edge VIDEO_PAN * k for frame k (a horizontal pan). Returns (the frame
+    directory, the (width, height) --size VIDEO_SIZE fits them to)."""
+    from PIL import Image
+    from style_transfer2_tpu_torch.utils import fit_into_square
+    frames = OUT_DIR / 'video' / 'frames'
+    shutil.rmtree(frames, ignore_errors=True)
+    frames.mkdir(parents=True)
+    with Image.open(CONTENT) as img:
+        pixels = np.asarray(img.convert('RGB'))
+    h, w = VIDEO_WINDOW
+    for k in range(VIDEO_FRAMES):
+        left = VIDEO_PAN * k
+        Image.fromarray(np.ascontiguousarray(
+            pixels[VIDEO_TOP:VIDEO_TOP + h, left:left + w])).save(
+                frames / ('frame_%03d.png' % k))
+    return frames, tuple(fit_into_square((w, h), VIDEO_SIZE, scale_up=True))
+
+
+def flicker(images):
+    """The mean over consecutive pairs of frames of mean((a - b)^2)."""
+    return float(np.mean([np.mean(np.square(a - b))
+                          for a, b in zip(images, images[1:])]))
+
+
+def video_run(torch, log, frames, size, precision, temporal):
+    """One run of video.main() on the frames at --size VIDEO_SIZE, L-BFGS,
+    VIDEO_FIRST iterations on the first frame and VIDEO_ITERATIONS on each
+    later one, full-width VGG-19 with random_params(0), and its checks.
+    Returns (the kernel counts, the run's figures)."""
+    from PIL import Image
+    from style_transfer2_tpu_torch import video
+    name = '%s_temporal_%g' % (precision, temporal)
+    outdir = OUT_DIR / 'video' / name
+    shutil.rmtree(outdir, ignore_errors=True)
+    made, marks = set(), []
+
+    def on_frame(stylizer, index):
+        # An event after each frame's launches: it completes when the
+        # device has done that frame's work.
+        made.add(stylizer)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+
+    start = len(log.records)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    rc = video.main([str(frames), str(STYLE), str(outdir),
+                     '--size', str(VIDEO_SIZE), '--first-iterations',
+                     str(VIDEO_FIRST), '--iterations',
+                     str(VIDEO_ITERATIONS), '--temporal', str(temporal),
+                     '--precision', precision, '--model-weights', 'random',
+                     '--device', VIDEO_DEVICE], on_frame=on_frame)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters()
+    paths = path_counts()
+    peak_all = torch.cuda.max_memory_allocated()
+    what = 'video %s' % name
+    require(rc == 0, '%s: video.main returned %r' % (what, rc))
+    [stylizer] = made
+    st = stylizer.st
+    require(st.device.type == VIDEO_DEVICE, '%s: engine on %s'
+            % (what, st.device))
+    require_all_launched(counts, what)
+    if VIDEO_DEVICE == 'cuda':
+        require_paths(what, precision)
+    # The style; each frame's content; the first frame's random start and
+    # each frame's chained warm start. One deprocess a frame.
+    implied = {'preprocess': 2 * VIDEO_FRAMES + 2,
+               'deprocess': VIDEO_FRAMES}
+    for kernel, n in implied.items():
+        require(counts[kernel] == n, '%s: %d %s launches, the loop implies '
+                '%d' % (what, counts[kernel], kernel, n))
+
+    rungs = split_rungs([t.data for t in st.traces])
+    require(len(rungs) == VIDEO_FRAMES, '%s: %d frames primed'
+            % (what, len(rungs)))
+    chained = temporal != 0
+    first_losses, last_losses = [], []
+    for k, rows in enumerate(rungs):
+        steps = VIDEO_FIRST if k == 0 else VIDEO_ITERATIONS
+        require(len(rows) == steps + 1, '%s frame %d: %d trace rows'
+                % (what, k, len(rows)))
+        losses = [r['loss'] for r in rows]
+        require(all(math.isfinite(v) for v in losses), '%s frame %d: '
+                'non-finite loss' % (what, k))
+        require(losses[-1] < losses[0], '%s frame %d: loss %.6g -> %.6g'
+                % (what, k, losses[0], losses[-1]))
+        with_term = [('temporal_loss' in r) for r in rows]
+        require(all(with_term) if (k and chained) else not any(with_term),
+                '%s frame %d: temporal keys %s' % (what, k, with_term))
+        if k and chained:
+            require(rows[0]['temporal_loss'] == 0.0, '%s frame %d: the '
+                    'prime\'s temporal_loss %r, not 0' % (
+                        what, k, rows[0]['temporal_loss']))
+        first_losses.append(losses[0])
+        last_losses.append(losses[-1])
+    warm = [f / first_losses[0] for f in first_losses[1:]]
+    require(max(warm) < VIDEO_WARM_MAX, '%s: a chained frame\'s first loss '
+            'over frame 1\'s first: %s' % (what, warm))
+
+    outputs = sorted(outdir.iterdir())
+    require(len(outputs) == VIDEO_FRAMES, '%s: %d PNGs' % (what,
+                                                          len(outputs)))
+    images = []
+    for path in outputs:
+        with Image.open(path) as img:
+            require(img.size == size, '%s: %s is %s' % (what, path.name,
+                                                        img.size))
+            images.append(np.asarray(img, np.float32))
+    [line] = [r.args for r in log.records[start:] if r.msg.startswith(
+        'stylized %d frames in')]
+    _, total_s, first_s, steady_s = line
+    frame_s = [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])]
+    result = {
+        'precision': precision, 'temporal': temporal, 'frames': VIDEO_FRAMES,
+        'hw': [size[1], size[0]], 'wall_s': wall, 'total_s': total_s,
+        'first_frame_s': first_s, 'steady_s_per_frame': steady_s,
+        'chained_frame_s': frame_s,
+        'chained_it_s': [VIDEO_ITERATIONS / s for s in frame_s],
+        'flicker': flicker(images), 'first_losses': first_losses,
+        'last_losses': last_losses, 'warm_start_ratio': warm,
+        'peak_bytes': peak_all - base, 'max_memory_allocated': peak_all,
+        'launches': counts, 'implied': implied, 'paths': paths}
+    say('video', '%s: %d frames at %dx%d, %d then %d L-BFGS iterations a '
+        'frame: first frame %.3f s, steady %.4f s/frame (the CLI\'s log), '
+        'chained frames %s s on the device clock (%s it/s); flicker %.4f; '
+        'first loss of each chained frame over frame 1\'s: %.4f-%.4f; peak '
+        'device memory %.0f MiB over the start (max_memory_allocated %.0f '
+        'MiB); %.1f s wall' % (
+            name, VIDEO_FRAMES, size[1], size[0], VIDEO_FIRST,
+            VIDEO_ITERATIONS, first_s, steady_s,
+            ', '.join('%.4f' % s for s in frame_s),
+            ', '.join('%.1f' % r for r in result['chained_it_s']),
+            result['flicker'], min(warm), max(warm),
+            result['peak_bytes'] / 2 ** 20, peak_all / 2 ** 20, wall))
+    say('video', '%s: launches %s; preprocess %d, deprocess %d as the loop '
+        'implies (%d, %d); conv paths %s; losses %s' % (
+            name, counts, counts['preprocess'], counts['deprocess'],
+            implied['preprocess'], implied['deprocess'], paths, ', '.join(
+                '%.6g -> %.6g' % fl
+                for fl in zip(first_losses, last_losses))))
+    return counts, result
+
+
+def video_small_inputs(n, hw):
+    """tests/test_video.py's frames at (h, w): a random pattern translating
+    one pixel a frame, n of them; and a random style image."""
+    rng = np.random.RandomState(0)
+    base = rng.randint(0, 256, (hw[0] + n, hw[1] + n, 3)).astype(np.uint8)
+    return ([base[i:i + hw[0], i:i + hw[1]] for i in range(n)],
+            rng.randint(0, 256, tuple(hw) + (3,)).astype(np.uint8))
+
+
+def video_stylizer(device, style_img, iterations):
+    """A VideoStylizer of initial_weights.yaml's objective on
+    random_params(0), L-BFGS, iterations = (first frame, each later one)."""
+    from style_transfer2_tpu_torch import cli
+    from style_transfer2_tpu_torch.models import random_params
+    from style_transfer2_tpu_torch.video import VideoStylizer
+    weights, scalars = cli.load_weights_doc(None)
+    v = VideoStylizer(random_params(0), weights, scalars,
+                      first_iterations=iterations[0],
+                      iterations=iterations[1],
+                      temporal_weight=VIDEO_TEMPORAL, device=device)
+    v.set_style(style_img)
+    return v
+
+
+def video_pipelined():
+    """A pipelined VideoStylizer against a serial one on the card: 4 frames
+    of video_small_inputs at VIDEO_PIPE_HW, rtol 1e-4 and atol 1e-3 as
+    tests/test_video.py. Returns the largest difference."""
+    frames, style_img = video_small_inputs(4, VIDEO_PIPE_HW)
+    serial = video_stylizer(VIDEO_DEVICE, style_img, VIDEO_PIPE_ITERATIONS)
+    want = [serial.stylize_frame(f)[0] for f in frames]
+    piped = video_stylizer(VIDEO_DEVICE, style_img, VIDEO_PIPE_ITERATIONS)
+    got, pending = [], None
+    for f in frames:
+        dispatch = piped.begin_frame(f)
+        if pending is not None:
+            got.append(piped.collect_frame(pending)[0])
+        pending = dispatch
+    got.append(piped.collect_frame(pending)[0])
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    for k, (a, b) in enumerate(zip(got, want)):
+        require(np.all(np.abs(a - b) <= 1e-3 + 1e-4 * np.abs(b)),
+                'video: pipelined frame %d off the serial one by %.4g'
+                % (k, float(np.abs(a - b).max())))
+    require(len(piped.st.traces) == len(serial.st.traces),
+            'video: pipelined and serial trace counts')
+    return diff
+
+
+def trace_rel_errs(keys, got, want):
+    """{key: |got - want| / |want|} over two trace rows in keys' order."""
+    return {key: abs(a - b) / max(abs(b), 1e-30)
+            for key, a, b in zip(keys, got, want)
+            if key not in ('time', 'fevals')}
+
+
+def video_evaluate(engine, spec, x, norms):
+    """engine's objective at the iterate x (a CPU tensor) from the
+    first-eval norms (host values): (its trace row, its gradient on the
+    CPU)."""
+    import torch
+    from style_transfer2_tpu_torch.engine.steps import (build_step_core,
+                                                        precision_scope)
+    engine.set_input(x.to(engine.device), preprocessed=True)
+    engine.seed_norms(*norms)
+    eval_core = build_step_core(spec, 'lbfgs')[1]
+    with precision_scope(engine.precision):
+        state, _, trace = eval_core(engine.model, {'x': engine._input},
+                                    engine._gather_inputs(spec))
+    return torch.stack(trace).tolist(), state['grad'].cpu()
+
+
+def video_eval_parity(frames):
+    """The CUDA objective against the CPU one at every evaluation of a CPU
+    VideoStylizer run over the pan's VIDEO_FRAMES frames (the PNGs in
+    frames) at VIDEO_PARITY_HW, VIDEO_FIRST then VIDEO_ITERATIONS L-BFGS
+    iterations, the 512px runs' lengths. A CUDA engine takes each frame's
+    content and the CPU run's temporal target, then, evaluation by
+    evaluation, the CPU iterate and first-eval norms, so that no difference
+    carries from one evaluation to the next. Held at PARITY_RTOL: every
+    trace key against itself but the total gradient's RMS, `grad`, which
+    is held against the scale of its terms (the largest of GRAD_TERMS):
+    the terms cancel as a frame converges, so `grad` falls to a fraction
+    of them and carries their rounding magnified. The gradient itself is
+    reported, not held: the RMS of the difference over the terms' scale,
+    beside how far the CPU's own gradient moves at the worst evaluation
+    when that iterate gets VIDEO_GRAD_NOISE relative noise (a ReLU and
+    max-pool net's gradient jumps where a unit's input crosses zero or a
+    pool's maximum changes hands). Then a CUDA VideoStylizer runs the same
+    frames on its own: where its trace history first parts from the CPU
+    run's by more than PARITY_RTOL is reported, not held, since fixed-step
+    L-BFGS parts two float32 runs that differ only in summation order.
+    Returns the figures."""
+    import torch
+    from PIL import Image
+    from style_transfer2_tpu_torch import cli
+    from style_transfer2_tpu_torch.engine import StyleTransfer
+    from style_transfer2_tpu_torch.models import random_params
+    from style_transfer2_tpu_torch.utils import resize_to_fit
+    t0 = time.perf_counter()
+    h, w = VIDEO_PARITY_HW
+    pan = []
+    for path in sorted(frames.iterdir()):
+        with Image.open(path) as img:
+            pan.append(np.uint8(img.convert('RGB').resize((w, h),
+                                                          Image.LANCZOS)))
+    with Image.open(STYLE) as img:
+        style_img = np.uint8(resize_to_fit(img.convert('RGB'), max(h, w)))
+    lengths = (VIDEO_FIRST, VIDEO_ITERATIONS)
+    cpu = video_stylizer('cpu', style_img, lengths)
+    st = cpu.st
+    evals = []
+
+    def recording(real):
+        # Wraps one method of this one CPU engine: the evaluation's spec,
+        # iterate, gradient and trace row, and the norms it started from.
+        def run(spec, fn):
+            norms = ({k: float(v) for k, v in st.norm_vals.items()},
+                     {k: bool(v) for k, v in st.norm_set.items()})
+            row = real(spec, fn)
+            evals.append((spec, st.opt_state['x'].clone(),
+                          st.opt_state['grad'].clone(), row.tolist(), norms))
+            return row
+        return run
+
+    def rms(t):
+        return float(t.square().mean().sqrt())
+
+    def against(spec, got, g, row, grad):
+        # ({key: rel err}, the gradient's RMS difference over the terms'
+        # scale, the total gradient's RMS over that scale)
+        keys = list(spec.trace_keys)
+        scale = max(row[keys.index(t)] for t in GRAD_TERMS if t in keys)
+        errs = trace_rel_errs(keys, got, row)
+        at = keys.index('grad')
+        errs['grad'] = abs(got[at] - row[at]) / scale
+        return errs, rms(g - grad) / scale, row[at] / scale
+
+    st._prime, st._advance = recording(st._prime), recording(st._advance)
+    weights, scalars = cli.load_weights_doc(None)
+    engines = {}
+    for device in (VIDEO_DEVICE, 'cpu'):
+        engines[device] = StyleTransfer(random_params(0), device=device)
+        engines[device].set_weights(weights, scalars)
+        engines[device].set_style(style_img)
+    dev = engines[VIDEO_DEVICE]
+    worst, worst_grad, least_ratio, n = (0.0, '', -1), None, math.inf, 0
+    for k, frame in enumerate(pan):
+        evals.clear()
+        cpu.stylize_frame(frame)
+        dev.set_content(frame)
+        if k:
+            dev.set_temporal(st.temporal_target.to(dev.device),
+                             VIDEO_TEMPORAL, preprocessed=True)
+        for spec, x, grad, row, norms in evals:
+            require(spec == dev.spec(), 'video parity: frame %d: specs' % k)
+            got, g = video_evaluate(dev, spec, x, norms)
+            errs, g_err, ratio = against(spec, got, g, row, grad)
+            key = max(errs, key=errs.get)
+            require(errs[key] <= PARITY_RTOL, 'video parity: frame %d, '
+                    'evaluation %d: %s off by %.4g' % (k, n, key,
+                                                       errs[key]))
+            if errs[key] > worst[0]:
+                worst = (errs[key], key, n)
+            least_ratio = min(least_ratio, ratio)
+            if worst_grad is None or g_err > worst_grad[0]:
+                worst_grad = (g_err, n, k, spec, x, grad, row, norms,
+                              st.temporal_target if k else None)
+            n += 1
+
+    # The CPU objective's own moves at the worst gradient's iterate under
+    # VIDEO_GRAD_NOISE relative noise, three draws each: (the gradient's,
+    # the `grad` key's), both over the terms' scale.
+    g_err, at, k, spec, x, grad, row, norms, target = worst_grad
+    ref = engines['cpu']
+    ref.set_content(pan[k])
+    if target is not None:
+        ref.set_temporal(target, VIDEO_TEMPORAL, preprocessed=True)
+    noise = torch.Generator().manual_seed(0)
+    moved = {}
+    for rel in VIDEO_GRAD_NOISE:
+        moves = []
+        for _ in range(3):
+            xp = x * (1 + rel * torch.randn(x.shape, generator=noise))
+            got, g = video_evaluate(ref, spec, xp, norms)
+            errs, vec, _ = against(spec, got, g, row, grad)
+            moves.append((vec, errs['grad']))
+        moved['%g' % rel] = [max(m[i] for m in moves) for i in (0, 1)]
+
+    run = video_stylizer(VIDEO_DEVICE, style_img, lengths)
+    for frame in pan:
+        run.stylize_frame(frame)
+    want_rows = [t.data for t in st.traces]
+    got_rows = [t.data for t in run.st.traces]
+    require([list(r) for r in got_rows] == [list(r) for r in want_rows],
+            'video parity: the runs\' trace keys')
+    parting = next((i for i, (a, b) in enumerate(zip(got_rows, want_rows))
+                    if max(trace_rel_errs(list(b), list(a.values()),
+                                          list(b.values())).values())
+                    > PARITY_RTOL), None)
+    return {'evaluations': n, 'worst_rel_err': worst[0],
+            'worst_key': worst[1], 'worst_evaluation': worst[2],
+            'least_grad_over_terms': least_ratio,
+            'worst_grad_diff_over_terms': g_err, 'worst_grad_evaluation': at,
+            'cpu_moved_by_noise': moved, 'rows': len(want_rows),
+            'trajectory_parts_at_row': parting,
+            'seconds': time.perf_counter() - t0}
+
+
+def video_checks(frames):
+    """The small-size checks on the card: video_pipelined and
+    video_eval_parity. Returns (the largest pipelined-serial difference,
+    the parity figures)."""
+    diff = video_pipelined()
+    parity = video_eval_parity(frames)
+    say('video', '4 frames at %dx%d, pipelined against serial: max |diff| '
+        '%.3g (rtol 1e-4, atol 1e-3); the pan at %dx%d, %d then %d '
+        'iterations: %s objective at each of the CPU run\'s %d '
+        'evaluations, worst trace rel err %.3g (%s, evaluation %d; grad '
+        'over its terms\' scale, which it falls to %.3g of) within rtol %g; '
+        'the gradient\'s RMS difference over that scale at most %.3g '
+        '(evaluation %d), where relative noise on the iterate moves the '
+        'CPU\'s own gradient, and grad, by %s; a %s run of its own parts '
+        'from the CPU run by more than the rtol first at trace row %s of '
+        '%d; %.1f s' % (
+            *VIDEO_PIPE_HW, diff, *VIDEO_PARITY_HW, VIDEO_FIRST,
+            VIDEO_ITERATIONS, VIDEO_DEVICE, parity['evaluations'],
+            parity['worst_rel_err'], parity['worst_key'],
+            parity['worst_evaluation'], parity['least_grad_over_terms'],
+            PARITY_RTOL, parity['worst_grad_diff_over_terms'],
+            parity['worst_grad_evaluation'], ', '.join(
+                '%s: %.3g, %.3g' % (rel, *m)
+                for rel, m in parity['cpu_moved_by_noise'].items()),
+            VIDEO_DEVICE, parity['trajectory_parts_at_row'], parity['rows'],
+            parity['seconds']))
+    return diff, parity
+
+
+def check_cli_profile():
+    """The port's CLI with --profile in a subprocess (a profiler session
+    leaves torch's host path slower for the rest of its process): its
+    trace must exist and name the conv, style and image kernels. Returns
+    {what: the kernel names found}."""
+    prof = OUT_DIR / 'video' / 'profile'
+    shutil.rmtree(prof, ignore_errors=True)
+    proc = subprocess.run(
+        [sys.executable, '-m', 'style_transfer2_tpu_torch.cli', str(CONTENT),
+         str(STYLE), '-o', str(OUT_DIR / 'video' / 'profile.png'),
+         '--size', str(VIDEO_PROFILE_SIZE), '--iterations', '5',
+         '--model-weights', 'random', '--device', VIDEO_DEVICE,
+         '--profile', str(prof)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0, 'cli --profile exited %d: %s' % (
+        proc.returncode, proc.stderr[-2000:]))
+    traces = sorted(prof.glob('*.pt.trace.json'))
+    require(len(traces) == 1, 'cli --profile wrote %s' % traces)
+    events = json.loads(traces[0].read_text())['traceEvents']
+    names = {e.get('name', '') for e in events
+             if e.get('cat') == VIDEO_PROFILE_CATEGORY}
+    found = {}
+    for what, key in VIDEO_PROFILE_NAMES.items():
+        found[what] = sorted({re.search(r'\w*%s\w*' % re.escape(key),
+                                        n).group(0)
+                              for n in names if key in n})
+        require(found[what], 'cli --profile: no %s kernel (%r) among the '
+                'trace\'s %d %s events' % (what, key, len(names),
+                                           VIDEO_PROFILE_CATEGORY))
+    say('video', 'cli --profile at --size %d: %s (%d events; %s)' % (
+        VIDEO_PROFILE_SIZE, traces[0].name, len(events), '; '.join(
+            '%s: %s' % (k, ', '.join(v)) for k, v in found.items())))
+    return found
+
+
+def phase_video(torch, smi):
+    """Video style transfer on the card through video.main(): the pan's
+    frames at 512px in float32 and bfloat16 with the temporal term and in
+    float32 without it (the flicker baseline), then the small-size checks
+    and the CLI's --profile. Returns the kernel counts of the three runs."""
+    frames, size = video_frames()
+    log = CliLog()
+    logger = logging.getLogger('video')
+    level = logger.level
+    logger.addHandler(log)
+    logger.setLevel(logging.INFO)
+    launches = dict.fromkeys(KERNELS, 0)
+    results = {}
+    try:
+        for precision, temporal in (('float32', VIDEO_TEMPORAL),
+                                    ('bfloat16', VIDEO_TEMPORAL),
+                                    ('float32', 0.0)):
+            counts, result = video_run(torch, log, frames, size, precision,
+                                       temporal)
+            results['%s temporal %g' % (precision, temporal)] = result
+            for name, n in counts.items():
+                launches[name] += n
+    finally:
+        logger.removeHandler(log)
+        logger.setLevel(level)
+    on, off = (results['float32 temporal %g' % t]['flicker']
+               for t in (VIDEO_TEMPORAL, 0.0))
+    say('video', '%s; flicker (mean over consecutive output pairs of '
+        'mean((a - b)^2), 0-255 levels) float32 with --temporal %g %.4f, '
+        'without %.4f (x%.4f)' % (smi, VIDEO_TEMPORAL, on, off, on / off))
+    results['pipelined_max_diff'], results['parity'] = video_checks(frames)
+    results['profile_kernels'] = check_cli_profile()
+    (OUT_DIR / 'video.json').write_text(json.dumps(
+        dict(results, device=smi), indent=1))
+    return launches
+
+
 def main():
     import torch
     smi = phase_device(torch)
@@ -2412,6 +2938,8 @@ def main():
         launches[name] += n
     for name, n in phase_pool(torch, smi, batch_it_s).items():
         launches[name] += n
+    for name, n in phase_video(torch, smi).items():
+        launches[name] += n
     with tf32(False):
         phase_costs(torch, rows, parts, pending, steps)
     step = summarize(parts)
@@ -2428,7 +2956,7 @@ def main():
         'preprocess, deprocess) over the 7 rungs of the 1024px ladder '
         '(library: torch.sub, torch.add); device_ms: the kernels\' own '
         'time (torch.profiler); host_us: the host\'s enqueue cost a call; '
-        'launches over the main, ladder, batch, serve and pool runs; '
+        'launches over the main, ladder, batch, serve, pool and video runs; '
         '512px it/s float32 '
         '%.3f, bfloat16 %.3f' % (rates['float32'], rates['bfloat16']))
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -16,12 +16,14 @@ Examples:
 
 --device cuda (the default) runs the hand-written kernels on the card and
 raises if CUDA is not available; --device cpu runs their plain PyTorch
-versions. Not ported yet: --mesh, --data-mesh (ROADMAP queue 1, item 7),
---remat, --prewarm-ladder, --pallas (the kernels are always on), --profile
+versions. --profile DIR writes a torch.profiler trace of the run
+(utils/profiling.py). Not ported yet: --mesh, --data-mesh (ROADMAP queue 1,
+item 7), --remat, --prewarm-ladder, --pallas (the kernels are always on)
 and --platform.
 """
 
 import argparse
+import contextlib
 import logging
 import sys
 import time
@@ -34,6 +36,7 @@ import yaml
 from PIL import Image
 
 from . import utils as im
+from .utils.profiling import device_trace
 
 logger = logging.getLogger('cli')
 
@@ -114,6 +117,10 @@ def parse_args(argv=None):
                    help='resume from a checkpoint directory')
     p.add_argument('--save-every', type=int, default=0,
                    help='write the in-progress image every N iterations')
+    p.add_argument('--profile', default=None,
+                   help='write a torch.profiler trace (Chrome JSON: host '
+                        'activity, and the card\'s kernels on CUDA) of the '
+                        'run into this directory')
     p.add_argument('--debug', '-d', action='count', default=0)
     return p.parse_args(argv)
 
@@ -333,36 +340,12 @@ def run_batch(args):
     return 0
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    logging.basicConfig(
-        level=logging.DEBUG if args.debug else logging.INFO,
-        format='%(asctime)s.%(msecs)03d %(process)d %(name)s %(levelname)s: '
-               '%(message)s', datefmt='%H:%M:%S')
-    if args.batch:
-        return run_batch(args)
-    if args.mesh or args.data_mesh:
-        raise SystemExit('--mesh, --data-mesh: sharding over several GPUs '
-                         'is not ported (ROADMAP queue 1, item 7)')
-
-    from .engine import load_checkpoint, save_checkpoint
-    st, inputs, target_hw = setup(args)
+def optimize(args, st, inputs, ladder, rng):
+    """Runs the ladder's rungs (one rung without --multi-scale) on st, then
+    the --polish tail where it raises the precision. Returns the engine
+    that holds the result (the polish engine where one ran) and the
+    iterations run."""
     device, content_pil = st.device, inputs[2]
-    logger.info('device: %s%s', device,
-                ' (%s)' % torch.cuda.get_device_name(device)
-                if device.type == 'cuda' else '')
-    rng = np.random.RandomState(args.seed)
-
-    ladder = (im.scales(target_hw, min_size=args.min_scale)
-              if args.multi_scale else [target_hw])
-    if args.resume:
-        load_checkpoint(st, args.resume)
-        logger.info('resumed from %s at iterate %d, %dx%d', args.resume,
-                    st.t, *st.input_hw)
-        # Continue the ladder from the restored resolution upward.
-        ladder = [hw for hw in ladder if hw > st.input_hw]
-
-    total_t0 = time.perf_counter()
     first = not args.resume
     chunk = min(args.steps_per_dispatch,
                 args.save_every or args.steps_per_dispatch)
@@ -440,9 +423,49 @@ def main(argv=None):
         logger.info('polish skipped: --polish-precision %s does not raise '
                     '--precision %s', args.polish_precision, args.precision)
 
-    im.as_pil(st.snapshot()).save(args.output)
-    logger.info('wrote %s after %d iterations in %.1fs', args.output,
-                total_iterations, time.perf_counter() - total_t0)
+    return st, total_iterations
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    logging.basicConfig(
+        level=logging.DEBUG if args.debug else logging.INFO,
+        format='%(asctime)s.%(msecs)03d %(process)d %(name)s %(levelname)s: '
+               '%(message)s', datefmt='%H:%M:%S')
+    if args.batch:
+        return run_batch(args)
+    if args.mesh or args.data_mesh:
+        raise SystemExit('--mesh, --data-mesh: sharding over several GPUs '
+                         'is not ported (ROADMAP queue 1, item 7)')
+
+    from .engine import load_checkpoint, save_checkpoint
+    st, inputs, target_hw = setup(args)
+    device = st.device
+    logger.info('device: %s%s', device,
+                ' (%s)' % torch.cuda.get_device_name(device)
+                if device.type == 'cuda' else '')
+    rng = np.random.RandomState(args.seed)
+
+    ladder = (im.scales(target_hw, min_size=args.min_scale)
+              if args.multi_scale else [target_hw])
+    if args.resume:
+        load_checkpoint(st, args.resume)
+        logger.info('resumed from %s at iterate %d, %dx%d', args.resume,
+                    st.t, *st.input_hw)
+        # Continue the ladder from the restored resolution upward.
+        ladder = [hw for hw in ladder if hw > st.input_hw]
+
+    total_t0 = time.perf_counter()
+    # --profile traces the span the JAX CLI traces: the rungs, the polish
+    # and the final image.
+    with (device_trace(args.profile, device) if args.profile
+          else contextlib.nullcontext()) as trace_path:
+        st, total_iterations = optimize(args, st, inputs, ladder, rng)
+        im.as_pil(st.snapshot()).save(args.output)
+        logger.info('wrote %s after %d iterations in %.1fs', args.output,
+                    total_iterations, time.perf_counter() - total_t0)
+    if args.profile:
+        logger.info('profiler trace written to %s', trace_path)
     if args.trace_csv:
         st.write_trace(args.trace_csv)
         logger.info('wrote %s', args.trace_csv)

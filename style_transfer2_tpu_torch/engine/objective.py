@@ -11,20 +11,24 @@ reference StyleTransfer.opfunc, worker.py:231-301).
     as a vjp cotangent with the other per-layer terms.
   * TV and p-norm act on x/255; their analytic gradients are added WITHOUT
     the 1/255 factor (worker.py:283-297, a reference quirk kept on purpose).
+  * The video temporal-consistency term (spec.temporal): tw * mean(((x -
+    target)/255)^2) toward the previous stylized frame, with its true
+    gradient, in float32 in every precision.
   * The trace: per-branch loss and gradient-RMS scalars in evaluation order,
-    then scd_loss, t_loss, p_loss, scd_grad, t_grad, p_grad, loss, grad.
+    then scd_loss, t_loss, p_loss, [temporal_loss,] scd_grad, t_grad,
+    p_grad, [temporal_grad,] loss, grad.
 
 make_lane_objective is the same objective over B independent images
 stacked on a leading lane axis (the batched engine; JAX: jax.vmap of the
 objective): one trunk forward and backward at N = B, the style branch over
 all lanes in one call, every weight, scalar and norm a (B,) value and
-every reduction per lane, so that nothing mixes two lanes.
+every reduction per lane, so that nothing mixes two lanes. It has no
+temporal term, as the JAX batched engine has none.
 
 This ports the JAX package's float32-feed branches. In bfloat16 mode the
 trunk runs in bf16 and its taps come back as float32, so every loss here is
 float32 math in both modes. The JAX package's bf16 loss-feed variants
-(BF16_FEED, BF16_TAPS, STYLE_EINSUM, STYLE_FOLD) and the video temporal term
-are not ported.
+(BF16_FEED, BF16_TAPS, STYLE_EINSUM, STYLE_FOLD) are not ported.
 """
 
 from dataclasses import dataclass
@@ -64,11 +68,13 @@ class ObjectiveSpec:
     branches: tuple  # ((layer_name, has_content, has_style, has_dream), ...)
     tv_power: float = 2.0
     p_power: float = 2.0
+    # The video temporal-consistency term toward a previous stylized frame.
+    temporal: bool = False
 
     @classmethod
     def from_weights(cls, weights, params):
         """Builds a spec from weights[loss_name][layer] -> float and the
-        scalar params dict with tv/tv_power/p/p_power."""
+        scalar params dict with tv/tv_power/p/p_power (and temporal)."""
         branches = []
         for layer in vgg19.BLOB_NAMES:
             has = []
@@ -77,9 +83,11 @@ class ObjectiveSpec:
                 has.append(w is not None and abs(float(w)) > WEIGHT_EPS)
             if any(has):
                 branches.append((layer, has[0], has[1], has[2]))
+        temporal = abs(float(params.get('temporal', 0.0) or 0.0)) > WEIGHT_EPS
         return cls(branches=tuple(branches),
                    tv_power=float(params.get('tv_power', 2.0)),
-                   p_power=float(params.get('p_power', 2.0)))
+                   p_power=float(params.get('p_power', 2.0)),
+                   temporal=temporal)
 
     @property
     def layers(self):
@@ -117,8 +125,13 @@ class ObjectiveSpec:
                 keys += ['%s_s_loss' % layer, '%s_s_grad' % layer]
             if has_d:
                 keys += ['%s_d_loss' % layer, '%s_d_grad' % layer]
-        keys += ['scd_loss', 't_loss', 'p_loss', 'scd_grad', 't_grad',
-                 'p_grad', 'loss', 'grad']
+        keys += ['scd_loss', 't_loss', 'p_loss']
+        if self.temporal:
+            keys += ['temporal_loss']
+        keys += ['scd_grad', 't_grad', 'p_grad']
+        if self.temporal:
+            keys += ['temporal_grad']
+        keys += ['loss', 'grad']
         return tuple(keys)
 
 
@@ -136,10 +149,13 @@ def weights_to_arrays(weights, spec):
 
 
 def scalars_to_arrays(params):
-    """The tv/p scalar weights as float32 numpy scalars (the powers live in
-    the spec)."""
-    return {'tv': np.float32(params.get('tv', 1.0)),
-            'p': np.float32(params.get('p', 1.0))}
+    """The tv/p (and, where set, temporal) scalar weights as float32 numpy
+    scalars (the powers live in the spec)."""
+    out = {'tv': np.float32(params.get('tv', 1.0)),
+           'p': np.float32(params.get('p', 1.0))}
+    if params.get('temporal'):
+        out['temporal'] = np.float32(params['temporal'])
+    return out
 
 
 def empty_norms(spec):
@@ -151,13 +167,14 @@ def empty_norms(spec):
 
 def make_objective(spec):
     """Returns objective(model, x, content_feats, grams, layer_weights,
-    scalars, norms_vals, norms_set) -> (loss, grad, (norms_vals',
-    norms_set'), trace) where model is a VGG19Features, every other input a
-    tensor or dict of tensors on x's device, and trace a tuple of 0-d
-    tensors in spec.trace_keys order."""
+    scalars, norms_vals, norms_set, temporal_target=None) -> (loss, grad,
+    (norms_vals', norms_set'), trace) where model is a VGG19Features, every
+    other input a tensor or dict of tensors on x's device (temporal_target
+    an x-shaped float32 tensor where spec.temporal), and trace a tuple of
+    0-d tensors in spec.trace_keys order."""
 
     def objective(model, x, content_feats, grams, layer_weights, scalars,
-                  norms_vals, norms_set):
+                  norms_vals, norms_set, temporal_target=None):
         feats, vjp = model.features_and_vjp(x, spec.layers)
         loss = torch.zeros((), dtype=torch.float32, device=x.device)
         trace = []
@@ -229,6 +246,15 @@ def make_objective(spec):
         trace.append(pl)
         loss = loss + pl
 
+        if spec.temporal:
+            # The true gradient of tw * mean(((x - target)/255)^2).
+            t_diff = (x - temporal_target) / 255.0
+            tmp_loss = scalars['temporal'] * torch.mean(torch.square(t_diff))
+            trace.append(tmp_loss)
+            loss = loss + tmp_loss
+            tmp_grad = scalars['temporal'] * (2.0 / (x.numel() * 255.0)) \
+                * t_diff
+
         grad = vjp(diffs)
         trace.append(_rms(grad))  # scd_grad
         tv_term = scalars['tv'] * tv_grad
@@ -237,6 +263,10 @@ def make_objective(spec):
         p_term = scalars['p'] * p_grad
         trace.append(_rms(p_term))  # p_grad
         grad = grad + p_term
+
+        if spec.temporal:
+            trace.append(_rms(tmp_grad))  # temporal_grad
+            grad = grad + tmp_grad
 
         trace.append(loss)        # loss
         trace.append(_rms(grad))  # grad

@@ -55,8 +55,8 @@ def build_step_core(spec, optimizer):
       eval_core(model, state, inputs) -> (state', norms', trace)
 
     where inputs = dict(content_feats=..., grams=..., layer_weights=...,
-    scalars=..., norms_vals=..., norms_set=...). eval_core is None for
-    Adam."""
+    scalars=..., norms_vals=..., norms_set=...[, temporal_target=...]).
+    eval_core is None for Adam."""
     objective = make_objective(spec)
 
     def make_opfunc(model, inputs):
@@ -64,7 +64,8 @@ def build_step_core(spec, optimizer):
             loss, grad, norms, trace = objective(
                 model, x, inputs['content_feats'], inputs['grams'],
                 inputs['layer_weights'], inputs['scalars'],
-                inputs['norms_vals'], inputs['norms_set'])
+                inputs['norms_vals'], inputs['norms_set'],
+                inputs.get('temporal_target'))
             return loss, grad, (norms, trace)
         return opfunc
 

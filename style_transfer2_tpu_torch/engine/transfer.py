@@ -8,9 +8,11 @@ hand-written kernels, 'cpu' their plain versions. The first-eval norm cache
 is 0-d tensors threaded through each step. step() brings its trace to the
 host in one transfer; begin_steps() enqueues a K-step chunk with no host
 read-back at all, and collect_steps() brings the chunk's traces over in one
-transfer. Each engine holds its precision mode's TF32 switches only around
-the device work it launches (engine/steps.py precision_scope), so engines
-of different precisions can share a process.
+transfer (collect_steps_many: several chunks' in one). set_temporal() adds
+the video temporal-consistency term toward a previous frame. Each engine
+holds its precision mode's TF32 switches only around the device work it
+launches (engine/steps.py precision_scope), so engines of different
+precisions can share a process.
 """
 
 import csv
@@ -35,6 +37,11 @@ from .objective import (
     weights_to_arrays,
 )
 from .steps import build_step_core, precision_config, precision_scope
+
+
+def _to_host(parts):
+    """1-D device tensors as one host numpy array, in one copy."""
+    return (parts[0] if len(parts) == 1 else torch.cat(parts)).cpu().numpy()
 
 
 def resolve_device(device):
@@ -99,6 +106,7 @@ class StyleTransfer:
         # recomputed from self.content when the objective needs more.
         self.features = None
         self.grams = None           # blob -> (c, c)
+        self.temporal_target = None  # (1, H, W, 3) previous frame (video)
 
         # Until SetWeights arrives the reference weights every (layer, loss)
         # at 1 (worker.py:130-133).
@@ -291,11 +299,38 @@ class StyleTransfer:
         self.step_size = float(step_size)
 
     def set_weights(self, weights, params):
+        """Sets the loss weights and the scalar params; a temporal weight
+        set by set_temporal stays unless params names its own."""
         self.weights = {name: dict(weights.get(name, {}))
                         for name in LOSS_NAMES}
+        temporal = self.scalar_params.get('temporal')
         self.scalar_params = dict(params)
+        if temporal and 'temporal' not in self.scalar_params:
+            self.scalar_params['temporal'] = temporal
         self._weights_cache = None
         self.objective_changed()
+
+    def set_temporal(self, image, weight, preprocessed=False):
+        """Enables the video temporal-consistency term toward a previous
+        stylized frame: an HxWx3 RGB image, or with preprocessed=True a
+        (1, H, W, 3) float32 mean-subtracted tensor, kept as it is given
+        (the caller hands over a tensor no one else writes). The weight
+        cache is cleared, since from the second frame on the spec does not
+        change while the weight may."""
+        if preprocessed:
+            self.temporal_target = torch.as_tensor(
+                image, dtype=torch.float32, device=self.device)
+        else:
+            self.temporal_target = vgg19.preprocess(image, self.device)
+        self.scalar_params['temporal'] = float(weight)
+        self._weights_cache = None
+        self.objective_changed()
+
+    def clear_temporal(self):
+        if self.scalar_params.pop('temporal', None) is not None:
+            self._weights_cache = None
+            self.objective_changed()
+        self.temporal_target = None
 
     def seed_norms(self, vals, set_):
         """Seeds first-eval norm state from host values (key -> float, key
@@ -331,7 +366,7 @@ class StyleTransfer:
             # A weight-structure change added content layers; their
             # features are a pure function of the stored content image.
             self.features.update(self._content_features(spec.content_layers))
-        return {
+        inputs = {
             'content_feats': {l: self.features[l]
                               for l in spec.content_layers},
             'grams': {l: self.grams[l] for l in spec.style_layers},
@@ -340,6 +375,13 @@ class StyleTransfer:
             'norms_vals': norms_vals,
             'norms_set': norms_set,
         }
+        if spec.temporal:
+            if (self.temporal_target is None
+                    or self.temporal_target.shape != self._input.shape):
+                raise ValueError('temporal loss enabled but no matching '
+                                 'temporal target set (set_temporal)')
+            inputs['temporal_target'] = self.temporal_target
+        return inputs
 
     def _absorb_norms(self, spec, norms):
         norms_vals, norms_set = norms
@@ -420,21 +462,46 @@ class StyleTransfer:
         to the host in one transfer and stamped with the collect time.
         Returns (the chunk's end image as HxWx3 float32 numpy, or None; the
         chunk's step traces)."""
-        rows = dispatch.traces
-        if dispatch.prime is not None:
-            rows = torch.cat([dispatch.prime[1][None], rows])
-        values = rows.cpu().tolist()
+        return self.collect_steps_many([dispatch], fetch_image)[0]
+
+    def collect_steps_many(self, dispatches, fetch_image=True):
+        """collect_steps over several begin_steps handles of this engine,
+        in dispatch order, with one device-to-host copy for all their trace
+        rows (prime traces included; the chunks' specs, and so their row
+        widths, may differ) and one for all their images. Each prime trace
+        is recorded just before its own chunk's steps. Returns [(image or
+        None, traces), ...]."""
+        parts = []
+        for dispatch in dispatches:
+            if dispatch.prime is not None:
+                parts.append(dispatch.prime[1])
+            parts.append(dispatch.traces.reshape(-1))
+        flat = _to_host(parts)
+        images = [None] * len(dispatches)
+        if fetch_image:
+            pixels = _to_host([d.image.reshape(-1) for d in dispatches])
+            ends = np.cumsum([d.image.numel() for d in dispatches])
+            images = [part.reshape(d.image.shape) for d, part in
+                      zip(dispatches, np.split(pixels, ends[:-1]))]
         now = time.perf_counter()
-        if dispatch.prime is not None:
-            self._record_trace(dispatch.prime[0], values.pop(0), now)
-            dispatch.prime = None
-        traces = []
-        for i, row in enumerate(values):
-            trace = self._record_trace(dispatch.spec, row, now)
-            trace('fevals', dispatch.t_end - dispatch.n_steps + 1 + i)
-            traces.append(trace)
-        image = dispatch.image.cpu().numpy() if fetch_image else None
-        return image, traces
+        out, start = [], 0
+        for dispatch, image in zip(dispatches, images):
+            if dispatch.prime is not None:
+                width = dispatch.prime[1].numel()
+                self._record_trace(dispatch.prime[0],
+                                   flat[start:start + width].tolist(), now)
+                start += width
+                dispatch.prime = None
+            n_rows, width = dispatch.traces.shape
+            rows = flat[start:start + n_rows * width].reshape(n_rows, width)
+            start += n_rows * width
+            traces = []
+            for i, row in enumerate(rows.tolist()):
+                trace = self._record_trace(dispatch.spec, row, now)
+                trace('fevals', dispatch.t_end - dispatch.n_steps + 1 + i)
+                traces.append(trace)
+            out.append((image, traces))
+        return out
 
     def run_steps(self, n_steps, fetch_image=True):
         """Runs n_steps iterations as one chunk with the weights and step

@@ -10,8 +10,10 @@ package's models/vgg19.py preprocess and deprocess compute:
 
 On a CUDA device the wrappers launch the kernels in csrc/image.cu: a host
 image crosses to the card in its own dtype (3 bytes a pixel for uint8) and
-one kernel casts and subtracts; deprocess writes a fresh device tensor (not
-a view of the iterate) before any host copy. On the CPU they run the plain
+one kernel casts and subtracts; preprocess_on_device takes a float32 image
+already on the device (video's chained warm start) with no host round
+trip; deprocess writes a fresh device tensor (not a view of the iterate)
+before any host copy. On the CPU they run the plain
 versions, preprocess_plain and deprocess_plain. Any other device raises.
 Both kernels do one float32 subtract or add per element, as the plain
 versions do, so the two agree bit for bit.
@@ -174,6 +176,22 @@ def preprocess(image, device):
     if device.type == 'cpu':
         return preprocess_plain(image, device)
     raise RuntimeError('preprocess: no kernel for device %s' % device)
+
+
+def preprocess_on_device(x):
+    """An (H, W, 3) or (1, H, W, 3) float32 RGB tensor already on its
+    device -> a fresh (1, H, W, 3) float32 tensor there, mean subtracted.
+    Launches the kernel for a CUDA x (no host copy); the plain version for
+    a CPU x."""
+    if x.dtype is not torch.float32:
+        raise TypeError('preprocess_on_device: expected float32, got %s'
+                        % x.dtype)
+    if x.is_cuda:
+        out = _launch_preprocess(x)
+        return out if out.dim() == 4 else out[None]
+    if x.device.type == 'cpu':
+        return preprocess_plain(x, x.device)
+    raise RuntimeError('preprocess: no kernel for device %s' % x.device)
 
 
 def deprocess_on_device(x):

@@ -68,6 +68,8 @@ def test_port_imports_no_jax(tmp_path):
         'style_transfer2_tpu_torch.serve.persist, '
         'style_transfer2_tpu_torch.serve.phases, '
         'style_transfer2_tpu_torch.utils.logging\n'
+        'import style_transfer2_tpu_torch.video, '
+        'style_transfer2_tpu_torch.utils.profiling\n'
         'cli.main(sys.argv[1:])\n'
         'print(json.dumps(sorted(m for m in sys.modules\n'
         '    if m.split(".")[0] in\n'
@@ -79,6 +81,25 @@ def test_port_imports_no_jax(tmp_path):
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_cli_profile_writes_a_trace(tmp_path, caplog):
+    """--profile on the CPU: one Chrome trace of the run in the directory,
+    holding the host's ops (the plain conv among them), and its path
+    logged."""
+    out, prof = tmp_path / 'out.png', tmp_path / 'prof'
+    with caplog.at_level(logging.INFO, logger='cli'):
+        assert cli.main([CONTENT, STYLE, '-o', str(out), '--device', 'cpu',
+                         '--size', '24', '--iterations', '2',
+                         '--profile', str(prof)]) == 0
+    assert out.exists()
+    [trace] = list(prof.iterdir())
+    assert trace.name.endswith('.pt.trace.json')
+    names = {e.get('name') for e in json.loads(trace.read_text())
+             ['traceEvents']}
+    assert 'aten::conv2d' in names
+    assert any(r.getMessage() == 'profiler trace written to %s' % trace
+               for r in caplog.records)
 
 
 def test_profile_step_needs_cuda():

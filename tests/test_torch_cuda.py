@@ -814,3 +814,72 @@ def test_pool_runs_on_card_with_a_warm_migration(cuda):
     asyncio.run(asyncio.wait_for(body(), 600))
     assert all(n > b for n, b in zip(launches(), before)), (before,
                                                             launches())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,offset', [((48, 64, 3), 0),
+                                          ((1, 384, 512, 3), 0),
+                                          ((1, 33, 17, 3), 0),
+                                          ((1, 33, 17, 3), 1)])
+def test_preprocess_on_device_matches_plain_bitwise(cuda, shape, offset):
+    """The preprocess kernel from a float32 source already on the card (the
+    video chain's warm start), an unaligned view too, against the plain
+    version bit for bit; one launch; a (1, H, W, 3) result either way."""
+    n = int(np.prod(shape))
+    rng = np.random.RandomState(3)
+    flat = torch.from_numpy(np.float32(rng.uniform(-20, 275, n + 1)))
+    x = flat.to(cuda)[offset:offset + n].view(shape)
+    before = image.preprocess_launches
+    got = image.preprocess_on_device(x)
+    assert image.preprocess_launches == before + 1
+    want = image.preprocess_plain(x.cpu(), 'cpu')
+    assert got.shape == want.shape == (1,) + tuple(shape[-3:])
+    assert got.is_cuda and got.data_ptr() != x.data_ptr()
+    assert torch.equal(got.cpu(), want)
+    with pytest.raises(TypeError, match='float32'):
+        image.preprocess_on_device(x.double())
+
+
+@pytest.mark.cuda
+def test_video_stylizer_on_card_matches_cpu(cuda):
+    """3 frames at 48x64 through a CUDA VideoStylizer and a CPU one (the
+    plain versions), L-BFGS with the temporal term, 6 then 4 iterations:
+    every trace key of the whole history within the golden rtol, the
+    images within 0.75, each chained frame's prime at temporal_loss 0, and
+    every kernel launched."""
+    from style_transfer2_tpu_torch.models import random_params
+    from style_transfer2_tpu_torch.video import VideoStylizer
+    weights = {'content': {'conv4_2': 0.08},
+               'style': {n: 1.0 for n in
+                         ('conv1_1', 'conv2_1', 'conv3_1', 'conv4_1')}}
+    scalars = {'p': 50.0, 'p_power': 6.0, 'tv': 5.0, 'tv_power': 2.0}
+    rng = np.random.RandomState(0)
+    base = rng.randint(0, 256, (51, 67, 3)).astype(np.uint8)
+    frames = [base[i:i + 48, i:i + 64] for i in range(3)]
+    style_img = rng.randint(0, 256, (48, 64, 3)).astype(np.uint8)
+    out = {}
+    before = (conv.launches('fwd'), conv.launches('bwd'), style.launches,
+              image.preprocess_launches, image.deprocess_launches)
+    for device in ('cpu', 'cuda'):
+        v = VideoStylizer(random_params(0), weights, scalars,
+                          first_iterations=6, iterations=4,
+                          temporal_weight=1e4, seed=1, device=device)
+        v.set_style(style_img)
+        images = [v.stylize_frame(f)[0] for f in frames]
+        out[device] = (images, [t.data for t in v.st.traces])
+    after = (conv.launches('fwd'), conv.launches('bwd'), style.launches,
+             image.preprocess_launches, image.deprocess_launches)
+    assert all(n > b for n, b in zip(after, before)), (before, after)
+    (want_imgs, want), (got_imgs, got) = out['cpu'], out['cuda']
+    assert len(got) == len(want)
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert list(g) == list(w)
+        for key, value in w.items():
+            if key != 'time':
+                np.testing.assert_allclose(g[key], value, rtol=5e-3,
+                                           err_msg='row %d %s' % (i, key))
+    for a, b in zip(got_imgs, want_imgs):
+        np.testing.assert_allclose(a, b, rtol=1e-2, atol=0.75)
+    primes = [t for t in got if 'fevals' not in t]
+    assert len(primes) == 3 and 'temporal_loss' not in primes[0]
+    assert all(p['temporal_loss'] == 0.0 for p in primes[1:])

@@ -248,3 +248,74 @@ def test_pool_phase_runs_on_the_cpu(monkeypatch, tmp_path):
                        ('bfloat16', (36, 48), 4), ('float32', (36, 48), 4)]
     assert a['resize_device_thread_s'] > 0
     assert all(sess['polish_device_thread_s'] > 0 for sess in b['sessions'])
+
+
+@pytest.mark.usefixtures('one_thread')
+def test_video_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    """The video phase end to end on the CPU at --size 32 (the pan's frames
+    at 32x24): the three video.main() runs and their checks (the primes'
+    temporal_loss of exactly 0, the warm starts, the PNGs, the implied
+    preprocess and deprocess launches), the CLI's log line, the flicker,
+    the small pipelined check, the parity check (the objective at each of
+    a CPU run's evaluations, here CPU against CPU) and the CLI's --profile in a
+    subprocess (its trace's CPU ops standing in for the kernels), with the
+    card-only parts stubbed: the kernel counts, torch.cuda's events, sync
+    and memory statistics."""
+    import time
+    import types
+
+    monkeypatch.setattr(chip_smoke, 'VIDEO_DEVICE', 'cpu')
+    monkeypatch.setattr(chip_smoke, 'VIDEO_SIZE', 32)
+    monkeypatch.setattr(chip_smoke, 'VIDEO_FIRST', 12)
+    monkeypatch.setattr(chip_smoke, 'VIDEO_ITERATIONS', 6)
+    monkeypatch.setattr(chip_smoke, 'VIDEO_PIPE_HW', (24, 32))
+    monkeypatch.setattr(chip_smoke, 'VIDEO_PARITY_HW', (24, 32))
+    monkeypatch.setattr(chip_smoke, 'VIDEO_PROFILE_SIZE', 32)
+    monkeypatch.setattr(chip_smoke, 'VIDEO_PROFILE_CATEGORY', 'cpu_op')
+    monkeypatch.setattr(chip_smoke, 'VIDEO_PROFILE_NAMES', {
+        'conv': 'aten::conv2d', 'style': 'aten::mm', 'image': 'aten::sub'})
+    monkeypatch.setattr(chip_smoke, 'OUT_DIR', tmp_path)
+    frames = chip_smoke.VIDEO_FRAMES
+    counts = dict.fromkeys(chip_smoke.KERNELS, 1)
+    counts.update(preprocess=2 * frames + 2, deprocess=frames)
+    monkeypatch.setattr(chip_smoke, 'counters', lambda: dict(counts))
+
+    class Event:
+        def __init__(self, enable_timing):
+            assert enable_timing
+
+        def record(self):
+            self.t = time.perf_counter()
+
+        def elapsed_time(self, other):
+            return (other.t - self.t) * 1e3
+
+    fake = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        synchronize=lambda: None, memory_allocated=lambda: 0,
+        reset_peak_memory_stats=lambda: None, Event=Event,
+        max_memory_allocated=lambda: 2 ** 20))
+    got = chip_smoke.phase_video(fake, 'a CPU')
+    assert got == {name: 3 * n for name, n in counts.items()}
+    result = json.loads((tmp_path / 'video.json').read_text())
+    for name in ('float32 temporal 1000', 'bfloat16 temporal 1000',
+                 'float32 temporal 0'):
+        run = result[name]
+        assert run['hw'] == [24, 32]
+        assert len(run['chained_it_s']) == frames - 1
+        assert run['first_frame_s'] > 0 and run['steady_s_per_frame'] > 0
+        assert run['flicker'] > 0
+        assert max(run['warm_start_ratio']) < chip_smoke.VIDEO_WARM_MAX
+        assert len(list((tmp_path / 'video' / (
+            '%s_temporal_%g' % (run['precision'], run['temporal'])))
+            .iterdir())) == frames
+    assert result['pipelined_max_diff'] <= 1e-3
+    parity = result['parity']                          # CPU against CPU
+    assert parity['evaluations'] == parity['rows'] == frames * (
+        chip_smoke.VIDEO_ITERATIONS + 1) + chip_smoke.VIDEO_FIRST - (
+            chip_smoke.VIDEO_ITERATIONS)
+    assert parity['worst_rel_err'] == 0.0
+    assert parity['worst_grad_diff_over_terms'] == 0.0
+    assert 0 < parity['least_grad_over_terms'] <= 1
+    assert sorted(parity['cpu_moved_by_noise']) == ['1e-06', '1e-07']
+    assert parity['trajectory_parts_at_row'] is None
+    assert sorted(result['profile_kernels']) == ['conv', 'image', 'style']
