@@ -537,7 +537,9 @@ def counters():
 
 
 def reset_counters():
+    from style_transfer2_tpu_torch.engine import graphs
     from style_transfer2_tpu_torch.ops import conv, image, style
+    graphs.replays = 0
     style.launches = 0
     conv.path_launches.clear()
     image.preprocess_launches = image.deprocess_launches = 0
@@ -1197,9 +1199,24 @@ def read_trace(path):
         return list(csv.DictReader(f))
 
 
+# Step-graph replays of each run that require_all_launched checked.
+REPLAYS = {}
+
+
+def replays():
+    """The step-graph replays of every engine since reset_counters."""
+    from style_transfer2_tpu_torch.engine import graphs
+    return graphs.replays
+
+
 def require_all_launched(counts, what):
+    """Every kernel launched, and the steps ran as graph replays
+    (engine/graphs.py; the launch counts above include the replays')."""
     for name, n in counts.items():
         require(n > 0, '%s: kernel %s never launched' % (what, name))
+    n = replays()
+    require(n > 0, '%s: no step graph replayed' % what)
+    REPLAYS[what] = n
 
 
 def phase_main(torch):
@@ -1214,6 +1231,9 @@ def phase_main(torch):
         png = OUT_DIR / ('main_%s.png' % precision)
         trace_csv = OUT_DIR / ('main_%s.csv' % precision)
         png.unlink(missing_ok=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         reset_counters()
         t0 = time.perf_counter()
         rc = cli.main([str(CONTENT), str(STYLE), '-o', str(png),
@@ -1240,14 +1260,355 @@ def phase_main(torch):
                 % (losses[0], losses[-1]))
         times = [float(r['time']) for r in steps]
         it_s = (len(times) - 1) / (times[-1] - times[0])
+        # The first step runs eagerly and the second captures the step
+        # graph: from the third on, every step is a replay.
+        replay_it_s = (len(times) - 3) / (times[-1] - times[2])
         with Image.open(png) as img:
             require(img.size == (512, 384), 'PNG size %s' % (img.size,))
         rates[precision] = it_s
         say('main', '%s: %d L-BFGS iterations at 512x384, loss %.6g -> '
-            '%.6g, %.2f it/s (steady), %.1f s wall; launches %s; conv '
-            'paths %s' % (precision, ITERATIONS, losses[0], losses[-1],
-                          it_s, wall, counts, paths))
+            '%.6g, %.2f it/s (steady; %.2f from the third step, the '
+            'replays), %.1f s wall; %d graph replays; peak device memory '
+            '%.0f MiB over the start; launches %s; conv paths %s' % (
+                precision, ITERATIONS, losses[0], losses[-1], it_s,
+                replay_it_s, wall, REPLAYS['main ' + precision],
+                (torch.cuda.max_memory_allocated() - base) / 2 ** 20,
+                counts, paths))
     return launches, rates
+
+
+GRAPH_HW = (384, 512)      # the 512px main path's grid
+GRAPH_CHUNK = 20           # steps a timed chunk
+# Steps of the chunk whose enqueue gives the host us a step: few enough
+# that the host never waits for the card (the enqueue of a 20-step 4-lane
+# chunk did), so that it times the host's own work.
+GRAPH_HOST_CHUNK = 8
+GRAPH_ROUNDS = 3           # eager, graphed, graphed, eager, each round
+GRAPH_DEVICE = 'cuda'      # the engines' device (the CPU tests set cpu)
+# A factory of the graphed engines' capture backend, None for the engine's
+# own (the CPU tests give a stand-in that replays without a card).
+GRAPH_BACKEND = None
+
+
+def graph_inputs():
+    """The 512px main path's inputs: golden_gate.jpg at GRAPH_HW, its three
+    flips (the 4-lane runs), starry_night.jpg fitted to the grid's longer
+    side, a random start
+    (seed 0), initial_weights.yaml's objective, random_params(0)."""
+    from PIL import Image
+    from style_transfer2_tpu_torch import cli
+    from style_transfer2_tpu_torch.models import random_params
+    from style_transfer2_tpu_torch.utils import resize_to_fit
+    with Image.open(CONTENT) as img:
+        content = cli.fit_content(img.convert('RGB'), GRAPH_HW)
+    with Image.open(STYLE) as img:
+        style_img = np.uint8(resize_to_fit(img.convert('RGB'),
+                                           max(GRAPH_HW)))
+    start = np.random.RandomState(0).uniform(
+        0, 255, GRAPH_HW + (3,)).astype(np.uint8)
+    contents = [content, content[:, ::-1], content[::-1], content[::-1, ::-1]]
+    return (random_params(0), cli.load_weights_doc(None),
+            [np.ascontiguousarray(c) for c in contents], style_img, start)
+
+
+def eager(engine):
+    """The engine with its steps run eagerly, as before the graphs (the
+    plain version the replays are held against; for this A/B only)."""
+    from style_transfer2_tpu_torch.engine.graphs import StepGraphs
+    engine._graphs = StepGraphs()
+    return engine
+
+
+def graph_single(inputs, precision, optimizer, graphed, backend=None):
+    from style_transfer2_tpu_torch.engine import StyleTransfer
+    from style_transfer2_tpu_torch.engine.graphs import StepGraphs
+    params, (weights, scalars), contents, style_img, start = inputs
+    st = StyleTransfer(params, precision, device=GRAPH_DEVICE)
+    backend = backend or (GRAPH_BACKEND and GRAPH_BACKEND())
+    if not graphed:
+        eager(st)
+    elif backend is not None:
+        st._graphs = StepGraphs(backend)
+    st.set_weights(weights, scalars)
+    st.set_optimizer(optimizer)
+    st.set_step_size({'adam': 10.0, 'lbfgs': 1.0}[optimizer])
+    st.set_content(contents[0])
+    st.set_style(style_img)
+    st.set_input(start)
+    require(st.start(), 'graph: engine did not start')
+    return st
+
+
+def graph_lanes(inputs, precision, graphed):
+    from style_transfer2_tpu_torch.engine.batched import (
+        BatchedStyleTransfer)
+    params, (weights, scalars), contents, style_img, start = inputs
+    from style_transfer2_tpu_torch.engine.graphs import StepGraphs
+    bt = BatchedStyleTransfer(params, weights, scalars, GRAPH_HW, LANES,
+                              optimizer='lbfgs', precision=precision,
+                              device=GRAPH_DEVICE)
+    if not graphed:
+        eager(bt)
+    elif GRAPH_BACKEND is not None:
+        bt._graphs = StepGraphs(GRAPH_BACKEND())
+    for lane, content in enumerate(contents[:LANES]):
+        bt.add_job(content, style_img, start, lane=lane)
+    return bt
+
+
+def single_bits(inputs, precision, optimizer, graphed):
+    """step, a chunk, an objective change, two chunks in flight, step: the
+    traces, the collected images, the state and the norms."""
+    st = graph_single(inputs, precision, optimizer, graphed)
+    weights, scalars = inputs[1]
+    images = [st.step()[0], st.run_steps(4)[0]]
+    st.set_weights(weights, dict(scalars, tv=scalars.get('tv', 1.0) * 0.8))
+    a, b = st.begin_steps(3), st.begin_steps(2)
+    images += [img for img, _ in st.collect_steps_many([a, b])]
+    images.append(st.step()[0])
+    rows = [{k: v for k, v in t.data.items() if k != 'time'}
+            for t in st.traces]
+    state = {k: v.clone() if hasattr(v, 'clone') else v
+             for k, v in st.opt_state.items()}
+    norms = {k: float(v) for k, v in st.norm_vals.items()}
+    return rows, images, state, norms
+
+
+def lanes_bits(inputs, precision, graphed):
+    """Four lanes: a step, a chunk, lane 1 paused for a chunk, lane 0's
+    weights and lane 3's step size changed, a chunk: traces, state,
+    norms."""
+    bt = graph_lanes(inputs, precision, graphed)
+    weights, scalars = inputs[1]
+    rows = [bt.step_all(), bt.run_steps_all(3)]
+    bt.set_running(1, False)
+    rows.append(bt.run_steps_all(2))
+    bt.set_running(1, True)
+    bt.set_lane_weights(0, weights, dict(scalars,
+                                         tv=scalars.get('tv', 1.0) * 0.8))
+    bt.set_step_size(3, 0.5)
+    rows.append(bt.run_steps_all(2))
+    state = {k: v.clone() for k, v in bt.states.items()}
+    keys, vals, set_ = bt.norms_host()
+    return rows, [], state, (keys, vals.tolist(), set_.tolist())
+
+
+def same_bits(what, got, want):
+    """(rows, images, state, norms) of a graphed run against the eager
+    run's, bit for bit."""
+    import torch
+    rows, images, state, norms = got
+    require(rows == want[0], '%s: trace rows differ' % what)
+    for i, (a, b) in enumerate(zip(images, want[1])):
+        require(np.array_equal(a, b), '%s: image %d differs' % (what, i))
+    require(state.keys() == want[2].keys(), '%s: state keys' % what)
+    for key, value in state.items():
+        same = (torch.equal(value, want[2][key]) if torch.is_tensor(value)
+                else value == want[2][key])
+        require(same, '%s: state %s differs' % (what, key))
+    require(norms == want[3], '%s: norms differ' % what)
+
+
+class CountingGraphs:
+    """engine/graphs.py CudaGraphs keeping each captured graph's node
+    count (cudaGraphGetNodes on the graph torch keeps with keep_graph)."""
+
+    def __init__(self, torch):
+        import ctypes
+        from style_transfer2_tpu_torch.engine.graphs import CudaGraphs
+        self.torch = torch
+        self.inner = CudaGraphs(torch.device('cuda'))
+        self.nodes = []
+        # The driver's entry point: a cudaGraph_t is a CUgraph.
+        self.get_nodes = ctypes.CDLL('libcuda.so.1').cuGraphGetNodes
+        self.get_nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+
+    def warm(self, fn):
+        return self.inner.warm(fn)
+
+    def reset(self):
+        self.inner.reset()
+
+    def capture(self, fn):
+        import ctypes
+        torch = self.torch
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, pool=self.inner.pool,
+                              stream=self.inner.stream,
+                              capture_error_mode='thread_local'):
+            fn()
+        count = ctypes.c_size_t(0)
+        err = self.get_nodes(graph.raw_cuda_graph(), None,
+                             ctypes.byref(count))
+        require(err == 0, 'cuGraphGetNodes: error %d' % err)
+        self.nodes.append(count.value)
+        graph.instantiate()
+        return graph
+
+
+def graph_nodes(torch, inputs, precision):
+    """Node counts of the 512px L-BFGS step and prime graphs, or None
+    where this torch keeps no graph to count."""
+    backend = CountingGraphs(torch)
+    st = graph_single(inputs, precision, 'lbfgs', True, backend)
+    try:
+        st.run_steps(2)              # prime and step warm, step captured
+        st.objective_changed()
+        st.run_steps(1)              # prime captured
+    except (TypeError, AttributeError) as e:    # no keep_graph here
+        say('graph', 'node count not measured: %s' % e)
+        return None
+    torch.cuda.synchronize()
+    return dict(zip(('step', 'prime'), backend.nodes))
+
+
+def time_chunks(torch, runs, what):
+    """runs: {'eager': fn, 'graphed': fn}, fn(n) enqueueing one n-step
+    chunk and returning a collect callable. In turns (eager, graphed,
+    graphed, eager) GRAPH_ROUNDS times: the ms a step over a synced
+    GRAPH_CHUNK-step chunk, the most device memory it allocated beyond
+    what was allocated before it, and the host us a step until a synced
+    GRAPH_HOST_CHUNK-step chunk's enqueue returned."""
+    out = {name: {'ms': [], 'host_us': [], 'chunk_peak': 0}
+           for name in runs}
+    for _ in range(GRAPH_ROUNDS):
+        for name in ('eager', 'graphed', 'graphed', 'eager'):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            runs[name](GRAPH_CHUNK)()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out[name]['ms'].append((t1 - t0) * 1e3 / GRAPH_CHUNK)
+            out[name]['chunk_peak'] = max(
+                out[name]['chunk_peak'],
+                torch.cuda.max_memory_allocated() - base)
+            t0 = time.perf_counter()
+            collect = runs[name](GRAPH_HOST_CHUNK)
+            t1 = time.perf_counter()
+            collect()
+            torch.cuda.synchronize()
+            out[name]['host_us'].append((t1 - t0) * 1e6 / GRAPH_HOST_CHUNK)
+    for name, row in out.items():
+        row['median_ms'] = float(np.median(row['ms']))
+        row['it_s'] = 1e3 / row['median_ms']
+        row['median_host_us'] = float(np.median(row['host_us']))
+    say('graph', '%s: ms a step eager %s, graphed %s (median %.3f / %.3f, '
+        'x%.2f); host us a step until a %d-step chunk is enqueued eager '
+        '%.1f, graphed %.1f' % (
+            what, ', '.join('%.3f' % v for v in out['eager']['ms']),
+            ', '.join('%.3f' % v for v in out['graphed']['ms']),
+            out['eager']['median_ms'], out['graphed']['median_ms'],
+            out['eager']['median_ms'] / out['graphed']['median_ms'],
+            GRAPH_HOST_CHUNK, out['eager']['median_host_us'],
+            out['graphed']['median_host_us']))
+    return out
+
+
+def resident(torch, build):
+    """(the engine build() returns after two warm chunks, the device
+    memory it holds: allocated and reserved bytes over the start, the
+    caching allocator's free blocks released before both readings, so
+    that reserved beyond allocated is the graphs' private pool)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    engine = build()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return engine, {'allocated': torch.cuda.memory_allocated() - base[0],
+                    'reserved': torch.cuda.memory_reserved() - base[1]}
+
+
+def phase_graph(torch, smi):
+    """The step graphs at 512px: graphed against eager bit for bit (one
+    image, float32 and bfloat16, L-BFGS with a prime and Adam; 4 lanes,
+    L-BFGS), then the ms a step and host us a step of each, in turns in
+    one process, the node counts, the capture seconds and the memory
+    each engine holds; graph.json."""
+    from style_transfer2_tpu_torch.engine import graphs
+    inputs = graph_inputs()
+    out = {'device': smi, 'hw': list(GRAPH_HW), 'chunk': GRAPH_CHUNK}
+    graphs.captures.clear()
+    replays = graphs.replays
+    for precision in ('float32', 'bfloat16'):
+        for optimizer in ('lbfgs', 'adam'):
+            what = 'one image %s %s' % (precision, optimizer)
+            same_bits(what, single_bits(inputs, precision, optimizer, True),
+                      single_bits(inputs, precision, optimizer, False))
+        same_bits('4 lanes ' + precision,
+                  lanes_bits(inputs, precision, True),
+                  lanes_bits(inputs, precision, False))
+    require(graphs.replays > replays, 'graph: nothing replayed')
+    say('graph', 'graphed equal to eager bit for bit (traces, images, '
+        'state, norms): one image float32 and bfloat16, L-BFGS with a '
+        'prime and Adam; 4 lanes L-BFGS in both; %d replays'
+        % (graphs.replays - replays))
+    out['bitwise'] = True
+
+    def warm_single(precision, graphed):
+        def build():
+            st = graph_single(inputs, precision, 'lbfgs', graphed)
+            st.run_steps(2)
+            st.run_steps(2)
+            return st
+        return resident(torch, build)
+
+    def warm_lanes(precision, graphed):
+        def build():
+            bt = graph_lanes(inputs, precision, graphed)
+            bt.run_steps_all(2)
+            bt.run_steps_all(2)
+            return bt
+        return resident(torch, build)
+
+    def single_chunk(st):
+        def run(n):
+            handle = st.begin_steps(n)
+            return lambda: st.collect_steps(handle, fetch_image=False)
+        return run
+
+    def lanes_chunk(bt):
+        def run(n):
+            handle = bt.begin_steps_all(n)
+            return lambda: bt.collect_steps_all(handle)
+        return run
+
+    for precision in ('float32', 'bfloat16'):
+        entry = out[precision] = {'nodes': graph_nodes(torch, inputs,
+                                                       precision)}
+        for kind, warm, chunk in (('one_image', warm_single, single_chunk),
+                                  ('lanes4', warm_lanes, lanes_chunk)):
+            engines, memory = {}, {}
+            for name, graphed in (('eager', False), ('graphed', True)):
+                engines[name], memory[name] = warm(precision, graphed)
+            rates = time_chunks(torch, {n: chunk(e) for n, e in
+                                        engines.items()},
+                                '%s %s' % (kind, precision))
+            for name in rates:
+                rates[name]['memory'] = memory[name]
+            entry[kind] = rates
+            say('graph', '%s %s: memory held after warm-up, allocated / '
+                'reserved MiB: eager %.0f / %.0f, graphed %.0f / %.0f; a '
+                'chunk\'s peak beyond that: eager %.0f, graphed %.0f' % (
+                    kind, precision,
+                    memory['eager']['allocated'] / 2 ** 20,
+                    memory['eager']['reserved'] / 2 ** 20,
+                    memory['graphed']['allocated'] / 2 ** 20,
+                    memory['graphed']['reserved'] / 2 ** 20,
+                    rates['eager']['chunk_peak'] / 2 ** 20,
+                    rates['graphed']['chunk_peak'] / 2 ** 20))
+            del engines
+        say('graph', '%s: graph nodes %s' % (precision, entry['nodes']))
+    out['capture_s'] = [dict(c, hw=list(c['hw'])) for c in graphs.captures]
+    say('graph', 'capture seconds: %s' % ', '.join(
+        '%s %s x%d %s %.3f' % (c['kind'], 'x'.join(map(str, c['hw'])),
+                               c['lanes'], c['dtype'], c['seconds'])
+        for c in out['capture_s']))
+    (OUT_DIR / 'graph.json').write_text(json.dumps(out, indent=1))
+    return out
 
 
 def split_rungs(rows):
@@ -1266,6 +1627,7 @@ def phase_ladder(torch, log):
     a float32 polish, each against a single-scale 1024px run of as many
     iterations."""
     from style_transfer2_tpu_torch import cli
+    from style_transfer2_tpu_torch.engine import graphs
     from PIL import Image
     launches = dict.fromkeys(KERNELS, 0)
     summary = {}
@@ -1277,7 +1639,11 @@ def phase_ladder(torch, log):
         png = OUT_DIR / ('ladder_%s.png' % precision)
         trace_csv = OUT_DIR / ('ladder_%s.csv' % precision)
         png.unlink(missing_ok=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         reset_counters()
+        graphs.captures.clear()
         log.records.clear()
         t0 = time.perf_counter()
         rc = cli.main(common + [
@@ -1352,11 +1718,21 @@ def phase_ladder(torch, log):
                 '%.3f s, loss %.6g -> %.6g' % (
                     precision, POLISH, top_wh[1], top_wh[0], polish_s[0],
                     losses[0], losses[-1]))
-        say('ladder', '%s: %d rungs x %d iterations%s, %.2f s wall; '
+        entry['capture_s'] = [dict(c, hw=list(c['hw']))
+                              for c in graphs.captures]
+        entry['replays'] = REPLAYS['ladder ' + precision]
+        entry['peak_bytes'] = torch.cuda.max_memory_allocated() - base
+        say('ladder', '%s: %d rungs x %d iterations%s, %.2f s wall; %d '
+            'graph replays; peak device memory %.0f MiB over the start; '
+            'capture s %s; '
             'launches %s; conv paths %s' % (
                 precision, len(LADDER_1024), LADDER_ITERATIONS,
-                ' + %d polish' % POLISH if extra else '', wall, counts,
-                paths))
+                ' + %d polish' % POLISH if extra else '', wall,
+                entry['replays'], entry['peak_bytes'] / 2 ** 20,
+                ', '.join('%s %s %s %.3f' % (
+                    c['kind'], 'x'.join(map(str, c['hw'])), c['dtype'],
+                    c['seconds']) for c in entry['capture_s']),
+                counts, paths))
 
         # The single-scale run of as many iterations, for the first
         # benchmark's comparison (a measurement, not a checked path).
@@ -1404,6 +1780,7 @@ def phase_parity(torch):
     scalars = {'p': 50.0, 'p_power': 6.0, 'tv': 5.0, 'tv_power': 2.0}
     params = random_params(0)
     traces = {}
+    reset_counters()
     for device in ('cpu', 'cuda'):
         st = StyleTransfer(params, 'float32', device=device)
         st.set_weights(weights, scalars)
@@ -1425,6 +1802,7 @@ def phase_parity(torch):
         require(lad.start(), 'ladder parity engine did not restart')
         lad.run_steps(3)
         traces[device] = (steps, [t.data for t in lad.traces])
+    require_all_launched(counters(), 'parity')
     worst = [0.0, 0.0]
     for which in (0, 1):
         want_rows, got_rows = traces['cpu'][which], traces['cuda'][which]
@@ -1554,6 +1932,9 @@ async def serve_session(torch, which, log, drive, keys):
     tier = app['tier']
     runner = web.AppRunner(app)
     log.events.clear()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     reset_counters()
     await runner.setup()
     try:
@@ -1569,6 +1950,9 @@ async def serve_session(torch, which, log, drive, keys):
     counts = counters()
     require_all_launched(counts, 'serve ' + which)
     require_paths('serve ' + which, keys.get('precision', 'float32'))
+    say('serve', '%s: %d graph replays, peak device memory %.0f MiB over '
+        'the start' % (which, REPLAYS['serve ' + which],
+                       (torch.cuda.max_memory_allocated() - base) / 2 ** 20))
     return counts, result
 
 
@@ -2722,15 +3106,17 @@ def video_eval_parity(frames):
     evals = []
 
     def recording(real):
-        # Wraps one method of this one CPU engine: the evaluation's spec,
-        # iterate, gradient and trace row, and the norms it started from.
-        def run(spec, fn):
-            norms = ({k: float(v) for k, v in st.norm_vals.items()},
-                     {k: bool(v) for k, v in st.norm_set.items()})
-            row = real(spec, fn)
-            evals.append((spec, st.opt_state['x'].clone(),
-                          st.opt_state['grad'].clone(), row.tolist(), norms))
-            return row
+        # Wraps this one CPU engine's step runner (engine/graphs.py
+        # StepGraphs.run, each call one evaluation, the prime's or a
+        # step's): the evaluation's spec, iterate, gradient and trace row,
+        # and the norms it started from.
+        def run(key, body, args, *rest):
+            norms = ({k: float(v) for k, v in args['norms_vals'].items()},
+                     {k: bool(v) for k, v in args['norms_set'].items()})
+            new, row = real(key, body, args, *rest)
+            evals.append((key.spec, new['state']['x'].clone(),
+                          new['state']['grad'].clone(), row.tolist(), norms))
+            return new, row
         return run
 
     def rms(t):
@@ -2746,7 +3132,7 @@ def video_eval_parity(frames):
         errs['grad'] = abs(got[at] - row[at]) / scale
         return errs, rms(g - grad) / scale, row[at] / scale
 
-    st._prime, st._advance = recording(st._prime), recording(st._advance)
+    st._graphs.run = recording(st._graphs.run)
     weights, scalars = cli.load_weights_doc(None)
     engines = {}
     for device in (VIDEO_DEVICE, 'cpu'):
@@ -2931,6 +3317,7 @@ def main():
     for name, n in phase_ladder(torch, log).items():
         launches[name] += n
     phase_parity(torch)
+    phase_graph(torch, smi)
     counts, batch_it_s = phase_batch(torch, log, rates, smi)
     for name, n in counts.items():
         launches[name] += n
@@ -2958,7 +3345,9 @@ def main():
         'time (torch.profiler); host_us: the host\'s enqueue cost a call; '
         'launches over the main, ladder, batch, serve, pool and video runs; '
         '512px it/s float32 '
-        '%.3f, bfloat16 %.3f' % (rates['float32'], rates['bfloat16']))
+        '%.3f, bfloat16 %.3f; step graph replays by run: %s' % (
+            rates['float32'], rates['bfloat16'],
+            ', '.join('%s %d' % kv for kv in REPLAYS.items())))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

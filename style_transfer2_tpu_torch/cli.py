@@ -17,9 +17,11 @@ Examples:
 --device cuda (the default) runs the hand-written kernels on the card and
 raises if CUDA is not available; --device cpu runs their plain PyTorch
 versions. --profile DIR writes a torch.profiler trace of the run
-(utils/profiling.py). Not ported yet: --mesh, --data-mesh (ROADMAP queue 1,
-item 7), --remat, --prewarm-ladder, --pallas (the kernels are always on)
-and --platform.
+(utils/profiling.py). --pallas, --platform and --prewarm-ladder are
+accepted, logged and ignored, so that a JAX command line runs here: the
+kernels are always on, --device picks the device, and the port compiles
+nothing a rung that a prewarm could hide. Not ported yet: --mesh,
+--data-mesh (sharding, ROADMAP queue 1) and --remat.
 """
 
 import argparse
@@ -121,6 +123,12 @@ def parse_args(argv=None):
                    help='write a torch.profiler trace (Chrome JSON: host '
                         'activity, and the card\'s kernels on CUDA) of the '
                         'run into this directory')
+    p.add_argument('--pallas', action='store_true',
+                   help='ignored: the kernels are always on')
+    p.add_argument('--platform', default='',
+                   help='ignored (the JAX backend); see --device')
+    p.add_argument('--prewarm-ladder', action='store_true',
+                   help='ignored: nothing is compiled per rung')
     p.add_argument('--debug', '-d', action='count', default=0)
     return p.parse_args(argv)
 
@@ -432,6 +440,13 @@ def main(argv=None):
         level=logging.DEBUG if args.debug else logging.INFO,
         format='%(asctime)s.%(msecs)03d %(process)d %(name)s %(levelname)s: '
                '%(message)s', datefmt='%H:%M:%S')
+    ignored = [flag for flag, on in (('--pallas', args.pallas),
+                                     ('--platform', args.platform),
+                                     ('--prewarm-ladder', args.prewarm_ladder))
+               if on]
+    if ignored:
+        logger.info('%s mean nothing here: ignored (the device is --device '
+                    '%s)', ', '.join(ignored), args.device)
     if args.batch:
         return run_batch(args)
     if args.mesh or args.data_mesh:

@@ -21,7 +21,11 @@ versions. The precision mode's TF32 switches hold only around this
 engine's device work (engine/steps.py precision_scope). The (B,) loss
 weights, scalars and step sizes change only in add_job, set_lane_weights
 and set_step_size, which upload them; a dispatch uploads its run mask and
-reads nothing back.
+reads nothing back. On the card the masked step and the masked prime run
+as replays of captured CUDA graphs from each key's second call on
+(engine/graphs.py, parallel/batch.py): the stacked state and the norms
+then live in the graphs' static buffers, which lane writes update in
+place.
 """
 
 import numpy as np
@@ -31,10 +35,11 @@ from ..models import vgg19
 from ..models.weights import params_from_numpy
 from ..ops.gram import gram_matrix
 from ..optim import OPTIMIZERS, STEP_SIZES, lbfgs
-from ..parallel.batch import (build_masked_batched_scan_fn,
-                              build_masked_batched_step_fns, stack_lanes,
+from ..parallel.batch import (build_masked_batched_prime_fn,
+                              build_masked_batched_scan_fn, stack_lanes,
                               unstack_lane)
 from ..utils import Trace
+from .graphs import CudaGraphs, StepGraphs
 from .objective import ObjectiveSpec, scalars_to_arrays, weights_to_arrays
 from .steps import precision_config, precision_scope
 from .transfer import resolve_device
@@ -121,6 +126,10 @@ class BatchedStyleTransfer:
                                    np.float32)
         self._upload_weights()
         self.step_sizes = self._upload(self._step_sizes)
+        # The captured masked steps on the card (engine/graphs.py); eager
+        # on the CPU. A bucket keeps one grid for its life.
+        self._graphs = StepGraphs(CudaGraphs(self.device)
+                                  if self.device.type == 'cuda' else None)
 
     # -- host values ---------------------------------------------------------
 
@@ -245,7 +254,9 @@ class BatchedStyleTransfer:
         """One lane's optimizer state in the single engine's layout, as
         views into the stacked state (for warm-start migration to another
         bucket). The views hold until the lane is next written: add_job, an
-        objective change of that lane, or a step that runs it."""
+        objective change of that lane, or a step that runs it (on the card
+        the stacked state is the step graph's static buffers, which each
+        replay rewrites in place)."""
         return unstack_lane(self.states, lane)
 
     def lane_norms(self, lane):
@@ -314,18 +325,18 @@ class BatchedStyleTransfer:
         if self.optimizer_name == 'lbfgs':
             self._needs_prime[lane] = True
 
-    def _prime_pending(self, eval_fn):
+    def _prime_pending(self):
         """Re-evaluates (loss, grad) for the running lanes whose cache is
         stale, masked so that primed and paused lanes are untouched. A
         paused stale lane keeps its flag until it resumes."""
-        if eval_fn is None:
-            return
         prime = [p and r and a for p, r, a in
                  zip(self._needs_prime, self.running, self.active)]
         if not any(prime):
             return
-        self.states, norms, _ = eval_fn(self.model, self.states, self.inputs,
-                                        self._mask(prime))
+        prime_fn = build_masked_batched_prime_fn(self.spec,
+                                                 self.optimizer_name)
+        self.states, norms = prime_fn(self.model, self.states, self.inputs,
+                                      self._mask(prime), self._graphs)
         self.inputs['norms_vals'], self.inputs['norms_set'] = norms
         for lane, primed in enumerate(prime):
             if primed:
@@ -343,22 +354,13 @@ class BatchedStyleTransfer:
                    if busy and self.running[lane]]
         if not running:
             return None
-        step_fn, eval_fn = build_masked_batched_step_fns(
-            self.spec, self.optimizer_name)
+        scan_fn = build_masked_batched_scan_fn(self.spec, self.optimizer_name,
+                                               n_steps)
         with precision_scope(self.precision):
-            self._prime_pending(eval_fn)
-            mask = self._run_mask()
-            if n_steps == 1:
-                self.states, norms, traces = step_fn(
-                    self.model, self.states, self.inputs, self.step_sizes,
-                    mask)
-                traces = traces[..., None]
-            else:
-                scan_fn = build_masked_batched_scan_fn(
-                    self.spec, self.optimizer_name, n_steps)
-                self.states, norms, traces = scan_fn(
-                    self.model, self.states, self.inputs, self.step_sizes,
-                    mask)
+            self._prime_pending()
+            self.states, norms, traces = scan_fn(
+                self.model, self.states, self.inputs, self.step_sizes,
+                self._run_mask(), self._graphs)
         self.inputs['norms_vals'], self.inputs['norms_set'] = norms
         t_end = {}
         for lane in running:

@@ -1,0 +1,327 @@
+"""CUDA graphs of one optimizer step: the port of the JAX package's fused
+multi-step dispatch (style_transfer2_tpu/engine/steps.py build_scan_fn,
+parallel/batch.py build_masked_batched_scan_fn).
+
+The JAX package runs K steps as one XLA program. The port captures ONE
+step, and for L-BFGS the prime (the first evaluation of a stale cache), as
+a CUDA graph per key, and replays it: a K-step chunk is K replays
+(engine/steps.py build_scan_fn, parallel/batch.py). One step and not K,
+because the web app's tuner changes K every dispatch, the CLI's chunk
+tails are min(K, remaining), each step writes its own trace row, and a
+graph of K steps would grow with K (the CLI's 240-step chunks would hold
+some 150k nodes). L-BFGS's count and pos are device tensors, the step size
+is a 0-d device tensor and Adam's bias corrections are read from 0-d
+device tensors, so one graph serves every step of a run.
+
+Static buffers. A graph reads and writes fixed tensors. The args of a step
+are a tree of dicts, tuples, tensors and floats; at capture each leaf gets
+a static buffer of its shape (a float: a 0-d float32 tensor). At the end
+of the captured step the leaves under `writes` (the optimizer state, the
+norms) are copied back into their own static buffers, and replay returns
+those buffers, so between replays the caller's state lives there. Before a
+replay each leaf the caller hands over is copied in unless it is its
+static buffer already; a read-only leaf is also skipped when it is the
+tensor copied last time, unchanged since (its version counter), and a
+float is filled in only when its value changed. So a setter that rebinds
+a tensor (set_input, set_content, set_style, set_temporal, set_weights,
+objective_changed, a checkpoint load, a lane write) reaches the next
+replay, and one that writes a static buffer in place needs no copy. The
+trace row is a static output: the caller copies it into its chunk's own
+rows before the next replay, so two chunks in flight never share one.
+
+Warm-up, capture, replay. The first call at a key runs eagerly, on the
+side stream that captures later: it sets up the lazy state a capture may
+not create (the kernels' cudaFuncSetAttribute, cuBLAS's workspace for the
+side stream, autograd's device thread, the wgmma weight blocks). The
+second call captures (capture_error_mode='thread_local': the app and the
+pool launch from an executor thread while the event loop may touch the
+card) and replays. The caller holds its precision scope around both, so
+TF32 is fixed at capture as the engine's precision says. A capture or
+replay error raises; nothing falls back to the eager step.
+
+Memory. The graphs of one StepGraphs share one private memory pool. That
+is safe whatever order they replay in: nothing allocated inside a capture
+outlives it (the static buffers and the output row are allocated before
+the capture begins, the step's own tensors are dead at its end), and the
+graphs replay one after another on the caller's stream. An engine drops
+its graphs when it warm-starts to another grid (a ladder never comes back
+to a rung), and keeps at most MAX_GRAPHS, least recently used first out:
+a prime and a step graph for each of two objective structures, which is
+what an objective change back and forth (the web app's weight edits,
+video's first and chained frames) needs.
+
+Launch accounting. A replay does not call the kernels' Python wrappers,
+so each graph records the launches its capture made (ops/conv.py
+path_launches, ops/style.py launches, ops/image.py's counters), takes them
+back off the counters (a capture runs nothing), and credits them again on
+every replay. `replays` and `captures` count what every engine did
+(chip_smoke.py reads them).
+"""
+
+import collections
+import sys
+import time
+
+import torch
+
+# Least recently used graphs beyond this many are dropped (docstring).
+MAX_GRAPHS = 4
+
+replays = 0
+# One entry a capture, newest last: {'kind', 'hw', 'lanes', 'dtype',
+# 'seconds'} (chip_smoke.py reports capture seconds from it).
+captures = collections.deque(maxlen=256)
+
+# What a graph is captured for: kind 'step' or 'prime', the ObjectiveSpec,
+# the optimizer, the grid, the lanes (1 for the single engine), the
+# compute dtype, the L-BFGS history's dtype (None for Adam) and its length.
+GraphKey = collections.namedtuple('GraphKey', (
+    'kind', 'spec', 'optimizer', 'hw', 'lanes', 'dtype', 'history_dtype',
+    'n_corr'))
+
+
+def _flatten(tree, path=()):
+    """[(path, leaf)] of a tree of dicts (by sorted key), tuples and lists
+    (by position), with tensors, floats and None (no buffer) as leaves."""
+    if isinstance(tree, dict):
+        out = []
+        for key in sorted(tree):
+            out += _flatten(tree[key], path + (key,))
+        return out
+    if isinstance(tree, (tuple, list)):
+        out = []
+        for i, leaf in enumerate(tree):
+            out += _flatten(leaf, path + (i,))
+        return out
+    return [(path, tree)]
+
+
+def _rebuild(tree, leaves):
+    """tree's structure with the leaves from the iterator `leaves`, in
+    _flatten's order."""
+    if isinstance(tree, dict):
+        return {key: _rebuild(tree[key], leaves) for key in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_rebuild(leaf, leaves) for leaf in tree)
+    return next(leaves)
+
+
+def _device_leaf(leaf, device):
+    """A float leaf as a 0-d float32 tensor on device; others as they are."""
+    if isinstance(leaf, float):
+        return torch.full((), leaf, dtype=torch.float32, device=device)
+    return leaf
+
+
+def materialize(args, device):
+    """args with every float leaf a 0-d float32 tensor on device: what the
+    eager step takes."""
+    leaves = (_device_leaf(leaf, device) for _, leaf in _flatten(args))
+    return _rebuild(args, leaves)
+
+
+def _describe(leaf):
+    """A leaf's dtype and shape, for an error message."""
+    return 'None' if leaf is None else '%s %s' % (leaf.dtype,
+                                                  tuple(leaf.shape))
+
+
+def _launch_counts():
+    """Every kernel wrapper's launch counter, flat."""
+    from ..ops import conv, image, style
+    counts = {('conv',) + key: n for key, n in conv.path_launches.items()}
+    counts[('style',)] = style.launches
+    counts[('preprocess',)] = image.preprocess_launches
+    counts[('deprocess',)] = image.deprocess_launches
+    return counts
+
+
+def _credit(delta, sign=1):
+    """Adds sign * delta to the wrappers' launch counters."""
+    from ..ops import conv, image, style
+    for key, n in delta.items():
+        n *= sign
+        if key[0] == 'conv':
+            conv.path_launches[key[1:]] = conv.path_launches.get(key[1:],
+                                                                 0) + n
+        elif key[0] == 'style':
+            style.launches += n
+        elif key[0] == 'preprocess':
+            image.preprocess_launches += n
+        else:
+            image.deprocess_launches += n
+
+
+class CudaGraphs:
+    """The capture backend on the card: a side stream for warm-ups and
+    captures, one private memory pool for every graph of its StepGraphs
+    until they are all dropped (reset)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+
+    def reset(self):
+        """Once every graph of the pool is gone: its memory back to CUDA,
+        and a fresh pool for the graphs captured from now on. The
+        caching allocator keeps a pool whose last graph died until its
+        cache is emptied, even when an allocation elsewhere runs out of
+        memory, and refuses it another capture. Emptying the cache waits
+        for the card, so that a replay still in flight finishes first."""
+        torch.cuda.empty_cache()
+        self.pool = torch.cuda.graph_pool_handle()
+
+    def warm(self, fn):
+        """fn() eagerly on the side stream, ordered after the caller's
+        stream's work and before its later work."""
+        main = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            result = fn()
+        main.wait_stream(self.stream)
+        return result
+
+    def capture(self, fn):
+        """fn's launches captured (not run) as a graph with replay(). The
+        capture begins and ends here rather than in torch.cuda.graph, which
+        first syncs the card and empties the device and pinned-host caches:
+        nothing captured depends on work in flight, and a dispatch in the
+        serving loop should not wait for the card or lose the caches."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool,
+                                capture_error_mode='thread_local')
+            try:
+                fn()
+            finally:
+                graph.capture_end()
+        return graph
+
+
+class _Graph:
+    """One captured step over static buffers (module docstring)."""
+
+    def __init__(self, backend, body, args, writes, out_shape, device):
+        flat = _flatten(args)
+        self.paths = [path for path, _ in flat]
+        self.written = [path[0] in writes for path in self.paths]
+        self.static = []
+        for _, leaf in flat:
+            if isinstance(leaf, float):
+                leaf = torch.zeros((), dtype=torch.float32, device=device)
+            self.static.append(None if leaf is None else torch.empty_like(
+                leaf, memory_format=torch.contiguous_format))
+        self.last = [None] * len(flat)
+        self._copy_in(flat)
+        tree = _rebuild(args, iter(self.static))
+        self.out = torch.empty(out_shape, dtype=torch.float32, device=device)
+        self.new = {key: tree[key] for key in writes}
+        by_path = {path: buf for path, buf in zip(self.paths, self.static)}
+
+        def step():
+            new, out = body(tree)
+            for path, leaf in _flatten({key: new[key] for key in writes}):
+                dst = by_path[path]
+                if leaf is not dst:
+                    dst.copy_(leaf)
+            self.out.copy_(out)
+
+        before = _launch_counts()
+        self.graph = backend.capture(step)
+        after = _launch_counts()
+        self.credit = {key: n - before.get(key, 0) for key, n in after.items()
+                       if n != before.get(key, 0)}
+        _credit(self.credit, -1)
+
+    def _copy_in(self, flat):
+        for i, (_, leaf) in enumerate(flat):
+            dst = self.static[i]
+            if isinstance(leaf, float):
+                if leaf != self.last[i]:
+                    dst.fill_(leaf)
+                    self.last[i] = leaf
+                continue
+            if leaf is dst:
+                continue
+            if (leaf is None or dst is None or leaf.shape != dst.shape
+                    or leaf.dtype != dst.dtype):
+                raise ValueError('step graph: %s is %s, captured as %s' % (
+                    '/'.join(map(str, self.paths[i])), _describe(leaf),
+                    _describe(dst)))
+            if not self.written[i]:
+                last = self.last[i]
+                if (last is not None and last[0] is leaf
+                        and last[1] == leaf._version):
+                    continue
+                self.last[i] = (leaf, leaf._version)
+            dst.copy_(leaf)
+
+    def replay(self, args):
+        """Copies args in, replays; returns (the written static subtrees,
+        the static output row)."""
+        global replays
+        flat = _flatten(args)
+        if [path for path, _ in flat] != self.paths:
+            raise ValueError('step graph: the args do not have the captured '
+                             'structure')
+        self._copy_in(flat)
+        self.graph.replay()
+        _credit(self.credit)
+        replays += 1
+        return self.new, self.out
+
+
+class StepGraphs:
+    """An engine's captured steps, by key. run() is the eager step where
+    there is no backend (the CPU), else warm-up, capture and replay."""
+
+    def __init__(self, backend=None):
+        self.backend = backend
+        self._graphs = collections.OrderedDict()
+        self._warm = set()
+
+    def __len__(self):
+        return len(self._graphs)
+
+    def clear(self):
+        """Drops every graph, and with them their memory pool. A launch
+        still in flight completes: CUDA frees its graph after it."""
+        held = bool(self._graphs)
+        self._graphs.clear()
+        self._warm.clear()
+        if held and self.backend is not None:
+            self.backend.reset()
+
+    def __del__(self):
+        # An engine that goes drops its graphs before its backend, so that
+        # their pool's memory goes back too.
+        if getattr(self, '_graphs', None) and not sys.is_finalizing():
+            self.clear()
+
+    def run(self, key, body, args, writes, out_shape, device):
+        """One step at key (a GraphKey). body(args) -> (new, out), where
+        new holds the args' subtrees under `writes` advanced by one step
+        and out the step's trace row (out_shape, float32). Returns (new,
+        out): on a replay, the static buffers, valid until the next replay
+        at this key."""
+        if self.backend is None:
+            return body(materialize(args, device))
+        graph = self._graphs.get(key)
+        if graph is not None:
+            self._graphs.move_to_end(key)
+            return graph.replay(args)
+        if key not in self._warm:
+            # Kept after the capture too: a key evicted and met again
+            # captures at once.
+            self._warm.add(key)
+            return self.backend.warm(lambda: body(materialize(args, device)))
+        t0 = time.perf_counter()
+        graph = _Graph(self.backend, body, args, writes, out_shape, device)
+        captures.append({'kind': key.kind, 'hw': key.hw, 'lanes': key.lanes,
+                         'dtype': str(key.dtype).replace('torch.', ''),
+                         'seconds': time.perf_counter() - t0})
+        self._graphs[key] = graph
+        while len(self._graphs) > MAX_GRAPHS:
+            self._graphs.popitem(last=False)
+        return graph.replay(args)

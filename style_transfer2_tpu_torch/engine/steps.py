@@ -3,12 +3,15 @@ steps.py).
 
 One step = one optimizer iteration: the VGG forward, the losses, the
 backward with injected cotangents and the update, all launched on the
-device with no host read-back. PyTorch runs eagerly, so a step is a plain
-closure and a K-step chunk is a Python loop that enqueues K steps before
-anything is read back (engine/transfer.py begin_steps); a CUDA graph over K
-steps is later work. With nothing to compile, build_step_core stands for
-both the JAX package's build_step_core (the pure cores) and its
-build_step_fns (their jitted pair).
+device with no host read-back. build_step_core gives the pure cores (the
+JAX package's build_step_core and, with nothing to compile, its
+build_step_fns). build_scan_fn is the port of its build_scan_fn: K steps
+with the weights and step size fixed, the first-eval norms threaded
+through them, the stale L-BFGS cache primed at the head (primed=True).
+Where the JAX package runs them as one XLA program, the port runs one
+step K times through the engine's StepGraphs (engine/graphs.py): on the
+card each is a replay of one captured CUDA graph of the step (and of the
+prime), on the CPU the eager loop, which is the graphs' plain version.
 """
 
 import functools
@@ -17,6 +20,7 @@ import torch
 
 from ..optim import adam, lbfgs
 from ..utils import tf32
+from .graphs import GraphKey, StepGraphs
 from .objective import make_objective
 
 # name -> (compute dtype, TF32 allowed for cuBLAS/cuDNN). float32 is the
@@ -55,8 +59,10 @@ def build_step_core(spec, optimizer):
       eval_core(model, state, inputs) -> (state', norms', trace)
 
     where inputs = dict(content_feats=..., grams=..., layer_weights=...,
-    scalars=..., norms_vals=..., norms_set=...[, temporal_target=...]).
-    eval_core is None for Adam."""
+    scalars=..., norms_vals=..., norms_set=...[, temporal_target=...][,
+    corrections=(c1, c2)]), step_size a float or a 0-d device tensor and
+    corrections Adam's two bias corrections as 0-d device tensors (absent:
+    from the state's host counters). eval_core is None for Adam."""
     objective = make_objective(spec)
 
     def make_opfunc(model, inputs):
@@ -72,7 +78,8 @@ def build_step_core(spec, optimizer):
     if optimizer == 'adam':
         def step_core(model, state, inputs, step_size):
             state_new, _, (norms, trace) = adam.step(
-                state, make_opfunc(model, inputs), step_size)
+                state, make_opfunc(model, inputs), step_size,
+                corrections=inputs.get('corrections'))
             return state_new, norms, trace
 
         return step_core, None
@@ -91,3 +98,111 @@ def build_step_core(spec, optimizer):
         return step_core, eval_core
 
     raise ValueError('Unknown optimizer: %r' % (optimizer,))
+
+
+# The args of one step that the step rewrites: the graphs copy these back
+# into their static buffers.
+WRITES = ('state', 'norms_vals', 'norms_set')
+
+
+def graph_body(core, model, extra=()):
+    """core as a body for StepGraphs.run: body(args) -> ({'state',
+    'norms_vals', 'norms_set'}, trace), calling core(model, args['state'],
+    inputs, *(args[k] for k in extra)) with the norms (and Adam's
+    'corrections', where args hold them) back in the inputs. args as
+    step_args gives them, with the extra keys added ('step_size'; a
+    batched step's 'step_sizes' and 'mask')."""
+    def body(args):
+        inputs = dict(args['inputs'], norms_vals=args['norms_vals'],
+                      norms_set=args['norms_set'])
+        if 'corrections' in args:
+            inputs['corrections'] = args['corrections']
+        state, norms, trace = core(model, args['state'], inputs,
+                                   *(args[k] for k in extra))
+        if isinstance(trace, tuple):
+            trace = torch.stack(trace)
+        return ({'state': state, 'norms_vals': norms[0],
+                 'norms_set': norms[1]}, trace)
+    return body
+
+
+def step_args(state, inputs):
+    """The args of a step for StepGraphs.run from the optimizer state's
+    tensors and build_step_core's inputs: the norms, which the step
+    rewrites (WRITES), apart from the read-only inputs."""
+    return {'state': state,
+            'inputs': {k: v for k, v in inputs.items()
+                       if k not in ('norms_vals', 'norms_set')},
+            'norms_vals': inputs['norms_vals'],
+            'norms_set': inputs['norms_set']}
+
+
+def graph_key(kind, spec, optimizer, state, lanes=1, dtype=torch.float32,
+              n_corr=None):
+    """The GraphKey of a step or prime over this (per-lane or stacked)
+    optimizer state."""
+    x = state['x']
+    hist = state['sk'].dtype if 'sk' in state else None
+    return GraphKey(kind, spec, optimizer, tuple(x.shape[-3:-1]), lanes,
+                    dtype, hist, n_corr)
+
+
+@functools.lru_cache(maxsize=64)
+def build_scan_fn(spec, optimizer, primed=False):
+    """K optimizer steps with the weights and step size fixed
+    (style_transfer2_tpu/engine/steps.py build_scan_fn):
+
+      scan_fn(model, state, inputs, step_size, n_steps, graphs=None)
+        -> (state', (norms_vals', norms_set'), rows, prime_row)
+
+    inputs as build_step_core's; step_size a float; rows a fresh
+    (n_steps, n_keys) tensor of the steps' traces in spec.trace_keys order.
+    primed=True (L-BFGS only) first runs the initial (loss, grad)
+    evaluation and returns its trace as a fresh prime_row (else None). The
+    norm state threads through the steps, so first-eval caching behaves as
+    over K separate steps. graphs: the engine's StepGraphs (None: the
+    eager loop), through which each step (and the prime) runs: on the card
+    a replay of one captured graph, whose static buffers state' and the
+    norms then are, until the engine's next step. Adam's host counters
+    advance here, one a step, its bias corrections filled from them before
+    each step."""
+    step_core, eval_core = build_step_core(spec, optimizer)
+    if primed and eval_core is None:
+        raise ValueError('primed scan requires an optimizer with an '
+                         'initial evaluation (lbfgs)')
+    width = len(spec.trace_keys)
+
+    def scan_fn(model, state, inputs, step_size, n_steps, graphs=None):
+        if graphs is None:
+            graphs = StepGraphs()
+        device = state['x'].device
+        host = {k: v for k, v in state.items() if not torch.is_tensor(v)}
+        args = step_args({k: v for k, v in state.items()
+                          if torch.is_tensor(v)}, inputs)
+        n_corr = state['sk'].shape[0] if 'sk' in state else None
+
+        def run(kind, body, extra):
+            key = graph_key(kind, spec, optimizer, state,
+                            dtype=model.compute_dtype, n_corr=n_corr)
+            new, row = graphs.run(key, body, dict(args, **extra), WRITES,
+                                  (width,), device)
+            args.update(new)
+            return row
+
+        prime_row = None
+        if primed:
+            prime_row = run('prime', graph_body(eval_core, model), {})
+            prime_row = prime_row.clone()
+        step_body = graph_body(step_core, model, ('step_size',))
+        rows = torch.empty((n_steps, width), dtype=torch.float32,
+                           device=device)
+        for i in range(n_steps):
+            extra = {'step_size': float(step_size)}
+            if optimizer == 'adam':
+                extra['corrections'] = adam.next_corrections(host)
+                host = adam.advance_counters(host)
+            rows[i].copy_(run('step', step_body, extra))
+        return (dict(host, **args['state']),
+                (args['norms_vals'], args['norms_set']), rows, prime_row)
+
+    return scan_fn

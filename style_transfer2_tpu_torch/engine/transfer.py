@@ -8,11 +8,16 @@ hand-written kernels, 'cpu' their plain versions. The first-eval norm cache
 is 0-d tensors threaded through each step. step() brings its trace to the
 host in one transfer; begin_steps() enqueues a K-step chunk with no host
 read-back at all, and collect_steps() brings the chunk's traces over in one
-transfer (collect_steps_many: several chunks' in one). set_temporal() adds
-the video temporal-consistency term toward a previous frame. Each engine
-holds its precision mode's TF32 switches only around the device work it
-launches (engine/steps.py precision_scope), so engines of different
-precisions can share a process.
+transfer (collect_steps_many: several chunks' in one). step(),
+begin_steps() and the L-BFGS prime run through engine/steps.py
+build_scan_fn: on the card, from each key's second step on, replays of a
+captured CUDA graph of one step (engine/graphs.py), whose static buffers
+then hold the optimizer state and the norms (copy what must outlive the
+next step); on the CPU the eager loop. set_temporal() adds the video
+temporal-consistency term toward a previous frame. Each engine holds its
+precision mode's TF32 switches only around the device work it launches
+(engine/steps.py precision_scope), so engines of different precisions can
+share a process.
 """
 
 import csv
@@ -32,11 +37,11 @@ from .objective import (
     LOSS_NAMES,
     SCALAR_LOSS_NAMES,
     ObjectiveSpec,
-    empty_norms,
     scalars_to_arrays,
     weights_to_arrays,
 )
-from .steps import build_step_core, precision_config, precision_scope
+from .graphs import CudaGraphs, StepGraphs
+from .steps import build_scan_fn, precision_config, precision_scope
 
 
 def _to_host(parts):
@@ -126,8 +131,19 @@ class StyleTransfer:
 
         self.traces = []
         self._weights_cache = None   # (spec, layer_weights, scalars)
+        # The captured steps on the card (engine/graphs.py); eager on the
+        # CPU.
+        self._graphs = StepGraphs(CudaGraphs(self.device)
+                                  if self.device.type == 'cuda' else None)
 
     # -- properties ---------------------------------------------------------
+
+    @property
+    def input(self):
+        """The iterate, (1, H, W, 3) float32 (after a step on the card, a
+        static buffer of the step's graph: clone what must outlive the
+        next step)."""
+        return self._input
 
     @property
     def input_hw(self):
@@ -173,7 +189,9 @@ class StyleTransfer:
         bf16 pairs diverge on small grids (the gate of history_dtype_for),
         and a history carried down from a larger grid, as a serving
         ladder's first rung is after the session's first grid, went to NaN
-        within 30 steps on an H100."""
+        within 30 steps on an H100. The old grid's graphs go: a ladder
+        never comes back to a rung."""
+        self._graphs.clear()
         with precision_scope(self.precision):
             state = OPTIMIZERS[self.optimizer_name].resample(
                 self.opt_state, size, new_x=new_x)
@@ -352,15 +370,17 @@ class StyleTransfer:
             self._weights_cache = (spec, layer_weights, scalars)
         _, layer_weights, scalars = self._weights_cache
 
-        fresh_vals, fresh_set = empty_norms(spec)
+        # Fresh norms are (0, unset): filled on the device, no host copy.
         norms_vals, norms_set = {}, {}
         for key in spec.norm_keys:
             if key in self.norm_vals:
                 norms_vals[key] = self.norm_vals[key]
                 norms_set[key] = self.norm_set[key]
             else:
-                norms_vals[key] = self._tensor(fresh_vals[key])
-                norms_set[key] = self._tensor(fresh_set[key])
+                norms_vals[key] = torch.zeros((), dtype=torch.float32,
+                                              device=self.device)
+                norms_set[key] = torch.zeros((), dtype=torch.bool,
+                                             device=self.device)
         missing = [l for l in spec.content_layers if l not in self.features]
         if missing:
             # A weight-structure change added content layers; their
@@ -398,39 +418,34 @@ class StyleTransfer:
         self.traces.append(trace)
         return trace
 
-    def _prime(self, spec, eval_fn):
-        """Primes the L-BFGS (loss, grad) cache. Returns its trace as a
-        stacked device tensor."""
-        self.opt_state, norms, trace_vals = eval_fn(
-            self.model, self.opt_state, self._gather_inputs(spec))
-        self._absorb_norms(spec, norms)
-        self._needs_init = False
-        return torch.stack(trace_vals)
-
-    def _advance(self, spec, step_fn):
-        """One optimizer iteration. Returns its trace as a stacked device
-        tensor."""
-        self.opt_state, norms, trace_vals = step_fn(
+    def _scan(self, spec, n_steps):
+        """n_steps iterations (after the prime when the L-BFGS cache is
+        stale) through build_scan_fn and this engine's graphs. Returns
+        (rows, prime row or None) as device tensors."""
+        primed = self._needs_init and self.optimizer_name == 'lbfgs'
+        scan_fn = build_scan_fn(spec, self.optimizer_name, primed)
+        self.opt_state, norms, rows, prime_row = scan_fn(
             self.model, self.opt_state, self._gather_inputs(spec),
-            self.step_size)
+            self.step_size, n_steps, self._graphs)
         self._input = self.opt_state['x']
         self._absorb_norms(spec, norms)
-        return torch.stack(trace_vals)
+        if primed:
+            self._needs_init = False
+        return rows, prime_row
 
     def step(self, fetch_image=True):
         """Runs one optimizer iteration. Returns (deprocessed HxWx3 float32
         RGB image or None, trace dict) like reference worker.py:303-310."""
         self.t += 1
         spec = self.spec()
-        step_fn, eval_fn = build_step_core(spec, self.optimizer_name)
-        # Each trace comes to the host in one transfer (.tolist()).
         with precision_scope(self.precision):
-            if self._needs_init:
-                # The priming evaluation's trace is kept too.
-                self._record_trace(spec, self._prime(spec, eval_fn).tolist(),
+            rows, prime_row = self._scan(spec, 1)
+        # Each trace comes to the host in one transfer (.tolist()); the
+        # priming evaluation's trace is kept too.
+        if prime_row is not None:
+            self._record_trace(spec, prime_row.tolist(), time.perf_counter())
+        trace = self._record_trace(spec, rows[0].tolist(),
                                    time.perf_counter())
-            values = self._advance(spec, step_fn).tolist()
-        trace = self._record_trace(spec, values, time.perf_counter())
         trace('fevals', self.t)
         image = self.snapshot() if fetch_image else None
         return image, trace.data
@@ -445,15 +460,11 @@ class StyleTransfer:
         if n_steps < 1:
             raise ValueError('begin_steps needs at least one step')
         spec = self.spec()
-        step_fn, eval_fn = build_step_core(spec, self.optimizer_name)
-        prime = None
         with precision_scope(self.precision):
-            if self._needs_init:
-                prime = (spec, self._prime(spec, eval_fn))
-            rows = torch.stack([self._advance(spec, step_fn)
-                                for _ in range(n_steps)])
+            rows, prime_row = self._scan(spec, n_steps)
             image = deprocess_on_device(self._input)
         self.t += n_steps
+        prime = None if prime_row is None else (spec, prime_row)
         return StepsDispatch(spec, rows, n_steps, self.t, image, prime)
 
     def collect_steps(self, dispatch, fetch_image=True):

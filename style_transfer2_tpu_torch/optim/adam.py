@@ -7,7 +7,13 @@ Differences from textbook Adam, kept exactly:
     moment only, keeping the second moment and its counter;
   * the update is x -= step_size * m_hat / (sqrt(v_hat) + 1e-8).
 
-The counters are host integers: they never depend on device values.
+The counters are host integers: they never depend on device values. A
+step divides by its two bias corrections, 1 - b**items, as 0-d float32
+device tensors (the JAX package's jnp.power of its int32 counters): the
+engine fills them before each step (next_corrections), so that one
+captured step (engine/graphs.py) serves every step, and the eager path
+divides by the same tensors. On the card `t / python_float` multiplies by
+the reciprocal, while `t / tensor` divides, as the JAX package does.
 
 step_lanes steps B independent states stacked on a leading lane axis (the
 batched engine; JAX: jax.vmap of step): x and both moments (B, H, W, 3),
@@ -24,6 +30,7 @@ from ..ops.resample import resize_nhwc
 
 B1_DEFAULT = 0.9
 B2_DEFAULT = 0.999
+COUNTERS = ('g1_items', 'g2_items', 't')
 
 
 def init(x):
@@ -44,26 +51,38 @@ def _correction(b, items):
     return float(np.float32(1.0) - np.float32(b) ** np.float32(items))
 
 
-def step(state, opfunc, step_size, b1=B1_DEFAULT, b2=B2_DEFAULT):
+def next_corrections(state, b1=B1_DEFAULT, b2=B2_DEFAULT):
+    """The next step's bias corrections (1 - b1**(g1_items + 1), 1 -
+    b2**(g2_items + 1)) from the state's host counters, as host floats."""
+    return (_correction(b1, state['g1_items'] + 1),
+            _correction(b2, state['g2_items'] + 1))
+
+
+def advance_counters(state):
+    """The host counters after one step (those the state holds)."""
+    return {k: state[k] + 1 for k in COUNTERS if k in state}
+
+
+def step(state, opfunc, step_size, b1=B1_DEFAULT, b2=B2_DEFAULT,
+         corrections=None):
     """One Adam step (optimizers.py:20-27). opfunc(x) -> (loss, grad, aux).
-    Returns (state', loss, aux)."""
+    step_size: a float or a 0-d device tensor. corrections: the two bias
+    corrections as 0-d float32 tensors on x's device, or None to take them
+    from the state's host counters (next_corrections). Returns (state',
+    loss, aux); state' carries the counters only where state does."""
     x = state['x']
     loss, grad, aux = opfunc(x)
+    if corrections is None:
+        corrections = [torch.full((), c, dtype=torch.float32, device=x.device)
+                       for c in next_corrections(state, b1, b2)]
+    c1, c2 = corrections
     g1_mean = b1 * state['g1_mean'] + (1 - b1) * grad
-    g1_items = state['g1_items'] + 1
     g2_mean = b2 * state['g2_mean'] + (1 - b2) * torch.square(grad)
-    g2_items = state['g2_items'] + 1
-    g1 = g1_mean / _correction(b1, g1_items)
-    g2 = g2_mean / _correction(b2, g2_items)
+    g1 = g1_mean / c1
+    g2 = g2_mean / c2
     x_new = x - step_size * g1 / (torch.sqrt(g2) + 1e-8)
-    state_new = {
-        'x': x_new,
-        'g1_mean': g1_mean,
-        'g1_items': g1_items,
-        'g2_mean': g2_mean,
-        'g2_items': g2_items,
-        't': state['t'] + 1,
-    }
+    state_new = dict(state, x=x_new, g1_mean=g1_mean, g2_mean=g2_mean)
+    state_new.update(advance_counters(state))
     return state_new, loss, aux
 
 

@@ -169,7 +169,9 @@ def store_curvature_pair(state, s, y):
 def step(state, opfunc, step_size):
     """One L-BFGS step (optimizers.py:62-77): move along the approximate
     Newton direction, evaluate, store the new curvature pair. The (loss,
-    grad) cache must be primed (initial_eval) first."""
+    grad) cache must be primed (initial_eval) first. step_size: a float or
+    a 0-d float32 device tensor (the engine's, as the JAX engine's
+    _step_size_device: one captured step serves every step size)."""
     s = -step_size * inv_hv(state, state['grad'])
     x_new = state['x'] + s
     loss, grad, aux = opfunc(x_new)

@@ -28,7 +28,9 @@ import functools
 
 import torch
 
+from ..engine.graphs import StepGraphs
 from ..engine.objective import make_lane_objective
+from ..engine.steps import WRITES, graph_body, graph_key, step_args
 from ..optim import adam, lbfgs
 
 
@@ -119,30 +121,78 @@ def build_batched_step_fns(spec, optimizer, b1=adam.B1_DEFAULT,
     return batched_step, batched_eval
 
 
+def _masked_run(graphs, kind, core, model, spec, optimizer, states, inputs,
+                extra):
+    """One masked step or eval through graphs (None: eagerly), with the
+    extra args in core's order after the inputs ({'step_sizes', 'mask'}
+    or {'mask'}). Returns (states', (norms_vals', norms_set'), the
+    (n_keys, B) trace)."""
+    if graphs is None:
+        graphs = StepGraphs()
+    lanes = states['x'].shape[0]
+    n_corr = states['sk'].shape[1] if 'sk' in states else None
+    key = graph_key(kind, spec, optimizer, states, lanes,
+                    model.compute_dtype, n_corr)
+    body = graph_body(core, model, tuple(extra))
+    new, trace = graphs.run(key, body, dict(step_args(states, inputs),
+                                            **extra),
+                            WRITES, (len(spec.trace_keys), lanes),
+                            states['x'].device)
+    return new['state'], (new['norms_vals'], new['norms_set']), trace
+
+
 @functools.lru_cache(maxsize=64)
 def build_masked_batched_scan_fn(spec, optimizer, n_steps=10,
                                  b1=adam.B1_DEFAULT, b2=adam.B2_DEFAULT):
-    """K masked steps for every lane, enqueued one after another with no
-    host read: the norm state threads through the steps, and masked lanes
-    stay frozen for all K.
+    """K masked steps for every lane (style_transfer2_tpu/parallel/
+    batch.py build_masked_batched_scan_fn): the norm state threads through
+    the steps, and masked lanes stay frozen for all K.
 
-      scan_fn(model, states, inputs, step_sizes, mask)
-        -> (states', norms', traces)   # traces: (n_keys, B, K)
-    """
+      scan_fn(model, states, inputs, step_sizes, mask, graphs=None)
+        -> (states', norms', traces)   # traces: (n_keys, B, K), fresh
+
+    graphs: the batched engine's StepGraphs (None: the eager loop), through
+    which each step runs: on the card a replay of one captured graph of
+    the masked step (engine/graphs.py), whose static buffers states' and
+    the norms then are."""
     masked_step, _ = build_masked_batched_step_fns(spec, optimizer, b1, b2)
 
-    def scan_fn(model, states, inputs, step_sizes, mask):
+    def scan_fn(model, states, inputs, step_sizes, mask, graphs=None):
         inputs = dict(inputs)
-        rows = []
-        for _ in range(n_steps):
-            states, (nv, ns), trace = masked_step(model, states, inputs,
-                                                  step_sizes, mask)
+        traces = torch.empty((len(spec.trace_keys), states['x'].shape[0],
+                              n_steps), dtype=torch.float32,
+                             device=states['x'].device)
+        for i in range(n_steps):
+            states, (nv, ns), trace = _masked_run(
+                graphs, 'step', masked_step, model, spec, optimizer, states,
+                inputs, {'step_sizes': step_sizes, 'mask': mask})
             inputs['norms_vals'], inputs['norms_set'] = nv, ns
-            rows.append(trace)
+            traces[..., i].copy_(trace)
         return (states, (inputs['norms_vals'], inputs['norms_set']),
-                torch.stack(rows, dim=-1))
+                traces)
 
     return scan_fn
+
+
+@functools.lru_cache(maxsize=64)
+def build_masked_batched_prime_fn(spec, optimizer, b1=adam.B1_DEFAULT,
+                                  b2=adam.B2_DEFAULT):
+    """The masked L-BFGS prime of the lanes in mask, through graphs as
+    build_masked_batched_scan_fn's steps:
+
+      prime_fn(model, states, inputs, mask, graphs=None)
+        -> (states', norms')"""
+    _, masked_eval = build_masked_batched_step_fns(spec, optimizer, b1, b2)
+    if masked_eval is None:
+        raise ValueError('%s has no initial evaluation' % (optimizer,))
+
+    def prime_fn(model, states, inputs, mask, graphs=None):
+        states, norms, _ = _masked_run(graphs, 'prime', masked_eval, model,
+                                       spec, optimizer, states, inputs,
+                                       {'mask': mask})
+        return states, norms
+
+    return prime_fn
 
 
 def _is_image(leaf):

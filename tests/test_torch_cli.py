@@ -39,6 +39,40 @@ def test_cli_cpu_writes_png_and_trace(tmp_path, precision):
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
+@pytest.mark.parametrize('flags', [['--pallas'], ['--platform', 'cpu'],
+                                   ['--prewarm-ladder', '--multi-scale',
+                                    '--min-scale', '18'],
+                                   ['--pallas', '--platform', 'cpu',
+                                    '--prewarm-ladder']])
+def test_cli_accepts_and_ignores_jax_only_flags(tmp_path, caplog, flags):
+    """A JAX command line runs on the port: --pallas, --platform and
+    --prewarm-ladder are parsed, logged as ignored, and change nothing in
+    the run (the trace is the run's without them)."""
+    traces = []
+    for extra in (flags, [f for f in flags if f in ('--multi-scale',
+                                                    '--min-scale', '18')]):
+        trace = tmp_path / ('trace%d.csv' % len(traces))
+        caplog.clear()
+        with caplog.at_level(logging.INFO, logger='cli'):
+            assert cli.main([CONTENT, STYLE, '-o', str(tmp_path / 'o.png'),
+                             '--device', 'cpu', '--size', '32',
+                             '--iterations', '2', '--trace-csv', str(trace)]
+                            + extra) == 0
+        ignored = [r.getMessage() for r in caplog.records
+                   if 'ignored' in r.getMessage()]
+        with open(trace, newline='') as f:
+            traces.append([{k: v for k, v in r.items() if k != 'time'}
+                           for r in csv.DictReader(f)])
+        if extra is flags:
+            named = [f for f in flags if f.startswith('--')
+                     and f not in ('--multi-scale', '--min-scale')]
+            assert len(ignored) == 1
+            assert all(f in ignored[0] for f in named)
+        else:
+            assert not ignored
+    assert traces[0] == traces[1]
+
+
 def test_cli_cuda_without_gpu_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip('this machine has a GPU')

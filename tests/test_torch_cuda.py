@@ -883,3 +883,180 @@ def test_video_stylizer_on_card_matches_cpu(cuda):
     primes = [t for t in got if 'fevals' not in t]
     assert len(primes) == 3 and 'temporal_loss' not in primes[0]
     assert all(p['temporal_loss'] == 0.0 for p in primes[1:])
+
+
+GRAPH_WEIGHTS = {'content': {'conv4_2': 0.08},
+                 'style': {n: 1.0 for n in
+                           ('conv1_1', 'conv2_1', 'conv3_1', 'conv4_1')}}
+GRAPH_SCALARS = {'p': 50.0, 'p_power': 6.0, 'tv': 5.0, 'tv_power': 2.0}
+
+
+def _eager(engine):
+    """The engine with its steps run eagerly, as before the graphs: the
+    plain version the replays are held against."""
+    from style_transfer2_tpu_torch.engine.graphs import StepGraphs
+    engine._graphs = StepGraphs()
+    return engine
+
+
+def _single_run(hw, precision, optimizer, graphed):
+    """One engine through step, a chunk, an objective change, two chunks in
+    flight and step again: its traces, end images, state and norms."""
+    from style_transfer2_tpu_torch.engine import StyleTransfer
+    from style_transfer2_tpu_torch.models import random_params
+    rng = np.random.RandomState(4)
+    content, style_img, inp = (rng.randint(0, 256, hw + (3,)).astype(
+        np.uint8) for _ in range(3))
+    st = StyleTransfer(random_params(0), precision, device='cuda')
+    if not graphed:
+        _eager(st)
+    st.set_weights(GRAPH_WEIGHTS, GRAPH_SCALARS)
+    st.set_optimizer(optimizer)
+    st.set_step_size({'adam': 10.0, 'lbfgs': 1.0}[optimizer])
+    st.set_content(content)
+    st.set_style(style_img)
+    st.set_input(inp)
+    assert st.start()
+    images = [st.step()[0]]
+    images.append(st.run_steps(4)[0])
+    st.set_weights(GRAPH_WEIGHTS, dict(GRAPH_SCALARS, tv=4.0))
+    a, b = st.begin_steps(3), st.begin_steps(2)
+    images += [img for img, _ in st.collect_steps_many([a, b])]
+    images.append(st.step()[0])
+    state = {k: v.clone() if torch.is_tensor(v) else v
+             for k, v in st.opt_state.items()}
+    norms = {k: float(v) for k, v in st.norm_vals.items()}
+    return st, [t.data for t in st.traces], images, state, norms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('precision', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('optimizer', ['lbfgs', 'adam'])
+def test_graphed_steps_equal_eager_bitwise(cuda, precision, optimizer):
+    """From each key's second step on, step() and begin_steps replay a
+    captured graph (and the L-BFGS prime its own): the traces, the end
+    images, the iterate, the optimizer state (an L-BFGS history in bf16 at
+    this grid) and the norms are the eager engine's bits."""
+    from style_transfer2_tpu_torch.engine import graphs
+    hw = (400, 408)              # above the bf16 history's pixel gate
+    replays = graphs.replays
+    st, traces, images, state, norms = _single_run(hw, precision,
+                                                   optimizer, True)
+    assert graphs.replays - replays == 10 + (optimizer == 'lbfgs')
+    assert len(st._graphs) == (2 if optimizer == 'lbfgs' else 1)
+    _, traces_e, images_e, state_e, norms_e = _single_run(
+        hw, precision, optimizer, False)
+    for got, want in zip(traces, traces_e):
+        assert {k: v for k, v in got.items() if k != 'time'} == {
+            k: v for k, v in want.items() if k != 'time'}
+    assert len(traces) == len(traces_e)
+    for got, want in zip(images, images_e):
+        np.testing.assert_array_equal(got, want)
+    assert state.keys() == state_e.keys()
+    for key, value in state.items():
+        if torch.is_tensor(value):
+            assert torch.equal(value, state_e[key]), key
+        else:
+            assert value == state_e[key], key
+    if optimizer == 'lbfgs' and precision == 'bfloat16':
+        assert state['sk'].dtype == torch.bfloat16
+    assert norms == norms_e
+
+
+def _lanes_run(graphed, precision, optimizer):
+    from style_transfer2_tpu_torch.engine.batched import (
+        BatchedStyleTransfer)
+    from style_transfer2_tpu_torch.models import random_params
+    hw = (384, 512)
+    rng = np.random.RandomState(6)
+    jobs = [[rng.randint(0, 256, hw + (3,)).astype(np.uint8)
+             for _ in range(3)] for _ in range(3)]
+    bt = BatchedStyleTransfer(random_params(0), GRAPH_WEIGHTS, GRAPH_SCALARS,
+                              hw, max_lanes=4, optimizer=optimizer,
+                              precision=precision, device='cuda')
+    if not graphed:
+        _eager(bt)
+    for job, lane in zip(jobs, (0, 1, 3)):
+        bt.add_job(*job, lane=lane)
+    rows = [bt.step_all(), bt.run_steps_all(3)]
+    bt.set_running(1, False)
+    rows.append(bt.run_steps_all(2))
+    bt.set_lane_weights(0, GRAPH_WEIGHTS, dict(GRAPH_SCALARS, tv=4.0))
+    bt.set_step_size(3, 0.5)
+    bt.set_running(1, True)
+    rows.append(bt.run_steps_all(2))
+    state = {k: v.clone() for k, v in bt.states.items()}
+    keys, vals, set_ = bt.norms_host()
+    return bt, rows, state, (keys, vals.tolist(), set_.tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('precision', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('optimizer', ['lbfgs', 'adam'])
+def test_graphed_lanes_equal_eager_bitwise(cuda, precision, optimizer):
+    """Four lanes at 384x512, one inactive, one paused for a chunk, a lane's
+    weights and another's step size changed: the masked step's and the
+    masked prime's replays give the eager engine's bits."""
+    from style_transfer2_tpu_torch.engine import graphs
+    replays = graphs.replays
+    bt, rows, state, norms = _lanes_run(True, precision, optimizer)
+    assert graphs.replays > replays
+    _, rows_e, state_e, norms_e = _lanes_run(False, precision, optimizer)
+    assert rows == rows_e
+    for key, value in state.items():
+        assert torch.equal(value, state_e[key]), key
+    assert norms == norms_e
+
+
+def _ladder_run(graphed):
+    from style_transfer2_tpu_torch.engine import StyleTransfer
+    from style_transfer2_tpu_torch.models import random_params
+    rng = np.random.RandomState(8)
+    images = [rng.randint(0, 256, hw + (3,)).astype(np.uint8)
+              for hw in ((96, 128), (136, 181), (192, 256), (96, 128),
+                         (96, 128))]
+    st = StyleTransfer(random_params(0), 'bfloat16', device='cuda')
+    if not graphed:
+        _eager(st)
+    st.set_weights(GRAPH_WEIGHTS, GRAPH_SCALARS)
+    st.set_content(images[0])
+    st.set_style(images[3])
+    st.set_input(images[4])
+    assert st.start()
+    rows = []
+    for rung, image in enumerate(images[:3]):
+        if rung:
+            st.resample_input(image.shape[:2])
+            st.set_content(image)
+        for n in (3, 3, 2):
+            rows.append(st.collect_steps(st.begin_steps(n))[1])
+    return st, [[{k: v for k, v in t.data.items() if k != 'time'}
+                 for t in chunk] for chunk in rows]
+
+
+@pytest.mark.cuda
+def test_graphs_recapture_up_a_ladder(cuda):
+    """Each warm start drops the old grid's graphs and their memory pool;
+    the next rung captures into a fresh one, and the run is the eager
+    engine's bits."""
+    st, rows = _ladder_run(True)
+    assert len(st._graphs) == 1
+    _, rows_e = _ladder_run(False)
+    assert rows == rows_e
+
+
+@pytest.mark.cuda
+def test_dropped_engine_returns_its_graph_memory(cuda):
+    """A graphed engine holds its graphs' private pool while it lives; when
+    it goes, the pool's memory goes back to CUDA (a dead pool would
+    otherwise stay reserved, even through an out-of-memory retry)."""
+    def private_segments():
+        torch.cuda.synchronize()
+        return [seg for seg in torch.cuda.memory._snapshot()['segments']
+                if tuple(seg.get('segment_pool_id', (0, 0))) != (0, 0)]
+
+    assert not private_segments()
+    st, _ = _ladder_run(True)
+    assert private_segments()
+    del st
+    assert not private_segments()

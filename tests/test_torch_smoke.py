@@ -109,6 +109,18 @@ def test_require_planned_holds_each_bucket_grid(monkeypatch, precision, hw,
                                               (precision, hw)], 4)
 
 
+def test_require_all_launched_needs_graph_replays(monkeypatch):
+    """A run whose steps never replayed a graph fails, however many kernels
+    it launched; one that replayed records its count."""
+    ones = dict.fromkeys(chip_smoke.KERNELS, 1)
+    monkeypatch.setattr(chip_smoke, 'replays', lambda: 0)
+    with pytest.raises(RuntimeError, match='no step graph replayed'):
+        chip_smoke.require_all_launched(ones, 'main float32')
+    monkeypatch.setattr(chip_smoke, 'replays', lambda: 19)
+    chip_smoke.require_all_launched(ones, 'main float32')
+    assert chip_smoke.REPLAYS['main float32'] == 19
+
+
 def test_serve_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     """The serve phase's browser script, event log and checks end to end
     against the app on the CPU at 36x48 (its ladder 18x24 -> 36x48), with
@@ -126,8 +138,11 @@ def test_serve_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     ones = dict.fromkeys(chip_smoke.KERNELS, 1)
     monkeypatch.setattr(chip_smoke, 'counters', lambda: dict(ones))
     monkeypatch.setattr(chip_smoke, 'require_paths', lambda *a: None)
+    monkeypatch.setattr(chip_smoke, 'replays', lambda: 1)
     fake = types.SimpleNamespace(cuda=types.SimpleNamespace(
-        synchronize=lambda: None, get_device_name=lambda i: 'cpu'))
+        synchronize=lambda: None, get_device_name=lambda i: 'cpu',
+        memory_allocated=lambda: 0, reset_peak_memory_stats=lambda: None,
+        max_memory_allocated=lambda: 2 ** 20))
     assert chip_smoke.phase_serve(fake, 'a CPU') == dict.fromkeys(
         chip_smoke.KERNELS, 2)
     a = json.loads((tmp_path / 'serve.json').read_text())
@@ -158,6 +173,7 @@ def test_batch_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, 'OUT_DIR', tmp_path)
     ones = dict.fromkeys(chip_smoke.KERNELS, 1)
     monkeypatch.setattr(chip_smoke, 'counters', lambda: dict(ones))
+    monkeypatch.setattr(chip_smoke, 'replays', lambda: 1)
     monkeypatch.setattr(chip_smoke, 'planned_paths', lambda *a: [])
     fake = types.SimpleNamespace(cuda=types.SimpleNamespace(
         synchronize=lambda: None, memory_allocated=lambda: 0,
@@ -210,6 +226,7 @@ def test_pool_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     ones = dict.fromkeys(chip_smoke.KERNELS, 1)
     monkeypatch.setattr(chip_smoke, 'counters', lambda: dict(ones))
     monkeypatch.setattr(chip_smoke, 'require_paths', lambda *a: None)
+    monkeypatch.setattr(chip_smoke, 'replays', lambda: 1)
     planned = []
     monkeypatch.setattr(chip_smoke, 'planned_paths',
                         lambda torch, *a: planned.append(a) or [])
@@ -278,6 +295,7 @@ def test_video_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     frames = chip_smoke.VIDEO_FRAMES
     counts = dict.fromkeys(chip_smoke.KERNELS, 1)
     counts.update(preprocess=2 * frames + 2, deprocess=frames)
+    monkeypatch.setattr(chip_smoke, 'replays', lambda: 1)
     monkeypatch.setattr(chip_smoke, 'counters', lambda: dict(counts))
 
     class Event:
@@ -319,3 +337,61 @@ def test_video_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     assert sorted(parity['cpu_moved_by_noise']) == ['1e-06', '1e-07']
     assert parity['trajectory_parts_at_row'] is None
     assert sorted(result['profile_kernels']) == ['conv', 'image', 'style']
+
+
+class _ReplayGraph:
+    def __init__(self, fn):
+        self.fn = fn
+
+    def replay(self):
+        self.fn()
+
+
+class _FakeGraphs:
+    """A capture backend without a card (tests/test_torch_scan.py)."""
+
+    def warm(self, fn):
+        return fn()
+
+    def capture(self, fn):
+        return _ReplayGraph(fn)
+
+    def reset(self):
+        pass
+
+
+@pytest.mark.usefixtures('one_thread')
+def test_graph_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    """The graph phase end to end on the CPU at 24x32: graphed against
+    eager bit for bit in every combination, the timings in turns, the
+    memory readings and graph.json, with a capture backend that replays
+    without a card and the card-only parts stubbed (node counts,
+    torch.cuda's sync and memory statistics)."""
+    import types
+
+    from style_transfer2_tpu_torch.engine import graphs
+
+    monkeypatch.setattr(chip_smoke, 'GRAPH_DEVICE', 'cpu')
+    monkeypatch.setattr(chip_smoke, 'GRAPH_BACKEND', _FakeGraphs)
+    monkeypatch.setattr(chip_smoke, 'GRAPH_HW', (24, 32))
+    monkeypatch.setattr(chip_smoke, 'GRAPH_CHUNK', 2)
+    monkeypatch.setattr(chip_smoke, 'GRAPH_HOST_CHUNK', 1)
+    monkeypatch.setattr(chip_smoke, 'GRAPH_ROUNDS', 1)
+    monkeypatch.setattr(chip_smoke, 'OUT_DIR', tmp_path)
+    monkeypatch.setattr(chip_smoke, 'graph_nodes', lambda *a: None)
+    fake = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        synchronize=lambda: None, memory_allocated=lambda: 0,
+        memory_reserved=lambda: 0, empty_cache=lambda: None,
+        reset_peak_memory_stats=lambda: None,
+        max_memory_allocated=lambda: 0))
+    replays = graphs.replays
+    out = chip_smoke.phase_graph(fake, 'a CPU')
+    assert graphs.replays > replays
+    result = json.loads((tmp_path / 'graph.json').read_text())
+    assert result['bitwise'] and result['hw'] == [24, 32]
+    assert {c['kind'] for c in result['capture_s']} == {'step', 'prime'}
+    for precision in ('float32', 'bfloat16'):
+        for kind in ('one_image', 'lanes4'):
+            for name in ('eager', 'graphed'):
+                run = out[precision][kind][name]
+                assert len(run['ms']) == 2 and run['it_s'] > 0
