@@ -60,10 +60,38 @@ exits non-zero:
                launched; each rung's it/s, the polish's time and first and
                last loss, the wall time, then a single-scale 1024px run of
                the same iteration count for comparison.
-  6. parity  — the CUDA engine against the CPU engine (the plain versions)
+  6. highres — the CLI's main() at --size 3840 (a 2880x3840 iterate, a
+               3072x3840 style image), L-BFGS, 12 iterations in chunks of
+               4 one deep, single-scale, full-width VGG-19 with
+               random_params(0): first every conv of the trunk up to
+               conv4_2 at that iterate's shapes, forward and backward, in
+               float32 and bfloat16 (planned paths, cuDNN's times, the
+               step's sums), the style branch at its four taps against its
+               plain version in float64 (the float32 plain version's own
+               error beside), the image kernels at both grids bit for bit,
+               each a median of 5 after 1 warm-up on maps drawn on the
+               card; one forward and vjp of the model at that iterate
+               for each precision and policy (the bytes the forward
+               leaves, the peak, the gradient bit for bit the plain one);
+               then five runs: float32 and bfloat16 without remat,
+               float32 --remat block, bfloat16 --remat conv and --remat
+               block. Each: finite, falling loss, a 3840x2880 PNG, every
+               kernel launched, the steps replayed from graphs, each remat
+               run's trace equal bit for bit to its precision's run
+               without remat; its it/s over the last two chunks (host
+               clock at the synced collects), capture seconds, peak
+               allocated and reserved memory, the reserved memory at each
+               chunk, the seconds from the call to the PNG (each PNG is
+               deleted once checked: five would outgrow chiprun_out);
+               highres.json.
+  7. parity  — the CUDA engine against the CPU engine (the plain versions)
                on small inputs, 5 steps at one size and a 2-rung ladder:
                every trace key within the golden rtol.
-  7. batch   — the CLI's --batch --lanes 4 at --size 512, L-BFGS, 20
+  8. graph   — graphed engines against eager ones on the 512px main path's
+               inputs in one process: the bitwise checks, then 20-step
+               chunks in turns (ms and host us a step, nodes, capture
+               seconds, memory); graph.json.
+  9. batch   — the CLI's --batch --lanes 4 at --size 512, L-BFGS, 20
                iterations one step a dispatch, in float32 and in bfloat16,
                full-width VGG-19 with random_params(0), on a directory of
                golden_gate.jpg, its three flips (one full wave of 4 lanes)
@@ -76,7 +104,7 @@ exits non-zero:
                BatchedStyleTransfer against two single CUDA engines at
                48x64, 5 L-BFGS steps, every trace key within the golden
                rtol; batch.json.
-  8. serve   — the web app (style_transfer2_tpu_torch.serve.app) on the
+ 10. serve   — the web app (style_transfer2_tpu_torch.serve.app) on the
                card with config.ini's dispatch defaults (adaptive 60, depth
                2, latency target 2.0 s), driven over a real localhost
                socket by the browser protocol, full-width VGG-19 with
@@ -93,7 +121,7 @@ exits non-zero:
                session's it/s (host clock and the app's itsPerS), first
                iterate, the control latency and the polish respawn's
                seconds printed; serve.json.
-  9. pool    — the pooled server (style_transfer2_tpu_torch.serve.pool)
+ 11. pool    — the pooled server (style_transfer2_tpu_torch.serve.pool)
                on the card, config.ini with its pool defaults (4 lanes,
                Adam, one step a dispatch, images fetched at most every
                0.25 s) and pool_sizes 256, 384, 512 over it, full-width
@@ -122,7 +150,7 @@ exits non-zero:
                latency, the resize and polish migrations' seconds (and a
                new bucket's first iterate beside a warm one), each rung's
                it/s, the peak device memory; pool.json.
- 10. video   — video.main() on 8 frames of a horizontal pan cut from
+ 12. video   — video.main() on 8 frames of a horizontal pan cut from
                golden_gate.jpg (640x480 windows, 16 px apart), --size 512
                (512x384), starry_night.jpg, initial_weights.yaml,
                full-width VGG-19 with random_params(0), L-BFGS, 150
@@ -148,7 +176,7 @@ exits non-zero:
                iterations), every trace key within the golden rtol; and
                the CLI's --profile in a subprocess, whose trace must name
                the conv, style and image kernels.
- 11. profile — every kernel and library call timed in phase 3, on the
+ 13. profile — every kernel and library call timed in phase 3, on the
                same inputs: host_us, the host clock over HOST_CALLS
                back-to-back calls with no sync (the enqueue cost), then
                device_ms, its kernels' own time from torch.profiler's CUDA
@@ -314,6 +342,26 @@ VIDEO_PROFILE_SIZE = 256
 VIDEO_PROFILE_CATEGORY = 'kernel'
 VIDEO_PROFILE_NAMES = {'conv': 'conv3x3_', 'style': 'style_grad_kernel',
                        'image': 'mean_shift_kernel'}
+
+# The highres phase: the CLI at --size HIGHRES_SIZE, where golden_gate.jpg
+# (800x600) becomes a HIGHRES_HW iterate and starry_night.jpg (750x600) a
+# HIGHRES_STYLE_HW style image; L-BFGS, single-scale, HIGHRES_ITERATIONS
+# in chunks of HIGHRES_CHUNK one deep (the first chunk holds the eager
+# warm-up and the capture, the last two the rate), once for each
+# (precision, --remat) of HIGHRES_RUNS; the kernels at its shapes timed by
+# median_ms with HIGHRES_TIMING (reps, warm-ups).
+HIGHRES_SIZE = 3840
+HIGHRES_HW = (2880, 3840)
+HIGHRES_STYLE_HW = (3072, 3840)
+HIGHRES_ITERATIONS = 12
+HIGHRES_CHUNK = 4
+HIGHRES_RUNS = (('float32', None), ('float32', 'block'),
+                ('bfloat16', None), ('bfloat16', 'conv'),
+                ('bfloat16', 'block'))
+HIGHRES_TIMING = (5, 1)
+HIGHRES_DEVICE = 'cuda'      # the runs' --device (the CPU tests set cpu)
+# The CLI's log line after each collected chunk.
+CHUNK_LOG = 'scale %dx%d iterate %d loss %.6g'
 
 # The ladder run's --size and --min-scale, and its rungs
 # (utils.scales((768, 1024), min_size=96)).
@@ -497,6 +545,16 @@ def host_us(fn, torch, calls=HOST_CALLS):
     return dt / calls * 1e6
 
 
+def draw(torch, rng, shape, scale=1.0):
+    """Normal samples of `shape` times `scale`, float32 on the card: from a
+    numpy RandomState on the host, or from a torch.Generator on the card
+    (the highres shapes, which the host would take minutes to draw)."""
+    if isinstance(rng, np.random.RandomState):
+        return torch.as_tensor(np.float32(rng.randn(*shape) * scale),
+                               device='cuda')
+    return torch.randn(shape, generator=rng, device='cuda') * scale
+
+
 def rel_err(got, want):
     """(max abs error, that error over max(1, max |want|))."""
     got, want = got.detach().float(), want.detach().float()
@@ -587,25 +645,29 @@ def phase_build():
         say('build', line)
 
 
-def check_conv(torch, rng, shape, dtype_name, where, pending, n=1):
+def check_conv(torch, rng, shape, dtype_name, where, pending, n=1,
+               timing=(15, 3)):
     """Holds the conv kernels against the plain version at one shape, over
-    n images (the batched engine's lanes), and times both. Returns the row
-    for kernels.json; appends to `pending` the (row, field, fn) of each
-    device time to profile later."""
+    n images (the batched engine's lanes), and times both (median_ms's
+    reps and warm-ups: `timing`). Returns the row for kernels.json;
+    appends to `pending` the (row, field, fn) of each device time to
+    profile later."""
     import torch.nn.functional as F
     from style_transfer2_tpu_torch.ops import conv
     h, w, cin, cout = shape
+
+    def timed(fn):
+        return median_ms(fn, torch, *timing)
+
     dtype = {'float32': torch.float32, 'bfloat16': torch.bfloat16}[
         dtype_name]
     dev = torch.device('cuda')
 
-    def as_t(a):
-        return torch.as_tensor(np.float32(a), device=dev).to(dtype)
-
-    x = as_t(rng.randn(n, h, w, cin))
-    wt = as_t(rng.normal(0, np.sqrt(2.0 / (9 * cin)), (3, 3, cin, cout)))
-    b = as_t(rng.randn(cout) * 0.1)
-    g = as_t(rng.randn(n, h, w, cout))
+    x = draw(torch, rng, (n, h, w, cin)).to(dtype)
+    wt = draw(torch, rng, (3, 3, cin, cout), np.sqrt(2.0 / (9 * cin))).to(
+        dtype)
+    b = draw(torch, rng, (cout,), 0.1).to(dtype)
+    g = draw(torch, rng, (n, h, w, cout)).to(dtype)
 
     # The reference is the plain version in float32 on the same (for bf16:
     # bf16-valued) inputs, TF32 off: the kernel computes that sum and
@@ -669,21 +731,21 @@ def check_conv(torch, rng, shape, dtype_name, where, pending, n=1):
     def bwd():
         return conv._launch_bwd(g, y, w_bwd)
 
-    fwd_k = median_ms(fwd, torch)
-    fwd_p = median_ms(lambda: conv.conv3x3_bias_relu_plain(x, wt, b), torch)
-    bwd_k = median_ms(bwd, torch)
+    fwd_k = timed(fwd)
+    fwd_p = timed(lambda: conv.conv3x3_bias_relu_plain(x, wt, b))
+    bwd_k = timed(bwd)
     # Where the narrow kernel is planned, and in bfloat16 everywhere, the
     # tile kernel (in bfloat16 the mma.sync kernel) on the same inputs in
     # the same run.
     bwd_tile = fwd_tile = None
     if path == conv.NARROW or alt:
-        bwd_tile = median_ms(lambda: conv._launch_bwd(
-            g, y, w_bwd, (conv.TILE, 1, cout)), torch)
+        bwd_tile = timed(lambda: conv._launch_bwd(
+            g, y, w_bwd, (conv.TILE, 1, cout)))
     if alt:
-        fwd_tile = median_ms(lambda: conv._launch_fwd(
-            x, wt, b, (conv.TILE, 1, cin)), torch)
-    bwd_p = median_ms(lambda: torch.autograd.grad(
-        conv.conv3x3_bias_relu_plain(xr, wt, b), xr, g), torch)
+        fwd_tile = timed(lambda: conv._launch_fwd(
+            x, wt, b, (conv.TILE, 1, cin)))
+    bwd_p = timed(lambda: torch.autograd.grad(
+        conv.conv3x3_bias_relu_plain(xr, wt, b), xr, g))
     # The plain backward's time includes its forward (autograd needs it);
     # report its backward alone.
     bwd_p = max(bwd_p - fwd_p, 0.0)
@@ -699,8 +761,8 @@ def check_conv(torch, rng, shape, dtype_name, where, pending, n=1):
     def bwd_lib():
         return torch.nn.grad.conv2d_input(x_c.shape, w_c, g_c, padding=1)
 
-    fwd_l = median_ms(fwd_lib, torch)
-    bwd_l = median_ms(bwd_lib, torch)
+    fwd_l = timed(fwd_lib)
+    bwd_l = timed(bwd_lib)
     (fwd_b, fwd_by), (bwd_b, bwd_by) = conv_bounds(shape, dtype_name, n)
     gflop = 2 * 9 * n * h * w * cin * cout / 1e9
     say('kernels', 'conv %-8s %-8s %-21s fwd %s%s %.3f ms (plain %.3f, '
@@ -785,20 +847,25 @@ def check_mma_sync(torch, x, wt, b, g, y, w_bwd, y_r, dx_r, what):
     return errs
 
 
-def check_style(torch, rng, tap, where, pending, lanes=1):
+def check_style(torch, rng, tap, where, pending, lanes=1, timing=(15, 3),
+                f64=False):
     """Holds the style branch against its plain version at one tap and
     times both: one map with its (c, c) target, or `lanes` maps with their
     (lanes, c, c) targets in one launch sequence, each lane then also held
     against the one-map kernel on that lane alone and timed beside two
-    torch.bmm (the Gram and the gradient product) as the library call."""
+    torch.bmm (the Gram and the gradient product) as the library call.
+    With f64 (one map), the kernel is held against the plain version in
+    float64 instead, and the float32 plain version's own distance from it
+    is reported: at millions of rows the float32 sums of both stray."""
     from style_transfer2_tpu_torch.ops import style
     h, w, c = tap
     m = h * w
-    dev = torch.device('cuda')
-    feat = torch.relu(torch.as_tensor(np.float32(rng.randn(lanes, h, w, c)),
-                                      device=dev))
-    other = torch.relu(torch.as_tensor(np.float32(rng.randn(lanes, m, c)),
-                                       device=dev))
+
+    def timed(fn):
+        return median_ms(fn, torch, *timing)
+
+    feat = torch.relu(draw(torch, rng, (lanes, h, w, c)))
+    other = torch.relu(draw(torch, rng, (lanes, m, c)))
     gram_style = torch.bmm(other.transpose(1, 2), other) / (m * c)
     if lanes == 1:
         feat, gram_style = feat[:1], gram_style[0]
@@ -819,6 +886,19 @@ def check_style(torch, rng, tap, where, pending, lanes=1):
                          float(target.abs().max())))
 
     se, sr, ge, gr = errs(s_k, gd_k, s_p, gd_p, gram_style)
+    plain_err = None
+    if f64:
+        # The plain version's two matmuls in float64.
+        x64 = feat.double().reshape(m, c)
+        gd64 = x64.T @ x64 / (m * c) - gram_style.double()
+        s64 = (x64 @ gd64 * (2.0 / (c * c * m * c))).reshape(feat.shape)
+        del x64
+        plain_err = errs(s_p, gd_p, s64, gd64, gram_style)[1::2]
+        say('kernels', 'style float32 %-8s %-16s against float64: kernel '
+            'and float32 plain differ by %.2g/%.2g; the plain version is '
+            'at %.2g/%.2g of float64' % (where, tap, sr, gr, *plain_err))
+        se, sr, ge, gr = errs(s_k, gd_k, s64, gd64, gram_style)
+        del s64, gd64
     require(math.isfinite(sr) and sr <= STYLE_TOL,
             'style s_grad %s x%d: rel err %.3g' % (tap, lanes, sr))
     require(math.isfinite(gr) and gr <= STYLE_TOL,
@@ -855,16 +935,16 @@ def check_style(torch, rng, tap, where, pending, lanes=1):
     def kernel():
         return style._launch(feat, gram_style)
 
-    t_k = median_ms(kernel, torch)
-    t_p = median_ms(
-        lambda: style.fused_style_branch_plain(feat, gram_style), torch)
+    t_k = timed(kernel)
+    t_p = timed(
+        lambda: style.fused_style_branch_plain(feat, gram_style))
     lib, t_l = None, None
     if lanes > 1:
         def lib():
             return (torch.bmm(flat.transpose(1, 2), flat),
                     torch.bmm(flat, gd_k))
 
-        t_l = median_ms(lib, torch)
+        t_l = timed(lib)
     # Operations: M*C*(C+1) for the Gram (symmetric: the upper triangle
     # with its diagonal) and 2*M*C^2 for the gradient product; bytes: X and
     # G_style read, and G_diff and s_grad written, once; each per lane.
@@ -884,6 +964,7 @@ def check_style(torch, rng, tap, where, pending, lanes=1):
            'plain_ms': t_p, 'library_ms': t_l, 'bound_ms': t_b,
            'bound_by': t_by, 's_grad_rel_err': sr, 'gram_diff_rel_err': gr,
            'lane_rel_err': lane_err, 'f64_rel_err': f64_err,
+           'plain_f64_rel_err': plain_err,
            'abs_err': max(se, ge)}
     pending.append((row, '', kernel))
     if lib is not None:
@@ -891,7 +972,7 @@ def check_style(torch, rng, tap, where, pending, lanes=1):
     return row
 
 
-def check_image(torch, rng, hw, pending):
+def check_image(torch, rng, hw, pending, timing=(15, 3)):
     """Preprocess from uint8 and from float32 and deprocess at one rung,
     bit for bit against the plain versions. Times: the kernel alone on a
     device tensor against the plain version's device op and against one
@@ -903,6 +984,10 @@ def check_image(torch, rng, hw, pending):
     dev = torch.device('cuda')
     mean = torch.as_tensor(image.MEAN_RGB, device=dev)
     rows = []
+
+    def timed(fn):
+        return median_ms(fn, torch, *timing)
+
     for dtype_name in ('uint8', 'float32'):
         img = (rng.randint(0, 256, hw + (3,)).astype(np.uint8)
                if dtype_name == 'uint8'
@@ -933,14 +1018,14 @@ def check_image(torch, rng, hw, pending):
         def de_lib():
             return torch.add(x_k[0], mean)
 
-        pre_k = median_ms(pre, torch)
-        pre_p = median_ms(lambda: src32[None] - mean, torch)
-        e2e_k = median_ms(lambda: image.preprocess(img, dev), torch)
-        e2e_p = median_ms(lambda: image.preprocess_plain(img, dev), torch)
-        de_k = median_ms(de, torch)
-        de_p = median_ms(lambda: image.deprocess_plain(x_k), torch)
-        pre_l = median_ms(pre_lib, torch)
-        de_l = median_ms(de_lib, torch)
+        pre_k = timed(pre)
+        pre_p = timed(lambda: src32[None] - mean)
+        e2e_k = timed(lambda: image.preprocess(img, dev))
+        e2e_p = timed(lambda: image.preprocess_plain(img, dev))
+        de_k = timed(de)
+        de_p = timed(lambda: image.deprocess_plain(x_k))
+        pre_l = timed(pre_lib)
+        de_l = timed(de_lib)
         # Bytes: the image in its own dtype and 12 bytes a pixel out
         # (preprocess); 12 in and 12 out (deprocess).
         px = hw[0] * hw[1]
@@ -1761,6 +1846,261 @@ def phase_ladder(torch, log):
                 entry['ladder_final_loss']))
         summary[precision] = entry
     (OUT_DIR / 'ladder.json').write_text(json.dumps(summary, indent=1))
+    return launches
+
+
+def highres_kernels(torch, worst):
+    """Part (a) of the highres phase: every conv of the trunk up to conv4_2
+    at the HIGHRES_HW iterate's shapes, forward and backward, in float32
+    and bfloat16 (with each shape's planned paths and cuDNN's times, and
+    the step's sums), the style branch at its four taps held against its
+    plain version in float64, and the image kernels at HIGHRES_HW and
+    HIGHRES_STYLE_HW bit for bit; the kernels phase's tolerances, timed
+    with HIGHRES_TIMING. The maps are drawn on the card from a seeded
+    torch.Generator. Folds each row's error into `worst`; returns the
+    rows."""
+    from style_transfer2_tpu_torch.utils import tf32
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(HIGHRES_SIZE)
+    rng = np.random.RandomState(HIGHRES_SIZE)
+    size = '%dx%d' % HIGHRES_HW
+    rows = []
+    with tf32(False):
+        for dtype_name in ('float32', 'bfloat16'):
+            seen = {}
+            for shape in trunk_convs(*HIGHRES_HW):
+                if shape not in seen:
+                    seen[shape] = check_conv(torch, gen, shape, dtype_name,
+                                             size, [], timing=HIGHRES_TIMING)
+                    rows.append(seen[shape])
+                for d in ('fwd', 'bwd'):
+                    name = 'conv3x3_bias_relu_' + d
+                    worst[name] = max(worst[name], seen[shape][d + '_abs_err'])
+            step_sums([seen[s] for s in trunk_convs(*HIGHRES_HW)],
+                      dtype_name, size)
+        for tap in style_taps(*HIGHRES_HW):
+            row = check_style(torch, gen, tap, size, [],
+                              timing=HIGHRES_TIMING, f64=True)
+            rows.append(row)
+            worst['fused_style_branch'] = max(worst['fused_style_branch'],
+                                              row['abs_err'])
+        for hw in (HIGHRES_HW, HIGHRES_STYLE_HW):
+            for row in check_image(torch, rng, hw, [], timing=HIGHRES_TIMING):
+                rows.append(row)
+                for name in ('preprocess', 'deprocess'):
+                    worst[name] = max(worst[name], row[name + '_abs_err'])
+    return rows
+
+
+def highres_memory(torch):
+    """One forward and vjp of VGG19Features to conv4_2 at the HIGHRES_HW
+    iterate (taps conv1_1, conv2_1, conv3_1, conv4_1, conv4_2; ones as
+    cotangents), for each precision and remat policy: the bytes the
+    forward leaves allocated, the evaluation's peak and its seconds; each
+    policy's gradient must be the plain one's bits, and in float32 block
+    remat must leave less saved. Returns {precision: {policy: entry}}."""
+    from style_transfer2_tpu_torch.models import random_params, vgg19
+    from style_transfer2_tpu_torch.models.weights import params_from_numpy
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(HIGHRES_SIZE)
+    x = torch.rand((1,) + HIGHRES_HW + (3,), generator=gen,
+                   device='cuda') * 250 - 120
+    layers = ('conv1_1', 'conv2_1', 'conv3_1', 'conv4_1', 'conv4_2')
+    result = {}
+    for precision, dtype in (('float32', torch.float32),
+                             ('bfloat16', torch.bfloat16)):
+        params = params_from_numpy(random_params(0), 'cuda', dtype)
+        plain = None
+        result[precision] = {}
+        for policy in (False, 'conv', 'block'):
+            model = vgg19.VGG19Features(params, dtype, policy)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            feats, vjp = model.features_and_vjp(x, layers)
+            saved = torch.cuda.memory_allocated() - base
+            grad = vjp({n: torch.ones_like(f) for n, f in feats.items()})
+            torch.cuda.synchronize()
+            entry = {'saved_bytes': saved,
+                     'peak_bytes': torch.cuda.max_memory_allocated() - base,
+                     'seconds': time.perf_counter() - t0}
+            del feats, vjp
+            if plain is None:
+                plain = grad
+            require(torch.equal(grad, plain), 'highres %s remat %s: the '
+                    'gradient differs from the plain one' % (precision,
+                                                             policy))
+            result[precision][str(policy)] = entry
+            say('highres', 'evaluation %s remat %-5s: the forward leaves '
+                '%.0f MiB, peak %.0f MiB, %.3f s; gradient bit for bit '
+                'the plain one' % (precision, policy,
+                                    saved / 2 ** 20,
+                                    entry['peak_bytes'] / 2 ** 20,
+                                    entry['seconds']))
+        del plain, grad, params
+    f32 = result['float32']
+    require(f32['block']['saved_bytes'] < f32['False']['saved_bytes'],
+            'highres float32: block remat left no less saved')
+    return result
+
+
+class ChunkMemory(logging.Handler):
+    """The card's reserved bytes at each of the CLI's chunk log lines,
+    while the engine and its graphs live."""
+
+    def __init__(self, torch):
+        super().__init__()
+        self.torch = torch
+        self.reserved = []
+
+    def emit(self, record):
+        if record.msg == CHUNK_LOG:
+            self.reserved.append(self.torch.cuda.memory_reserved())
+
+
+def highres_run(torch, log, memory, precision, remat):
+    """One CLI run of the highres phase; returns its entry for
+    highres.json with its kernel counts and its trace rows (less the
+    time)."""
+    import gc
+    from PIL import Image
+    from style_transfer2_tpu_torch import cli
+    from style_transfer2_tpu_torch.engine import graphs
+    name = precision + ('' if remat is None else '_remat_' + remat)
+    png = OUT_DIR / ('highres_%s.png' % name)
+    trace_csv = OUT_DIR / ('highres_%s.csv' % name)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    png.unlink(missing_ok=True)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counters()
+    graphs.captures.clear()
+    emptied = graphs.emptied
+    start = len(log.records)
+    memory.reserved.clear()
+    t0 = time.time()             # the log records' clock
+    rc = cli.main([str(CONTENT), str(STYLE), '-o', str(png),
+                   '--size', str(HIGHRES_SIZE), '--optimizer', 'lbfgs',
+                   '--precision', precision, '--model-weights', 'random',
+                   '--iterations', str(HIGHRES_ITERATIONS),
+                   '--steps-per-dispatch', str(HIGHRES_CHUNK),
+                   '--pipeline-depth', '1', '--device', HIGHRES_DEVICE,
+                   '--trace-csv', str(trace_csv)]
+                  + ([] if remat is None else ['--remat', remat]))
+    torch.cuda.synchronize()
+    what = 'highres ' + name
+    counts = counters()
+    require(rc == 0, '%s: cli.main returned %r' % (what, rc))
+    require_all_launched(counts, what)
+    require_paths(what, precision)
+    records = log.records[start:]
+    chunks = [(r.args[2], r.created) for r in records if r.msg == CHUNK_LOG]
+    require([n for n, _ in chunks] == list(range(
+        HIGHRES_CHUNK, HIGHRES_ITERATIONS + 1, HIGHRES_CHUNK)),
+        '%s: chunks collected at %s' % (what, [n for n, _ in chunks]))
+    wrote = [r.created for r in records
+             if r.msg == 'wrote %s after %d iterations in %.1fs']
+    require(len(wrote) == 1, '%s: the PNG was not logged' % what)
+    (n0, t_0), (n1, t_1) = chunks[-3], chunks[-1]
+    it_s = (n1 - n0) / (t_1 - t_0)
+    rows = [{k: v for k, v in r.items() if k != 'time'}
+            for r in read_trace(trace_csv)]
+    losses = [float(r['loss']) for r in rows]
+    require(len(rows) == HIGHRES_ITERATIONS + 1, '%s: %d trace rows'
+            % (what, len(rows)))
+    require(all(math.isfinite(v) for v in losses), '%s: non-finite loss'
+            % what)
+    require(losses[-1] < losses[0], '%s: loss did not fall: %.6g -> %.6g'
+            % (what, losses[0], losses[-1]))
+    hw = tuple(r.args[:2] for r in records if r.msg == CHUNK_LOG)[0]
+    with Image.open(png) as img:
+        require(img.size == HIGHRES_HW[::-1] and hw == HIGHRES_HW,
+                '%s: PNG size %s, grid %s' % (what, img.size, hw))
+    # Five 3840px PNGs would outgrow what chiprun_out may bring back.
+    png.unlink()
+    entry = {
+        'precision': precision, 'remat': remat, 'it_s': it_s,
+        'ms_step': 1e3 / it_s, 'wall_s': wrote[0] - t0,
+        'capture_s': [c['seconds'] for c in graphs.captures],
+        'cache_emptied_at_capture': graphs.emptied - emptied,
+        'peak_bytes': torch.cuda.max_memory_allocated() - base,
+        'max_memory_allocated': torch.cuda.max_memory_allocated(),
+        'max_memory_reserved': torch.cuda.max_memory_reserved(),
+        'memory_reserved_at_chunks': list(memory.reserved),
+        'base_allocated': base, 'losses': [losses[0], losses[-1]],
+        'replays': REPLAYS[what], 'launches': counts,
+        'paths': path_counts()}
+    say('highres', '%s: %d L-BFGS iterations at %dx%d in chunks of %d: '
+        '%.3f it/s (%.1f ms a step) over the last %d, loss %.6g -> %.6g, '
+        '%.1f s from the call to the PNG; capture s %s%s; peak allocated '
+        '%.0f MiB over the start (%.0f MiB before it), peak reserved %.0f '
+        'MiB, reserved at the chunks %s MiB; '
+        '%d graph replays; launches %s; conv paths %s' % (
+            what, HIGHRES_ITERATIONS, hw[0], hw[1], HIGHRES_CHUNK, it_s,
+            entry['ms_step'], n1 - n0, losses[0], losses[-1],
+            entry['wall_s'], ', '.join('%.3f' % t for t in
+                                       entry['capture_s']),
+            ' (the cache emptied first)' if entry[
+                'cache_emptied_at_capture'] else '',
+            entry['peak_bytes'] / 2 ** 20, base / 2 ** 20,
+            entry['max_memory_reserved'] / 2 ** 20,
+            ' '.join('%.0f' % (b / 2 ** 20) for b in memory.reserved),
+            entry['replays'], counts, entry['paths']))
+    return entry, counts, rows
+
+
+def phase_highres(torch, log, smi, worst):
+    """The 3840px phase: the kernels at its shapes (highres_kernels), then
+    the CLI once for each of HIGHRES_RUNS: finite, falling losses, a
+    3840x2880 PNG, every kernel launched, the steps replayed from graphs,
+    and each remat run's trace equal bit for bit to its precision's run
+    without remat. Returns the runs' kernel counts; writes highres.json."""
+    kernels = highres_kernels(torch, worst)
+    return highres_runs(torch, log, smi, kernels, highres_memory(torch))
+
+
+def highres_runs(torch, log, smi, kernels, evaluation=None):
+    """The CLI runs of phase_highres; writes highres.json with the kernel
+    rows and highres_memory's `evaluation` beside them."""
+    launches = dict.fromkeys(KERNELS, 0)
+    runs, plain = {}, {}
+    memory = ChunkMemory(torch)
+    logger = logging.getLogger('cli')
+    logger.addHandler(memory)
+    try:
+        for precision, remat in HIGHRES_RUNS:
+            entry, counts, rows = highres_run(torch, log, memory, precision,
+                                              remat)
+            for name, n in counts.items():
+                launches[name] += n
+            if remat is None:
+                plain[precision] = (entry, rows)
+            else:
+                base, want = plain[precision]
+                require(rows == want, 'highres %s --remat %s: the trace '
+                        'differs from the run without remat' % (precision,
+                                                                remat))
+                entry['remat_ms_step'] = entry['ms_step'] - base['ms_step']
+                entry['saved_bytes'] = (base['peak_bytes']
+                                        - entry['peak_bytes'])
+                say('highres', '%s --remat %s: the trace equals the run '
+                    'without remat bit for bit; %+.1f ms a step, %.0f MiB '
+                    'less peak allocated, %.0f MiB less peak reserved' % (
+                        precision, remat, entry['remat_ms_step'],
+                        entry['saved_bytes'] / 2 ** 20,
+                        (base['max_memory_reserved']
+                         - entry['max_memory_reserved']) / 2 ** 20))
+            runs['%s %s' % (precision, remat or 'no remat')] = entry
+    finally:
+        logger.removeHandler(memory)
+    (OUT_DIR / 'highres.json').write_text(json.dumps(
+        {'device': smi, 'runs': runs, 'evaluation': evaluation,
+         'kernels': kernels}, indent=1))
     return launches
 
 
@@ -3316,6 +3656,8 @@ def main():
     launches, rates = phase_main(torch)
     for name, n in phase_ladder(torch, log).items():
         launches[name] += n
+    for name, n in phase_highres(torch, log, smi, worst).items():
+        launches[name] += n
     phase_parity(torch)
     phase_graph(torch, smi)
     counts, batch_it_s = phase_batch(torch, log, rates, smi)
@@ -3343,7 +3685,8 @@ def main():
         'preprocess, deprocess) over the 7 rungs of the 1024px ladder '
         '(library: torch.sub, torch.add); device_ms: the kernels\' own '
         'time (torch.profiler); host_us: the host\'s enqueue cost a call; '
-        'launches over the main, ladder, batch, serve, pool and video runs; '
+        'launches over the main, ladder, highres, batch, serve, pool and '
+        'video runs; '
         '512px it/s float32 '
         '%.3f, bfloat16 %.3f; step graph replays by run: %s' % (
             rates['float32'], rates['bfloat16'],

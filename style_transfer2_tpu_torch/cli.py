@@ -17,11 +17,14 @@ Examples:
 --device cuda (the default) runs the hand-written kernels on the card and
 raises if CUDA is not available; --device cpu runs their plain PyTorch
 versions. --profile DIR writes a torch.profiler trace of the run
-(utils/profiling.py). --pallas, --platform and --prewarm-ladder are
-accepted, logged and ignored, so that a JAX command line runs here: the
-kernels are always on, --device picks the device, and the port compiles
-nothing a rung that a prewarm could hide. Not ported yet: --mesh,
---data-mesh (sharding, ROADMAP queue 1) and --remat.
+(utils/profiling.py). --remat [conv|block] rematerializes the backward of
+the main and the polish engine (models/vgg19.py): less memory held between
+the forward and the backward for a second forward, the same trace. --pallas, --platform and --prewarm-ladder
+are accepted, logged and ignored, so that a JAX command line runs here:
+the kernels are always on, --device picks the device, and the port
+compiles nothing a rung that a prewarm could hide; --batch ignores
+--remat, as the JAX CLI's batch mode does. Not ported yet: --mesh and
+--data-mesh (sharding, ROADMAP queue 1).
 """
 
 import argparse
@@ -123,6 +126,14 @@ def parse_args(argv=None):
                    help='write a torch.profiler trace (Chrome JSON: host '
                         'activity, and the card\'s kernels on CUDA) of the '
                         'run into this directory')
+    p.add_argument('--remat', nargs='?', const='conv', default=False,
+                   choices=('conv', 'block'),
+                   help='rematerialize in the backward pass: a second '
+                        'forward for less memory held between the forward '
+                        'and the backward; the peak of a step stays where '
+                        'it was (PERF.md). "conv" (the bare-flag default) '
+                        'checkpoints each conv, "block" the trunk between '
+                        'pools. Ignored with --batch')
     p.add_argument('--pallas', action='store_true',
                    help='ignored: the kernels are always on')
     p.add_argument('--platform', default='',
@@ -161,7 +172,8 @@ def build_engine(args, inputs, precision, device):
     from .engine import StyleTransfer
     from .optim import STEP_SIZES
     params, (weights, scalar_params), _, style_np = inputs
-    st = StyleTransfer(params, precision=precision, device=device)
+    st = StyleTransfer(params, precision=precision, device=device,
+                       remat=args.remat)
     st.set_weights(weights, scalar_params)
     st.set_optimizer(args.optimizer)
     st.set_step_size(args.step_size if args.step_size is not None
@@ -279,6 +291,9 @@ def run_batch(args):
         raise SystemExit('--data-mesh: sharding lanes over several GPUs is '
                          'not ported (ROADMAP queue 1, item 7)')
     device = resolve_device(args.device)
+    if args.remat:
+        logger.info('--remat %s: ignored by --batch (the batched engine '
+                    'has no remat, as in the JAX CLI)', args.remat)
     outdir.mkdir(parents=True, exist_ok=True)
     paths = batch_paths(args)
     if not paths:

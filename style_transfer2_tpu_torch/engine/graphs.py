@@ -43,12 +43,23 @@ Memory. The graphs of one StepGraphs share one private memory pool. That
 is safe whatever order they replay in: nothing allocated inside a capture
 outlives it (the static buffers and the output row are allocated before
 the capture begins, the step's own tensors are dead at its end), and the
-graphs replay one after another on the caller's stream. An engine drops
+graphs replay one after another on the caller's stream. The warm-up's
+blocks stay cached in the ordinary pool, and a capture cannot free them
+when it runs out of memory; so where the card's free memory is less than
+those cached blocks (a large grid: the capture will want about as much
+again), the capture gives them back first, which waits for the card
+(`emptied` counts it), and not otherwise. An engine drops
 its graphs when it warm-starts to another grid (a ladder never comes back
 to a rung), and keeps at most MAX_GRAPHS, least recently used first out:
 a prime and a step graph for each of two objective structures, which is
 what an objective change back and forth (the web app's weight edits,
 video's first and chained frames) needs.
+
+Rematerialization. A remat engine's step (models/vgg19.py) is captured
+and replayed like any other: the recomputed forward runs inside
+autograd's backward, on the capture stream, into the graphs' pool. The
+key has no remat field: the policy is fixed per engine, and a polish
+engine is a new engine with its own graphs.
 
 Launch accounting. A replay does not call the kernels' Python wrappers,
 so each graph records the launches its capture made (ops/conv.py
@@ -68,6 +79,9 @@ import torch
 MAX_GRAPHS = 4
 
 replays = 0
+# Captures that first gave the ordinary pool's cached blocks back
+# (CudaGraphs.make_room).
+emptied = 0
 # One entry a capture, newest last: {'kind', 'hw', 'lanes', 'dtype',
 # 'seconds'} (chip_smoke.py reports capture seconds from it).
 captures = collections.deque(maxlen=256)
@@ -172,6 +186,18 @@ class CudaGraphs:
         torch.cuda.empty_cache()
         self.pool = torch.cuda.graph_pool_handle()
 
+    def make_room(self):
+        """Empties the allocator's cache where the card's free memory is
+        less than the bytes it caches beyond those in use (mostly the
+        warm-up's working set, which the capture will allocate again in
+        the graphs' pool): a capture that ran out could not free them."""
+        global emptied
+        cached = (torch.cuda.memory_reserved(self.device)
+                  - torch.cuda.memory_allocated(self.device))
+        if torch.cuda.mem_get_info(self.device)[0] < cached:
+            torch.cuda.empty_cache()
+            emptied += 1
+
     def warm(self, fn):
         """fn() eagerly on the side stream, ordered after the caller's
         stream's work and before its later work."""
@@ -187,7 +213,9 @@ class CudaGraphs:
         capture begins and ends here rather than in torch.cuda.graph, which
         first syncs the card and empties the device and pinned-host caches:
         nothing captured depends on work in flight, and a dispatch in the
-        serving loop should not wait for the card or lose the caches."""
+        serving loop should not wait for the card or lose the caches
+        (make_room does both only where memory is short)."""
+        self.make_room()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(self.stream):
             graph.capture_begin(pool=self.pool,

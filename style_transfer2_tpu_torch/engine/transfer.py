@@ -90,17 +90,22 @@ class StyleTransfer:
     state dict. API of reference worker.py:117-315."""
 
     def __init__(self, params, precision='float32', n_corr=10,
-                 device='cuda'):
+                 device='cuda', remat=False):
         """params: the JAX package's params dict of HWIO numpy arrays
         (models.weights). precision: 'float32', 'float32_fast' or
         'bfloat16'; its TF32 switches hold inside this engine's device work
-        only (engine/steps.py precision_scope). device: 'cuda' or 'cpu'."""
+        only (engine/steps.py precision_scope). device: 'cuda' or 'cpu'.
+        remat: the backward's rematerialization policy, False, True/'conv'
+        or 'block' (models/vgg19.py), fixed for the engine's life; it
+        trades memory for a second forward and changes no value."""
         self.device = resolve_device(device)
         self.precision = precision
         self.compute_dtype = precision_config(precision)[0]
         self.n_corr = n_corr
+        self.remat = remat
         self.model = vgg19.VGG19Features(
-            params_from_numpy(params, self.device), self.compute_dtype)
+            params_from_numpy(params, self.device), self.compute_dtype,
+            remat)
 
         self.is_running = False
         self.is_starting = False

@@ -20,11 +20,34 @@ the JAX package. Every 3x3 conv goes through ops.conv.conv3x3_bias_relu:
 the hand-written kernels on the card, the plain version on the CPU. The
 JAX package's TPU layout rewrites (block-1 space-to-depth, the Mosaic
 gates) have no counterpart here.
+
+Rematerialization (`remat`, the JAX package's policies, fixed per model):
+False saves what autograd saves; True or 'conv' checkpoints each conv;
+'block' checkpoints each segment of the trunk that ends at a pool (the
+last one at the deepest tap), so that only the segments' inputs and the
+requested taps outlive the forward. A checkpointed part runs its forward
+again inside the backward, with the same kernels on the same inputs, so
+the taps and the gradient keep their bits. Each conv's autograd function
+already saves only its output (the next conv's input) and its backward
+weights, so 'conv' trades one saved activation for another and saves
+little here. Under 'block' in float32, where a tap is the conv's output
+itself, a tapped conv runs outside the checkpoints (it saves only that
+tap, which the caller keeps anyway; inside, the backward would recompute
+a second copy of it), so the forward leaves only the taps saved. No policy
+lowers the peak of a forward and its vjp with the style taps: it falls in
+conv1_2's backward, which under every policy holds the taps, the caller's
+cotangents, conv1_2's output and two gradients of its size.
 """
 
 import torch
+# torch.utils.checkpoint imports torch._dynamo at its first call, and that
+# import leaves the calling frames (the caller's tensors, an engine and its
+# step graphs with their memory pool) in a reference cycle until the
+# garbage collector runs; imported here, it holds no engine's frame.
+import torch._dynamo  # noqa: F401
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv import backward_weights, conv3x3_bias_relu
 from ..ops.image import MEAN_RGB, deprocess, preprocess  # noqa: F401
@@ -79,7 +102,57 @@ def _max_pool_ceil(x):
     return torch.amax(x.reshape(n, h2, 2, w2, 2, c), dim=(2, 4))
 
 
-def extract_features(params, x, layers=None, compute_dtype=torch.float32):
+def remat_policy(remat):
+    """False, 'conv' or 'block' for a remat argument: False, True (which
+    means 'conv'), 'conv' or 'block'. Raises ValueError for anything
+    else."""
+    if remat is False:
+        return False
+    if remat is True or remat == 'conv':
+        return 'conv'
+    if remat == 'block':
+        return 'block'
+    raise ValueError("remat must be False, True, 'conv' or 'block': %r"
+                     % (remat,))
+
+
+def _checkpoint(fn, *args):
+    """fn(*args) with its saved tensors dropped after the forward and
+    recomputed in the backward. Non-reentrant, so that a caller may take
+    the gradient of intermediate taps (features_and_vjp); no RNG state is
+    saved, since the trunk draws none and a CUDA graph capture may not
+    read it."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _segments(names, policy, own_taps=()):
+    """The blob names of the trunk cut into (names, checkpointed) parts,
+    run in order: one part, not checkpointed, without block remat; else a
+    checkpointed part ending at each pool and the last at the deepest tap,
+    except that each conv in `own_taps` (whose tap is its output itself)
+    is a part of its own, not checkpointed."""
+    if policy != 'block':
+        return [(names, False)] if names else []
+    parts, cur = [], []
+    for name in names:
+        if name in own_taps:
+            if cur:
+                parts.append((tuple(cur), True))
+                cur = []
+            parts.append(((name,), False))
+            continue
+        cur.append(name)
+        if name.startswith('pool'):
+            parts.append((tuple(cur), True))
+            cur = []
+    if cur:
+        parts.append((tuple(cur), True))
+    return parts
+
+
+def extract_features(params, x, layers=None, compute_dtype=torch.float32,
+                     remat=False):
     """Runs the network forward and returns {blob: tap} for the requested
     blob names (default: all), stopping at the deepest one.
 
@@ -88,7 +161,9 @@ def extract_features(params, x, layers=None, compute_dtype=torch.float32):
     with 'wt', ops.conv.backward_weights(w), as VGG19Features keeps them;
     where a layer lacks 'wt' it is computed here, once per call. x: the
     preprocessed (1, H, W, 3) float32 input. The trunk runs in
-    compute_dtype; the taps come back as float32."""
+    compute_dtype; the taps come back as float32. remat: the policy of the
+    module docstring (remat_policy); it changes no value."""
+    policy = remat_policy(remat)
     if layers is None:
         layers = BLOB_NAMES
     layers = tuple(layers)
@@ -98,20 +173,35 @@ def extract_features(params, x, layers=None, compute_dtype=torch.float32):
     wanted = frozenset(layers)
     deepest = max(blob_index(name) for name in layers) if layers else 0
 
+    def conv(h, name):
+        p = params[name]
+        wt = p['wt'] if 'wt' in p else backward_weights(p['w'])
+        # The tap is post-ReLU.
+        if policy == 'conv':
+            return _checkpoint(conv3x3_bias_relu, h, p['w'], p['b'], wt)
+        return conv3x3_bias_relu(h, p['w'], p['b'], wt)
+
+    def run(names, h):
+        """h through the blobs `names`: (h, the float32 taps among them)."""
+        taps = []
+        for name in names:
+            h = conv(h, name) if name.startswith('conv') else \
+                _max_pool_ceil(h)
+            if name in wanted:
+                taps.append(h.float())
+        return (h,) + tuple(taps)
+
     feats = {}
     if 'data' in wanted:
         feats['data'] = x
     h = x.to(compute_dtype)
-    for name in BLOB_NAMES[1:deepest + 1]:
-        if name.startswith('conv'):
-            p = params[name]
-            wt = p['wt'] if 'wt' in p else backward_weights(p['w'])
-            # The tap is post-ReLU.
-            h = conv3x3_bias_relu(h, p['w'], p['b'], wt)
-        else:
-            h = _max_pool_ceil(h)
-        if name in wanted:
-            feats[name] = h.float()
+    own_taps = (() if compute_dtype != torch.float32 else
+                tuple(n for n in wanted if n.startswith('conv')))
+    for names, checkpointed in _segments(BLOB_NAMES[1:deepest + 1], policy,
+                                         own_taps):
+        out = _checkpoint(run, names, h) if checkpointed else run(names, h)
+        h = out[0]
+        feats.update(zip([n for n in names if n in wanted], out[1:]))
     return {name: feats[name] for name in layers}
 
 
@@ -119,11 +209,14 @@ class VGG19Features(nn.Module):
     """The truncated VGG-19 as a module over fixed weights, playing the role
     of the reference's CaffeModel (worker.py:32-106). The weights are
     buffers: nothing here trains them. Beside each layer's forward weights
-    it keeps the backward's (`_wt`, flipped and transposed once here)."""
+    it keeps the backward's (`_wt`, flipped and transposed once here).
+    remat: the rematerialization policy of features_and_vjp (module
+    docstring), fixed here as in the JAX package."""
 
-    def __init__(self, params, compute_dtype=torch.float32):
+    def __init__(self, params, compute_dtype=torch.float32, remat=False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.remat = remat_policy(remat)
         for name, p in params.items():
             w = p['w'].to(compute_dtype)
             self.register_buffer(name + '_w', w)
@@ -152,7 +245,7 @@ class VGG19Features(nn.Module):
         x = x.detach().requires_grad_(True)
         with torch.enable_grad():
             feats = extract_features(self.params, x, layers,
-                                     self.compute_dtype)
+                                     self.compute_dtype, self.remat)
 
         def vjp(diffs):
             outs = [feats[name] for name in layers]

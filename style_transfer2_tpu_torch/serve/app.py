@@ -17,9 +17,11 @@ above, compute below": the engine is rebuildable at any time from the
 Session's host state).
 
 Config keys beyond the JAX app's: `device` ('cuda', the default, raises at
-startup without CUDA; 'cpu' runs the kernels' plain versions). Keys that
-mean nothing here (pallas, platform, prewarm_sizes, remat) are logged once
-and ignored; `mesh` (spatial sharding) is not ported and raises.
+startup without CUDA; 'cpu' runs the kernels' plain versions). `remat`
+('', conv or block; anything else raises when the driver spawns) is the
+engine's rematerialization policy, as in the JAX app. Keys that mean
+nothing here (pallas, platform, prewarm_sizes) are logged once and
+ignored; `mesh` (spatial sharding) is not ported and raises.
 
     python -m style_transfer2_tpu_torch.serve.app [config.ini] [-d]
 """
@@ -55,7 +57,7 @@ logger = logging.getLogger('app')
 
 # Config keys of the JAX app with no meaning in the port: logged once at
 # startup and ignored (platform never moves the port off its `device`).
-IGNORED_KEYS = ('pallas', 'platform', 'prewarm_sizes', 'remat')
+IGNORED_KEYS = ('pallas', 'platform', 'prewarm_sizes')
 
 
 def device_name(config):
@@ -181,11 +183,16 @@ class SingleSessionTier(sn.EngineActions):
         self.sess.running = False
         self.sess.worker_ready = False
         adaptive, depth, spd = self._dispatch_config()
+        remat = self.config.get('remat', '')
+        if remat not in ('', 'conv', 'block'):
+            raise ValueError('config remat must be conv or block: %r'
+                             % remat)
         self.driver = Driver(
             self.model_params,
             precision=(self._precision_override
                        or self.config.get('precision', 'float32')),
             device=self.config.get('device', 'cuda'),
+            remat=remat or False,
             after=self.driver,
             steps_per_dispatch=spd,
             image_every=self.config.getint('image_every', 1),

@@ -31,7 +31,8 @@ Config keys beyond the JAX pool's: `device` ('cuda', the default, raises
 at startup without CUDA; 'cpu' runs the kernels' plain versions). The
 port compiles nothing per shape, so there is no bucket prewarm:
 `pool_prewarm`, like the single-session app's ignored keys, is logged once
-and ignored; `pool_mesh` and `pool_bucket_devices` (data placement over
+and ignored, and so is `remat` (the batched engines have no remat, in the
+JAX pool too); `pool_mesh` and `pool_bucket_devices` (data placement over
 several devices) are not ported and raise.
 
     python -m style_transfer2_tpu_torch.serve.pool [config.ini] [-d]
@@ -73,8 +74,9 @@ logger = logging.getLogger('pool')
 SESSION_COOKIE = 'pool_session'
 
 # Config keys of the JAX pool with no meaning in the port, beside the
-# single-session app's: logged once at startup and ignored.
-IGNORED_KEYS = ('pool_prewarm',) + APP_IGNORED_KEYS
+# single-session app's: logged once at startup and ignored. remat among
+# them: the pool's batched engines have none, in the JAX pool too.
+IGNORED_KEYS = ('pool_prewarm', 'remat') + APP_IGNORED_KEYS
 # Config keys of the JAX pool that place buckets on several devices: not
 # ported (ROADMAP queue 1, item 7); a config that sets one fails at startup.
 UNPORTED_KEYS = ('pool_bucket_devices', 'pool_mesh')

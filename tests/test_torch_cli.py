@@ -73,6 +73,96 @@ def test_cli_accepts_and_ignores_jax_only_flags(tmp_path, caplog, flags):
     assert traces[0] == traces[1]
 
 
+@pytest.mark.parametrize('argv,want', [([], False), (['--remat'], 'conv'),
+                                       (['--remat', 'conv'], 'conv'),
+                                       (['--remat', 'block'], 'block')])
+def test_cli_remat_parses_as_the_jax_cli(argv, want):
+    from style_transfer2_tpu.cli import parse_args as jax_parse_args
+    assert cli.parse_args(['c.jpg', 's.jpg'] + argv).remat == want
+    assert jax_parse_args(['c.jpg', 's.jpg'] + argv).remat == want
+
+
+def test_cli_remat_refuses_an_unknown_policy(capsys):
+    with pytest.raises(SystemExit):
+        cli.parse_args(['c.jpg', 's.jpg', '--remat', 'all'])
+    assert 'invalid choice' in capsys.readouterr().err
+
+
+def _trace_rows(path):
+    with open(path, newline='') as f:
+        return [{k: v for k, v in r.items() if k != 'time'}
+                for r in csv.DictReader(f)]
+
+
+def test_cli_remat_block_trace_equals_plain_and_tracks_jax(tmp_path):
+    """A 32px --remat block run writes the plain run's trace bit for bit,
+    and the JAX CLI's --remat block trace within the golden rtol 5e-3."""
+    argv = [CONTENT, STYLE, '--size', '32', '--iterations', '3',
+            '--model-weights', 'random', '--steps-per-dispatch', '2']
+    traces = {}
+    for name, extra in (('plain', []), ('block', ['--remat', 'block'])):
+        trace = tmp_path / (name + '.csv')
+        assert cli.main(argv + ['-o', str(tmp_path / (name + '.png')),
+                                '--device', 'cpu', '--trace-csv',
+                                str(trace)] + extra) == 0
+        traces[name] = _trace_rows(trace)
+    assert len(traces['plain']) == 4
+    assert traces['block'] == traces['plain']
+    from style_transfer2_tpu.cli import main as jax_main
+    trace = tmp_path / 'jax.csv'
+    assert jax_main(argv + ['-o', str(tmp_path / 'jax.png'), '--platform',
+                            'cpu', '--trace-csv', str(trace), '--remat',
+                            'block']) == 0
+    want = _trace_rows(trace)
+    assert len(want) == len(traces['block'])
+    for got, ref in zip(traces['block'], want):
+        assert list(got) == list(ref)
+        for key, value in ref.items():
+            if value == '':
+                assert got[key] == value, key
+            elif key in ('step', 'fevals'):
+                assert float(got[key]) == float(value), key
+            else:
+                np.testing.assert_allclose(float(got[key]), float(value),
+                                           rtol=5e-3, err_msg=key)
+
+
+def test_cli_remat_reaches_the_main_and_the_polish_engine(tmp_path,
+                                                          monkeypatch):
+    from style_transfer2_tpu_torch.engine import transfer
+    made = []
+    init = transfer.StyleTransfer.__init__
+
+    def spy(self, *args, **kw):
+        init(self, *args, **kw)
+        made.append((self.precision, self.remat, self.model.remat))
+
+    monkeypatch.setattr(transfer.StyleTransfer, '__init__', spy)
+    assert cli.main([CONTENT, STYLE, '-o', str(tmp_path / 'o.png'),
+                     '--device', 'cpu', '--size', '24', '--iterations', '1',
+                     '--precision', 'float32_fast', '--polish', '1',
+                     '--remat']) == 0
+    assert made == [('float32_fast', 'conv', 'conv'),
+                    ('float32', 'conv', 'conv')]
+
+
+@pytest.mark.usefixtures('one_thread')
+def test_cli_batch_logs_remat_once_and_ignores_it(tmp_path, caplog):
+    """The JAX CLI's batch mode never reads --remat; the port's logs that
+    it ignores it, once, and builds its batched engine as without it."""
+    indir, style = _batch_dir(tmp_path, 4, {'a': (40, 60)})
+    with caplog.at_level(logging.INFO, logger='cli'):
+        assert cli.main([str(indir), str(style), '--batch', '-o',
+                         str(tmp_path / 'out'), '--size', '24',
+                         '--iterations', '1', '--lanes', '1', '--device',
+                         'cpu', '--model-weights', 'random', '--remat',
+                         'block']) == 0
+    hits = [r.getMessage() for r in caplog.records
+            if '--remat' in r.getMessage()]
+    assert len(hits) == 1 and 'ignored' in hits[0]
+    assert (tmp_path / 'out' / 'a_styled.png').exists()
+
+
 def test_cli_cuda_without_gpu_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip('this machine has a GPU')

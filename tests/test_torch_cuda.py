@@ -899,7 +899,7 @@ def _eager(engine):
     return engine
 
 
-def _single_run(hw, precision, optimizer, graphed):
+def _single_run(hw, precision, optimizer, graphed, remat=False):
     """One engine through step, a chunk, an objective change, two chunks in
     flight and step again: its traces, end images, state and norms."""
     from style_transfer2_tpu_torch.engine import StyleTransfer
@@ -907,7 +907,8 @@ def _single_run(hw, precision, optimizer, graphed):
     rng = np.random.RandomState(4)
     content, style_img, inp = (rng.randint(0, 256, hw + (3,)).astype(
         np.uint8) for _ in range(3))
-    st = StyleTransfer(random_params(0), precision, device='cuda')
+    st = StyleTransfer(random_params(0), precision, device='cuda',
+                       remat=remat)
     if not graphed:
         _eager(st)
     st.set_weights(GRAPH_WEIGHTS, GRAPH_SCALARS)
@@ -944,8 +945,16 @@ def test_graphed_steps_equal_eager_bitwise(cuda, precision, optimizer):
                                                    optimizer, True)
     assert graphs.replays - replays == 10 + (optimizer == 'lbfgs')
     assert len(st._graphs) == (2 if optimizer == 'lbfgs' else 1)
-    _, traces_e, images_e, state_e, norms_e = _single_run(
-        hw, precision, optimizer, False)
+    _assert_runs_equal((traces, images, state, norms),
+                       _single_run(hw, precision, optimizer, False)[1:])
+    if optimizer == 'lbfgs' and precision == 'bfloat16':
+        assert state['sk'].dtype == torch.bfloat16
+
+
+def _assert_runs_equal(got_run, want_run):
+    """Two _single_run results (less the engine) bit for bit."""
+    traces, images, state, norms = got_run
+    traces_e, images_e, state_e, norms_e = want_run
     for got, want in zip(traces, traces_e):
         assert {k: v for k, v in got.items() if k != 'time'} == {
             k: v for k, v in want.items() if k != 'time'}
@@ -958,9 +967,55 @@ def test_graphed_steps_equal_eager_bitwise(cuda, precision, optimizer):
             assert torch.equal(value, state_e[key]), key
         else:
             assert value == state_e[key], key
-    if optimizer == 'lbfgs' and precision == 'bfloat16':
-        assert state['sk'].dtype == torch.bfloat16
     assert norms == norms_e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('precision', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('policy', [True, 'conv', 'block'])
+def test_graphed_remat_steps_equal_graphed_plain_bitwise(cuda, precision,
+                                                         policy):
+    """A remat engine's graphed steps at 384x512 (the recompute captured
+    inside the backward) give the plain engine's graphed bits."""
+    from style_transfer2_tpu_torch.engine import graphs
+    hw = (384, 512)
+    replays = graphs.replays
+    st, *run = _single_run(hw, precision, 'lbfgs', True, remat=policy)
+    assert graphs.replays - replays == 11
+    assert st.model.remat == ('block' if policy == 'block' else 'conv')
+    _assert_runs_equal(run, _single_run(hw, precision, 'lbfgs', True)[1:])
+
+
+@pytest.mark.cuda
+def test_block_remat_saves_less_and_keeps_the_peak(cuda):
+    """One float32 forward and vjp to conv4_2 at 768x1024: with block remat
+    the forward leaves less than half as much saved (the taps alone), and
+    the evaluation's peak is no higher than the plain one's: it falls in
+    conv1_2's backward, where both hold the taps, their cotangents,
+    conv1_2's output and two gradients of its size. The gradient is the
+    plain one's bits."""
+    from style_transfer2_tpu_torch.models import random_params, vgg19
+    from style_transfer2_tpu_torch.models.weights import params_from_numpy
+    params = params_from_numpy(random_params(0), cuda)
+    x = torch.as_tensor(np.float32(np.random.RandomState(0).uniform(
+        -120, 130, (1, 768, 1024, 3))), device=cuda)
+    layers = ('conv1_1', 'conv2_1', 'conv3_1', 'conv4_1', 'conv4_2')
+    saved, peaks, grads = {}, {}, {}
+    for policy in (False, 'block'):
+        model = vgg19.VGG19Features(params, remat=policy)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        feats, vjp = model.features_and_vjp(x, layers)
+        saved[policy] = torch.cuda.memory_allocated() - base
+        grads[policy] = vjp({n: torch.ones_like(f)
+                             for n, f in feats.items()})
+        torch.cuda.synchronize()
+        peaks[policy] = torch.cuda.max_memory_allocated() - base
+        del feats, vjp
+    assert torch.equal(grads['block'], grads[False])
+    assert saved['block'] < saved[False] / 2, saved
+    assert peaks['block'] <= peaks[False], peaks
 
 
 def _lanes_run(graphed, precision, optimizer):

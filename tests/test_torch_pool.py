@@ -585,6 +585,28 @@ def test_pool_prewarm_is_logged_once_and_ignored(caplog):
     assert 'ignored' in hits[0].getMessage()
 
 
+def test_pool_logs_remat_once_and_ignores_it(caplog):
+    """The single-session app now takes `remat`; the pool's batched
+    engines have none (nor do the JAX pool's), so the pool logs the key
+    once at startup, ignores it, and its bucket steps as without it."""
+    async def body(client, tier):
+        a = await WSSession(client).open()
+        await a.recv_until('state')
+        await a.send({'type': 'start'})
+        info = await a.recv_until('iterateInfo')
+        assert np.isfinite(info['trace']['loss'])
+        assert not hasattr(_default_engine(tier), 'remat')
+        await a.ws.close()
+
+    with caplog.at_level(logging.INFO, logger='pool'):
+        _run_tier(port_pool.init, _config(remat='block'), body)
+    hits = [r for r in caplog.records
+            if r.name == 'pool' and r.args and r.args[0] == 'remat']
+    assert len(hits) == 1
+    assert 'ignored' in hits[0].getMessage()
+    assert 'remat' in port_pool.IGNORED_KEYS
+
+
 def test_pool_stats_reports_lanes_and_capacity_separately(pool_client):
     """/stats reports lanes-in-use vs capacity as distinct numbers (the
     reference's sessions/instances split, router.py:57-63), and names the

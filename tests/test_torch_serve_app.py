@@ -449,9 +449,39 @@ def test_mesh_is_not_ported():
         _start(_config(mesh='4'))
 
 
+def test_config_remat_reaches_engine(caplog):
+    """tests/test_serve.py's test of the same name: the `remat` key
+    reaches the engine, and a bad value is refused when the driver
+    spawns. The key is no longer logged as ignored."""
+    from style_transfer2_tpu_torch.models import random_params
+    from style_transfer2_tpu_torch.serve import messages as m
+
+    async def body():
+        config = _config(remat='block')
+        tier = port_app.SingleSessionTier(config)
+        tier.model_params = random_params(0)
+        tier._spawn_driver()
+        try:
+            assert tier.driver.transfer.remat == 'block'
+            assert tier.driver.transfer.model.remat == 'block'
+        finally:
+            await tier.driver.in_queue.put(m.Shutdown())
+            await tier.driver_task
+            tier.pump_task.cancel()
+
+        config['remat'] = 'everything'
+        with pytest.raises(ValueError, match='remat'):
+            tier._spawn_driver()
+    asyncio.run(asyncio.wait_for(body(), 120))
+    with caplog.at_level(logging.INFO, logger='app'):
+        tier = _start(_config(remat='conv'))
+    assert tier.driver.transfer.remat == 'conv'
+    assert not [r for r in caplog.records
+                if r.name == 'app' and r.args and r.args[0] == 'remat']
+
+
 def test_jax_only_keys_logged_once_and_ignored(caplog):
-    keys = {'pallas': 'true', 'platform': 'cpu', 'prewarm_sizes': '64, 96',
-            'remat': 'conv'}
+    keys = {'pallas': 'true', 'platform': 'cpu', 'prewarm_sizes': '64, 96'}
     with caplog.at_level(logging.INFO, logger='app'):
         tier = _start(_config(**keys))
     for key in keys:

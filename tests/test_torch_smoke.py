@@ -121,6 +121,86 @@ def test_require_all_launched_needs_graph_replays(monkeypatch):
     assert chip_smoke.REPLAYS['main float32'] == 19
 
 
+def _highres_on_the_cpu(monkeypatch, tmp_path):
+    """chip_smoke's highres runs made small enough for the CPU: --size 32
+    (a 24x32 iterate), 6 iterations in chunks of 2, the card-only parts
+    stubbed (kernel counts, paths, replays, torch.cuda's memory
+    statistics). Returns (the fake torch, the CLI log handler)."""
+    import logging
+    import types
+
+    monkeypatch.setattr(chip_smoke, 'HIGHRES_DEVICE', 'cpu')
+    monkeypatch.setattr(chip_smoke, 'HIGHRES_SIZE', 32)
+    monkeypatch.setattr(chip_smoke, 'HIGHRES_HW', (24, 32))
+    monkeypatch.setattr(chip_smoke, 'HIGHRES_ITERATIONS', 6)
+    monkeypatch.setattr(chip_smoke, 'HIGHRES_CHUNK', 2)
+    monkeypatch.setattr(chip_smoke, 'OUT_DIR', tmp_path)
+    ones = dict.fromkeys(chip_smoke.KERNELS, 1)
+    monkeypatch.setattr(chip_smoke, 'counters', lambda: dict(ones))
+    monkeypatch.setattr(chip_smoke, 'require_paths', lambda *a: None)
+    monkeypatch.setattr(chip_smoke, 'replays', lambda: 1)
+    fake = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        synchronize=lambda: None, empty_cache=lambda: None,
+        memory_allocated=lambda: 0, reset_peak_memory_stats=lambda: None,
+        max_memory_allocated=lambda: 2 ** 20,
+        max_memory_reserved=lambda: 2 ** 21,
+        memory_reserved=lambda: 2 ** 21))
+    log = chip_smoke.CliLog()
+    logger = logging.getLogger('cli')
+    monkeypatch.setattr(logger, 'level', logging.INFO)
+    logger.addHandler(log)
+    return fake, log, logger
+
+
+@pytest.mark.usefixtures('one_thread')
+def test_highres_runs_on_the_cpu(monkeypatch, tmp_path):
+    """The highres phase's five CLI runs end to end at 24x32: falling
+    losses, the PNG, the rate over the last two chunks, the reserved
+    memory read at each chunk, and each remat run's trace equal to its
+    precision's run without remat."""
+    fake, log, logger = _highres_on_the_cpu(monkeypatch, tmp_path)
+    try:
+        got = chip_smoke.highres_runs(fake, log, 'a CPU', [])
+    finally:
+        logger.removeHandler(log)
+    assert got == dict.fromkeys(chip_smoke.KERNELS, 5)
+    result = json.loads((tmp_path / 'highres.json').read_text())
+    assert result['device'] == 'a CPU' and result['kernels'] == []
+    assert list(result['runs']) == [
+        'float32 no remat', 'float32 block', 'bfloat16 no remat',
+        'bfloat16 conv', 'bfloat16 block']
+    for name, run in result['runs'].items():
+        assert run['it_s'] > 0 and run['wall_s'] > 0
+        assert run['losses'][1] < run['losses'][0]
+        assert run['memory_reserved_at_chunks'] == [2 ** 21] * 3
+        assert run['max_memory_allocated'] == run['peak_bytes'] == 2 ** 20
+        assert ('remat_ms_step' in run) == (run['remat'] is not None)
+    for name in ('float32_remat_block', 'bfloat16_remat_conv'):
+        assert (tmp_path / ('highres_%s.csv' % name)).exists()
+        assert not (tmp_path / ('highres_%s.png' % name)).exists()
+
+
+@pytest.mark.usefixtures('one_thread')
+def test_highres_refuses_a_remat_trace_that_differs(monkeypatch, tmp_path):
+    fake, log, logger = _highres_on_the_cpu(monkeypatch, tmp_path)
+    monkeypatch.setattr(chip_smoke, 'HIGHRES_RUNS',
+                        (('float32', None), ('float32', 'block')))
+    read = chip_smoke.read_trace
+
+    def nudged(path):
+        rows = read(path)
+        if 'remat' in path.name:
+            rows[-1]['loss'] = repr(float(rows[-1]['loss']) * (1 + 1e-7))
+        return rows
+
+    monkeypatch.setattr(chip_smoke, 'read_trace', nudged)
+    try:
+        with pytest.raises(RuntimeError, match='trace differs'):
+            chip_smoke.highres_runs(fake, log, 'a CPU', [])
+    finally:
+        logger.removeHandler(log)
+
+
 def test_serve_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     """The serve phase's browser script, event log and checks end to end
     against the app on the CPU at 36x48 (its ladder 18x24 -> 36x48), with
