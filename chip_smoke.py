@@ -176,7 +176,34 @@ exits non-zero:
                iterations), every trace key within the golden rtol; and
                the CLI's --profile in a subprocess, whose trace must name
                the conv, style and image kernels.
- 13. profile — every kernel and library call timed in phase 3, on the
+ 13. shard   — spatial and data sharding (parallel/): first the convs at
+               each trunk shape of one shard of a 768x1024 iterate cut 4
+               ways on H, halo rows included (h / 4 + 2 rows), float32 and
+               bfloat16, and the style branch's two phases (style_gram,
+               style_grad) at the shard's four taps against their plain
+               versions, beside torch.mm and the fused branch there;
+               then full-width VGG-19 with random_params(0), golden_gate
+               x starry_night at --size 1024, L-BFGS, 20 steps in chunks
+               of 5, over a SpatialPlacement of 4 shards on the card's
+               GPUs (cuda:0 repeated where there are fewer; printed)
+               against an unsharded engine on the same inputs: float32
+               every trace key within the golden rtol, the prime of the
+               free runs and each of 20 steps taken from the unsharded
+               run's state; bfloat16 the prime within 2e-2, then a finite,
+               falling loss; every kernel of the sharded path launched,
+               the conv paths planned at the shard shapes among the
+               launches, both style phases once a shard a style layer an
+               evaluation, no step graph (the sharded chunk runs
+               eagerly); a W-fallback grid (510x680) held the same way
+               over 5 steps; 4 float32 lanes at 512px over a 2-way data
+               mesh against the unsharded batched engine, every key of
+               each lane over 3 steps; a sharded checkpoint resumed, its
+               next chunk equal bit for bit; the CLI with --mesh 1, and
+               --mesh N for N above the card count exiting with
+               make_mesh's message. Printed and in shard.json: ms a step
+               sharded and unsharded (the one-card cost of sharding),
+               halo bytes a step, peak memory.
+ 14. profile — every kernel and library call timed in phase 3, on the
                same inputs: host_us, the host clock over HOST_CALLS
                back-to-back calls with no sync (the enqueue cost), then
                device_ms, its kernels' own time from torch.profiler's CUDA
@@ -190,7 +217,8 @@ exits non-zero:
                slower for the rest of the process.
 
 The line before the last is one JSON object with each kernel's measured
-numbers; the last line is {"ok": true, "device": {...}}. Outputs go to
+numbers (style_gram and style_grad: the style branch's two phases, which
+the shard phase runs); the last line is {"ok": true, "device": {...}}. Outputs go to
 chiprun_out/chip_smoke/.
 """
 
@@ -598,7 +626,7 @@ def reset_counters():
     from style_transfer2_tpu_torch.engine import graphs
     from style_transfer2_tpu_torch.ops import conv, image, style
     graphs.replays = 0
-    style.launches = 0
+    style.launches = style.gram_launches = style.grad_launches = 0
     conv.path_launches.clear()
     image.preprocess_launches = image.deprocess_launches = 0
 
@@ -3644,6 +3672,569 @@ def phase_video(torch, smi):
     return launches
 
 
+# The shard phase: spatial sharding of one image over SHARD_N shards (the
+# card's GPUs, cuda:0 repeated where it has fewer), float32 and bfloat16
+# at --size SHARD_SIZE (a 768x1024 iterate), L-BFGS, SHARD_ITERATIONS
+# steps in chunks of SHARD_CHUNK, each against an unsharded engine on the
+# same inputs; a W-sharded run at SHARD_W_SIZE (510x680: H does not
+# divide by 4); a SHARD_LANES-lane float32 batch at SHARD_BATCH_SIZE over
+# a 2-way 'data' mesh against the unsharded batched engine; a sharded
+# checkpoint resumed; the CLI's --mesh. SHARD_DEVICE: the engines' device
+# (the CPU tests set cpu).
+SHARD_N = 4
+SHARD_SIZE = 1024
+SHARD_ITERATIONS = 20
+SHARD_CHUNK = 5
+SHARD_W_SIZE = 680
+SHARD_W_ITERATIONS = 5
+SHARD_LANES = 4
+SHARD_BATCH_SIZE = 512
+SHARD_BATCH_ITERATIONS = 3
+SHARD_CLI_SIZE = 256
+SHARD_DEVICE = 'cuda'
+# Traces of a sharded step against the unsharded one: the golden rtol in
+# float32, each step taken from the unsharded run's own state (two free
+# fixed-step L-BFGS trajectories part exponentially: summed in another
+# order, 768x1024 float32 traces 0.9% apart at step 7 of 20 on an H100,
+# and on the CPU at 96x128 5e-7 at the prime, 7e-4 at step 7, 2% at 10);
+# in bfloat16 the prime (the first evaluation, on the same iterate) at
+# tests/test_parallel.py's bf16 rtol, then a finite, falling loss.
+SHARD_RTOL = {'float32': PARITY_RTOL, 'bfloat16': 2e-2}
+# The two-phase style entry points of style.cu (ops/style.py
+# style_gram, style_grad), run once a shard for each style layer.
+SHARD_KERNELS = ('style_gram', 'style_grad')
+SOURCES['style_gram'] = SOURCES['style_grad'] = SOURCES['fused_style_branch']
+
+
+def shard_devices(torch, n):
+    """n devices for the shards: the card's GPUs in order, cuda:0 again for
+    the rest where there are fewer than n (on the CPU: n CPU entries)."""
+    if SHARD_DEVICE != 'cuda':
+        return [torch.device(SHARD_DEVICE)] * n
+    count = torch.cuda.device_count()
+    return [torch.device('cuda', i if i < count else 0) for i in range(n)]
+
+
+def shard_inputs():
+    """(params, weights document, style image, content PIL) of the shard
+    phase: random_params(0), initial_weights.yaml, the example images."""
+    from PIL import Image
+    from style_transfer2_tpu_torch import cli
+    from style_transfer2_tpu_torch.models import random_params
+    from style_transfer2_tpu_torch.utils import resize_to_fit
+    with Image.open(STYLE) as img:
+        style_img = np.uint8(resize_to_fit(img.convert('RGB'), SHARD_SIZE))
+    with Image.open(CONTENT) as img:
+        content = img.convert('RGB')
+    return random_params(0), cli.load_weights_doc(None), style_img, content
+
+
+def shard_hw(content, size):
+    from style_transfer2_tpu_torch.utils import fit_into_square
+    wh = fit_into_square(content.size, size, scale_up=True)
+    return (wh[1], wh[0])
+
+
+def shard_engine(inputs, precision, hw, placement):
+    """A started L-BFGS StyleTransfer of the shard phase's objective at hw
+    over `placement` (None: unsharded), from a seed-0 random iterate."""
+    from style_transfer2_tpu_torch import cli
+    from style_transfer2_tpu_torch.engine import StyleTransfer
+    params, (weights, scalars), style_img, content = inputs
+    st = StyleTransfer(params, precision=precision, device=SHARD_DEVICE,
+                       placement=placement)
+    st.set_weights(weights, scalars)
+    st.set_optimizer('lbfgs')
+    st.set_step_size(1.0)
+    st.set_style(style_img)
+    st.set_content(cli.fit_content(content, hw))
+    st.set_input(np.random.RandomState(0).uniform(0, 255, hw + (3,))
+                 .astype(np.uint8))
+    require(st.start(), 'shard engine did not start at %dx%d' % hw)
+    return st
+
+
+def shard_chunks(torch, st, iterations):
+    """iterations steps in chunks of SHARD_CHUNK, each collected (images
+    not fetched) and synced. Returns (every trace row so far, the prime's
+    included; ms a step over the chunks after the first)."""
+    spans = []
+    for done in range(0, iterations, SHARD_CHUNK):
+        n = min(SHARD_CHUNK, iterations - done)
+        t0 = time.perf_counter()
+        st.collect_steps(st.begin_steps(n), fetch_image=False)
+        torch.cuda.synchronize()
+        spans.append((time.perf_counter() - t0, n))
+    later = spans[1:] or spans
+    return ([t.data for t in st.traces],
+            1e3 * sum(s for s, _ in later) / sum(n for _, n in later))
+
+
+def sharded_style_layers(spec, rows):
+    """The style layers of spec whose maps stay sharded when each shard
+    holds `rows` rows of the iterate: those above the first pool whose
+    shards would pool unevenly (models/vgg19.py gathers from there)."""
+    return [l for l in spec.style_layers
+            if rows % 2 ** (int(l[4]) - 1) == 0]
+
+
+def take_state(src, dst):
+    """dst continues from src's state: a copy of src's optimizer state
+    (placed as dst places it), norms and priming flag. src's are a step
+    graph's static buffers on the card: copied, not shared."""
+    import torch
+
+    def copy(t):
+        return t.clone() if torch.is_tensor(t) else t
+    dst.opt_state = dst._place_state({k: copy(v)
+                                      for k, v in src.opt_state.items()})
+    dst._input = dst.opt_state['x']
+    dst.norm_vals = {k: copy(v) for k, v in src.norm_vals.items()}
+    dst.norm_set = {k: copy(v) for k, v in src.norm_set.items()}
+    dst._needs_init = src._needs_init
+
+
+def shard_forced(inputs, precision, hw, placement, iterations, what):
+    """Each of `iterations` steps of an unsharded engine, and a sharded
+    engine's step from that engine's state before it (take_state): every
+    trace key of each pair of rows (the primes' too) within SHARD_RTOL.
+    Returns the worst relative difference."""
+    lead = shard_engine(inputs, precision, hw, None)
+    follow = shard_engine(inputs, precision, hw, placement)
+    worst = 0.0
+    for _ in range(iterations):
+        take_state(lead, follow)
+        n = len(lead.traces)
+        lead.step(fetch_image=False)
+        follow.step(fetch_image=False)
+        want = [t.data for t in lead.traces[n:]]
+        got = [t.data for t in follow.traces[len(follow.traces)
+                                             - len(want):]]
+        worst = max(worst, shard_compare(got, want, SHARD_RTOL[precision],
+                                         what))
+    return worst
+
+
+def shard_compare(got, want, rtol, what, rows=None):
+    """The worst relative difference over every trace key of `rows` (all)
+    of two runs' trace rows; raises above rtol."""
+    require(len(got) == len(want), '%s: %d trace rows, unsharded %d'
+            % (what, len(got), len(want)))
+    worst = 0.0
+    for i in (range(len(want)) if rows is None else rows):
+        for key, value in want[i].items():
+            if key in ('time', 'fevals'):
+                continue
+            err = abs(got[i][key] - value) / max(abs(value), 1e-30)
+            worst = max(worst, err)
+            require(err <= rtol, '%s: trace %s at row %d: sharded %.6g, '
+                    'unsharded %.6g' % (what, key, i, got[i][key], value))
+    return worst
+
+
+def shard_planned(torch, precision, hw, n):
+    """The (direction, path) pairs the planners pick for the trunk's convs
+    on one shard of an hw iterate cut n ways on H: h / n rows and the two
+    halo rows."""
+    from style_transfer2_tpu_torch.ops import conv
+    dtype = {'float32': torch.float32, 'bfloat16': torch.bfloat16}[precision]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = set()
+    for h, w, cin, cout in trunk_convs(*hw):
+        rows = h // n + 2
+        want.add(('fwd', conv.fwd_plan(1, rows, w, cin, cout, dtype,
+                                       sms)[0]))
+        want.add(('bwd', conv.bwd_plan(1, rows, w, cout, cin, dtype,
+                                       sms)[0]))
+    return sorted(want)
+
+
+def halo_bytes(hw, n, itemsize):
+    """Bytes a step exchanges between the n H-shards of an hw iterate: at
+    each conv of the trunk, one row of each neighbour across the n - 1
+    boundaries, forward, and those rows' gradients back; and TV's two
+    circular rolls of the float32 image, one row across each of the n
+    boundaries."""
+    total = 0
+    for _, w, cin, _ in trunk_convs(*hw):
+        total += 2 * 2 * (n - 1) * w * cin * itemsize
+    return total + 2 * n * hw[1] * 3 * 4
+
+
+def shard_launch_counts():
+    """The shard path's launches: counters()' and the two style phases'."""
+    from style_transfer2_tpu_torch.ops import style
+    return dict(counters(), style_gram=style.gram_launches,
+                style_grad=style.grad_launches)
+
+
+def shard_run(torch, inputs, precision, placement, hw):
+    """One precision's sharded and unsharded runs of SHARD_ITERATIONS steps
+    at hw. Returns (sharded engine, its traces, the unsharded traces,
+    the sharded path's launch counts, a result dict)."""
+    from style_transfer2_tpu_torch.engine import graphs
+    result = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st = shard_engine(inputs, precision, hw, None)
+    want, result['unsharded_ms_step'] = shard_chunks(torch, st,
+                                                     SHARD_ITERATIONS)
+    result['unsharded_peak_mib'] = (torch.cuda.max_memory_allocated()
+                                    - base) / 2 ** 20
+    del st
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    st = shard_engine(inputs, precision, hw, placement)
+    got, result['sharded_ms_step'] = shard_chunks(torch, st,
+                                                  SHARD_ITERATIONS)
+    counts = shard_launch_counts()
+    result['sharded_peak_mib'] = (torch.cuda.max_memory_allocated()
+                                  - base) / 2 ** 20
+    require(graphs.replays == 0, 'shard %s: the sharded steps replayed '
+            'a graph' % precision)
+    losses = [t['loss'] for t in got]
+    require(all(math.isfinite(v) for v in losses), 'shard %s: non-finite '
+            'loss' % precision)
+    require(losses[-1] < losses[0], 'shard %s: loss did not fall: %.6g -> '
+            '%.6g' % (precision, losses[0], losses[-1]))
+    # The free runs share their first row, the prime, from one iterate;
+    # in float32 every later step is held from the unsharded run's state.
+    result['prime_rel_err'] = shard_compare(
+        got, want, SHARD_RTOL[precision], 'shard %s prime' % precision, [0])
+    result['worst_rel_err'] = result['prime_rel_err']
+    if precision == 'float32':
+        result['worst_rel_err'] = max(result['prime_rel_err'], shard_forced(
+            inputs, precision, hw, placement, SHARD_ITERATIONS,
+            'shard float32 step'))
+    result['losses'] = [losses[0], losses[-1]]
+    result['launches'] = counts
+    return st, got, want, counts, result
+
+
+def shard_runs(torch, smi, log):
+    """The shard phase's engine runs (shard docstring), with every kernel
+    of the sharded path launched in the float32 run, the conv paths
+    planned at the shards' shapes (halo rows included) among its
+    launches and both style phases once a shard a style layer an
+    evaluation. Writes shard.json; returns (the float32 sharded run's
+    launch counts, the result dict)."""
+    from style_transfer2_tpu_torch.ops import conv
+    from style_transfer2_tpu_torch.parallel import (Mesh, Sharded,
+                                                    SpatialPlacement)
+    devices = shard_devices(torch, SHARD_N)
+    say('shard', '%d shards on %s%s' % (
+        SHARD_N, ', '.join(str(d) for d in devices),
+        ' (cuda:0 repeated: the machine has %d card(s))'
+        % torch.cuda.device_count()
+        if SHARD_DEVICE == 'cuda' and torch.cuda.device_count() < SHARD_N
+        else ''))
+    placement = SpatialPlacement(Mesh(devices, ('space',)))
+    inputs = shard_inputs()
+    hw = shard_hw(inputs[3], SHARD_SIZE)
+    results = {'device': smi, 'devices': [str(d) for d in devices],
+               'hw': list(hw), 'n_shards': SHARD_N}
+    launches = None
+    for precision in ('float32', 'bfloat16'):
+        st, got, want, counts, result = shard_run(torch, inputs, precision,
+                                                  placement, hw)
+        require(isinstance(st._input, Sharded) and st._input.axis == 1,
+                'shard %s: the iterate is not H-sharded' % precision)
+        for name, n in counts.items():
+            require(n > 0 or name == 'fused_style_branch', 'shard %s: '
+                    'kernel %s never launched' % (precision, name))
+        n_style = len(st.spec().style_layers)
+        n_sharded = len(sharded_style_layers(st.spec(), hw[0] // SHARD_N))
+        evals = len(got)
+        for name in SHARD_KERNELS:
+            require(counts[name] == SHARD_N * n_sharded * evals,
+                    'shard %s: %s launched %d times, not once a shard (%d) '
+                    'a sharded style layer (%d) an evaluation (%d)' % (
+                        precision, name, counts[name], SHARD_N, n_sharded,
+                        evals))
+        require(counts['fused_style_branch'] == (n_style - n_sharded)
+                * evals, 'shard %s: the fused branch launched %d times'
+                % (precision, counts['fused_style_branch']))
+        if SHARD_DEVICE == 'cuda':
+            for key in shard_planned(torch, precision, hw, SHARD_N):
+                require(conv.path_launches.get(key, 0) > 0, 'shard %s: no '
+                        '%s launches on the %s path planned for a shard'
+                        % (precision, key[0], key[1]))
+        itemsize = ITEMSIZE[precision]
+        result['halo_bytes_step'] = halo_bytes(hw, SHARD_N, itemsize)
+        result['conv_paths'] = path_counts()
+        say('shard', '%s %dx%d over %d shards: %d L-BFGS steps in chunks '
+            'of %d, %.2f ms a step sharded against %.2f unsharded (x%.2f, '
+            'the one-card cost of sharding on %s), worst trace rel err '
+            '%.3g (%s, rtol %g), loss %.6g -> %.6g; halo %.2f MiB a step; '
+            'peak %.0f MiB sharded, %.0f unsharded; launches %s' % (
+                precision, hw[0], hw[1], SHARD_N, SHARD_ITERATIONS,
+                SHARD_CHUNK, result['sharded_ms_step'],
+                result['unsharded_ms_step'], result['sharded_ms_step']
+                / result['unsharded_ms_step'], smi, result['worst_rel_err'],
+                'every step from the unsharded state' if precision
+                == 'float32' else 'the prime',
+                SHARD_RTOL[precision], *result['losses'],
+                result['halo_bytes_step'] / 2 ** 20,
+                result['sharded_peak_mib'], result['unsharded_peak_mib'],
+                counts))
+        results[precision] = result
+        if precision == 'float32':
+            launches = counts
+            results['checkpoint'] = shard_checkpoint(st, placement)
+        del st
+        torch.cuda.empty_cache()
+
+    w_hw = shard_hw(inputs[3], SHARD_W_SIZE)
+    require(w_hw[0] % SHARD_N and not w_hw[1] % SHARD_N,
+            'shard: %dx%d is no W-fallback grid' % w_hw)
+    st = shard_engine(inputs, 'float32', w_hw, placement)
+    require(isinstance(st._input, Sharded) and st._input.axis == 2,
+            'shard: %dx%d is not W-sharded' % w_hw)
+    del st
+    results['w_fallback'] = {'hw': list(w_hw), 'worst_rel_err': shard_forced(
+        inputs, 'float32', w_hw, placement, SHARD_W_ITERATIONS,
+        'shard W-fallback')}
+    say('shard', 'float32 %dx%d (H %% %d != 0: W-sharded), %d steps, each '
+        'from the unsharded state: worst trace rel err %.3g' % (
+            w_hw[0], w_hw[1], SHARD_N, SHARD_W_ITERATIONS,
+            results['w_fallback']['worst_rel_err']))
+
+    results['batch'] = shard_batch(torch, inputs, devices)
+    results['cli'] = shard_cli(torch, log)
+    (OUT_DIR / 'shard.json').write_text(json.dumps(results, indent=1))
+    return launches, results
+
+
+def shard_checkpoint(st, placement):
+    """A sharded checkpoint of st saved and loaded into a new sharded
+    engine: its next chunk equals st's, bit for bit. The checkpoint goes
+    to a temporary directory (a 768x1024 L-BFGS history is 180 MiB)."""
+    import tempfile
+    from style_transfer2_tpu_torch.engine import (StyleTransfer,
+                                                  load_checkpoint,
+                                                  save_checkpoint)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(st, Path(tmp) / 'ck')
+        resumed = StyleTransfer(shard_inputs()[0], device=SHARD_DEVICE,
+                                placement=placement)
+        load_checkpoint(resumed, Path(tmp) / 'ck')
+    want = st.collect_steps(st.begin_steps(SHARD_CHUNK))
+    got = resumed.collect_steps(resumed.begin_steps(SHARD_CHUNK))
+    same = (np.array_equal(got[0], want[0])
+            and [{k: v for k, v in t.data.items() if k != 'time'}
+                 for t in got[1]]
+            == [{k: v for k, v in t.data.items() if k != 'time'}
+                for t in want[1]])
+    require(same, 'shard: the resumed chunk differs from the '
+            'uninterrupted one')
+    say('shard', 'checkpoint saved at iterate %d and resumed into a new '
+        'sharded engine: the next %d steps equal the uninterrupted ones '
+        'bit for bit' % (st.t - SHARD_CHUNK, SHARD_CHUNK))
+    return {'resumed_equal': True, 'at': st.t - SHARD_CHUNK}
+
+
+def shard_batch(torch, inputs, devices):
+    """SHARD_LANES float32 lanes at SHARD_BATCH_SIZE over a 2-way 'data'
+    mesh against the unsharded batched engine: golden_gate and its flips,
+    L-BFGS, SHARD_BATCH_ITERATIONS steps one a dispatch; every trace key
+    of each lane within the golden rtol."""
+    from PIL import Image
+    from style_transfer2_tpu_torch import cli
+    from style_transfer2_tpu_torch.engine.batched import batched_engine
+    from style_transfer2_tpu_torch.parallel import DataPlacement, Mesh
+    from style_transfer2_tpu_torch.utils import resize_to_fit
+    params, (weights, scalars), _, content = inputs
+    hw = shard_hw(content, SHARD_BATCH_SIZE)
+    with Image.open(STYLE) as img:
+        style_img = np.uint8(resize_to_fit(img.convert('RGB'),
+                                           SHARD_BATCH_SIZE))
+    pixels = cli.fit_content(content, hw)
+    jobs = [np.ascontiguousarray(p) for p in (
+        pixels, pixels[:, ::-1], pixels[::-1], pixels[::-1, ::-1])]
+    rng = np.random.RandomState(0)
+    inits = [rng.uniform(0, 255, hw + (3,)).astype(np.uint8)
+             for _ in jobs]
+    data = [devices[0], devices[1]]
+    runs = []
+    for placement in (DataPlacement(Mesh(data, ('data',))), None):
+        engine = batched_engine(params, weights, scalars, hw, SHARD_LANES,
+                                placement=placement, optimizer='lbfgs',
+                                precision='float32', device=SHARD_DEVICE)
+        for job, init in zip(jobs, inits):
+            engine.add_job(job, style_img, init)
+        runs.append([engine.step_all()
+                     for _ in range(SHARD_BATCH_ITERATIONS)])
+        del engine
+    worst = 0.0
+    for lane in range(SHARD_LANES):
+        worst = max(worst, shard_compare(
+            [s[lane] for s in runs[0]], [s[lane] for s in runs[1]],
+            SHARD_RTOL['float32'], 'shard batch lane %d' % lane))
+    say('shard', '%d float32 lanes at %dx%d over a 2-way data mesh (%s), '
+        '%d L-BFGS steps: worst trace rel err %.3g against the unsharded '
+        'batched engine' % (SHARD_LANES, hw[0], hw[1],
+                            ', '.join(str(d) for d in data),
+                            SHARD_BATCH_ITERATIONS, worst))
+    return {'hw': list(hw), 'devices': [str(d) for d in data],
+            'worst_rel_err': worst}
+
+
+def shard_cli(torch, log):
+    """cli.main with --mesh 1 (a PNG, the placement logged), and on the
+    card --mesh N for N above the card count, which exits with
+    make_mesh's message."""
+    from style_transfer2_tpu_torch import cli
+    png = OUT_DIR / 'shard_cli.png'
+    png.unlink(missing_ok=True)
+    start = len(log.records)
+    rc = cli.main([str(CONTENT), str(STYLE), '-o', str(png), '--size',
+                   str(SHARD_CLI_SIZE), '--iterations', '5', '--device',
+                   SHARD_DEVICE, '--mesh', '1'])
+    require(rc == 0 and png.exists(), 'cli --mesh 1: rc %r' % (rc,))
+    require(any(r.getMessage().startswith('spatial sharding over 1 devices')
+                for r in log.records[start:]), 'cli --mesh 1: no placement')
+    png.unlink()
+    out = {'mesh_1': 'ok'}
+    if SHARD_DEVICE == 'cuda':
+        n = torch.cuda.device_count() + 1
+        want = "Mesh '%d' needs %d devices, have %d" % (n, n, n - 1)
+        try:
+            cli.main([str(CONTENT), str(STYLE), '-o', str(png), '--size',
+                      str(SHARD_CLI_SIZE), '--iterations', '1', '--mesh',
+                      str(n)])
+            message = None
+        except SystemExit as e:
+            message = str(e)
+        require(message == want, 'cli --mesh %d: %r, not %r'
+                % (n, message, want))
+        require(not png.exists(), 'cli --mesh %d wrote a PNG' % n)
+        out['mesh_too_many'] = message
+    say('shard', 'cli --mesh 1 at --size %d: a PNG%s' % (
+        SHARD_CLI_SIZE, '' if 'mesh_too_many' not in out else
+        '; --mesh %d exits: %s' % (torch.cuda.device_count() + 1,
+                                   out['mesh_too_many'])))
+    return out
+
+
+def check_style_phases(torch, rng, tap, n, pending, timing=(15, 3)):
+    """The two-phase style entry points (style_gram, style_grad) at one
+    shard's tap (h, w, c) of a map cut n ways, against their plain
+    versions, each with its time, bound and library call (torch.mm of
+    X^T X; of X G_diff), the fused branch's time at the same tap beside.
+    Returns the two rows."""
+    from style_transfer2_tpu_torch.ops import style
+    h, w, c = tap
+    m = h * w
+    size = n * m * c
+
+    def timed(fn):
+        return median_ms(fn, torch, *timing)
+
+    feat = torch.relu(draw(torch, rng, (1, h, w, c)))
+    other = torch.relu(draw(torch, rng, (m, c)))
+    gram_style = other.T @ other / (m * c)
+    flat = feat.reshape(m, c)
+    g_k = style.style_gram(feat, size)
+    g_p = style.style_gram_plain(feat, size)
+    gd = (g_p * n - gram_style).contiguous()
+    s_k = style.style_grad(feat, gd, size)
+    s_p = style.style_grad_plain(feat, gd, size)
+    require(torch.equal(g_k, style.style_gram(feat, size))
+            and torch.equal(s_k, style.style_grad(feat, gd, size)),
+            'style phases %s: two calls differ' % (tap,))
+    torch.cuda.synchronize()
+    rows = []
+    for name, got, want, kernel, plain, lib, flops, nbytes in (
+            ('style_gram', g_k, g_p, lambda: style.style_gram(feat, size),
+             lambda: style.style_gram_plain(feat, size),
+             lambda: torch.mm(flat.T, flat), m * c * (c + 1),
+             4 * (m * c + c * c)),
+            ('style_grad', s_k, s_p, lambda: style.style_grad(feat, gd, size),
+             lambda: style.style_grad_plain(feat, gd, size),
+             lambda: torch.mm(flat, gd), 2 * m * c * c,
+             4 * (2 * m * c + c * c))):
+        # s_grad is ~1e-9 in magnitude: errors relative to each output's
+        # own max, as check_style's.
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        require(math.isfinite(rel) and rel <= STYLE_TOL, '%s %s: rel err '
+                '%.3g' % (name, tap, rel))
+        t_b, t_by = bound(flops, nbytes)
+        row = {'kernel': name, 'dtype': 'float32', 'where': 'shard',
+               'shape': list(tap), 'ms': timed(kernel),
+               'plain_ms': timed(plain), 'library_ms': timed(lib),
+               'bound_ms': t_b, 'bound_by': t_by, 'abs_err': err,
+               'rel_err': rel}
+        pending.append((row, '', kernel))
+        pending.append((row, 'library_', lib))
+        rows.append(row)
+    fused = timed(lambda: style._launch(feat, gram_style))
+    for row in rows:
+        row['fused_ms'] = fused
+    say('kernels', 'style phases float32 shard %-16s gram %.3f ms (plain '
+        '%.3f, torch.mm %.3f; %.0f%% of bound %.3f) err %.2g, grad %.3f ms '
+        '(plain %.3f, torch.mm %.3f; %.0f%% of bound %.3f) err %.2g; the '
+        'fused branch %.3f; bitwise repeatable' % (
+            tap, rows[0]['ms'], rows[0]['plain_ms'], rows[0]['library_ms'],
+            100 * rows[0]['bound_ms'] / rows[0]['ms'], rows[0]['bound_ms'],
+            rows[0]['rel_err'], rows[1]['ms'], rows[1]['plain_ms'],
+            rows[1]['library_ms'], 100 * rows[1]['bound_ms'] / rows[1]['ms'],
+            rows[1]['bound_ms'], rows[1]['rel_err'], fused))
+    return rows
+
+
+def shard_kernels(torch, rows, pending, parts, worst):
+    """The kernels at the shard path's shapes: the convs at each trunk
+    shape of one 768x1024 shard with its halo rows (h / SHARD_N + 2 rows),
+    float32 and bfloat16, and the style phases at the shard's four taps;
+    their rows join kernels.json and the costs phase's calls, and the
+    style phases' rows make their summary entries."""
+    rng = np.random.RandomState(SHARD_N)
+    hw = shard_hw(shard_inputs()[3], SHARD_SIZE)
+    shapes = []
+    for h, w, cin, cout in trunk_convs(*hw):
+        shape = (h // SHARD_N + 2, w, cin, cout)
+        if shape not in shapes:
+            shapes.append(shape)
+    for dtype_name in ('float32', 'bfloat16'):
+        for shape in shapes:
+            # Held and timed; not profiled (no summary entry sums them).
+            row = check_conv(torch, rng, shape, dtype_name, 'shard', [],
+                             timing=(5, 1))
+            rows.append(row)
+            for direction in ('fwd', 'bwd'):
+                key = 'conv3x3_bias_relu_' + direction
+                worst[key] = max(worst[key], row[direction + '_abs_err'])
+    for name in SHARD_KERNELS:
+        parts[name] = []
+        worst[name] = 0.0
+    for tap in style_taps(hw[0] // SHARD_N, hw[1]):
+        for row in check_style_phases(torch, rng, tap, SHARD_N, pending,
+                                      timing=(5, 1)):
+            rows.append(row)
+            parts[row['kernel']].append((row, ''))
+            worst[row['kernel']] = max(worst[row['kernel']], row['abs_err'])
+    write_kernels_json(rows)
+
+
+def phase_shard(torch, smi, log, rows, pending, parts, worst):
+    """Spatial and data sharding on the card (shard docstring): the kernels
+    at the shards' shapes, then the engine runs. Returns the float32
+    sharded run's launch counts."""
+    from style_transfer2_tpu_torch.utils import tf32
+    t0 = time.perf_counter()
+    with tf32(False):
+        shard_kernels(torch, rows, pending, parts, worst)
+    launches, _ = shard_runs(torch, smi, log)
+    say('shard', 'phase done in %.1f s' % (time.perf_counter() - t0))
+    return launches
+
+
+
 def main():
     import torch
     smi = phase_device(torch)
@@ -3669,6 +4260,9 @@ def main():
         launches[name] += n
     for name, n in phase_video(torch, smi).items():
         launches[name] += n
+    for name, n in phase_shard(torch, smi, log, rows, pending, parts,
+                               worst).items():
+        launches[name] = launches.get(name, 0) + n
     with tf32(False):
         phase_costs(torch, rows, parts, pending, steps)
     step = summarize(parts)
@@ -3678,15 +4272,17 @@ def main():
                      'sources': list(SOURCES[name][0]),
                      'replaces': SOURCES[name][1],
                      'launches': launches[name], 'max_abs_err': worst[name]},
-                    **step[name]) for name in KERNELS]
+                    **step[name]) for name in KERNELS + SHARD_KERNELS]
     say('summary', 'ms / plain_ms / bound_ms / library_ms, float32: the '
         'convs and the style branch summed over one 512px step\'s shapes '
         '(library: cuDNN conv, cuDNN dgrad), the image kernels (uint8 '
         'preprocess, deprocess) over the 7 rungs of the 1024px ladder '
         '(library: torch.sub, torch.add); device_ms: the kernels\' own '
         'time (torch.profiler); host_us: the host\'s enqueue cost a call; '
-        'launches over the main, ladder, highres, batch, serve, pool and '
-        'video runs; '
+        'launches over the main, ladder, highres, batch, serve, pool, '
+        'video and shard runs (style_gram, style_grad: the shard run\'s '
+        'two style phases, summed over the four taps of one 768x1024 '
+        'shard); '
         '512px it/s float32 '
         '%.3f, bfloat16 %.3f; step graph replays by run: %s' % (
             rates['float32'], rates['bfloat16'],

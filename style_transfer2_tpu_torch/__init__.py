@@ -13,6 +13,8 @@ Subpackages:
   optim   — the reference's Adam variant and fixed-step L-BFGS
   engine  — the objective, the steps, the StyleTransfer state machine and
             its checkpoints
+  parallel — device meshes, spatial sharding of one image over a mesh
+            axis, and batched lanes, split over a mesh's 'data' axis
   cli     — the single-image command line, single-scale or up the
             coarse-to-fine ladder
 """

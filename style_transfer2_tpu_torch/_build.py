@@ -54,6 +54,8 @@ _SIGNATURES = {
                         _I, _I, _P],
     'st2_style_branch': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                          _P],
+    'st2_style_gram': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    'st2_style_grad': [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     'st2_preprocess': [_P, _P, _P, _P],
     'st2_deprocess': [_P, _P, _P, _P],
 }

@@ -23,8 +23,15 @@ the forward and the backward for a second forward, the same trace. --pallas, --p
 are accepted, logged and ignored, so that a JAX command line runs here:
 the kernels are always on, --device picks the device, and the port
 compiles nothing a rung that a prewarm could hide; --batch ignores
---remat, as the JAX CLI's batch mode does. Not ported yet: --mesh and
---data-mesh (sharding, ROADMAP queue 1).
+--remat, as the JAX CLI's batch mode does.
+
+--mesh N (or 'auto', 'AxB') shards one image's H axis over N devices
+(parallel/spatial.py): every ladder rung snaps to a grid whose sides
+divide by N, and the polish engine takes the same placement. --data-mesh
+N splits --batch lanes over N devices (parallel/batch.py DataPlacement);
+--lanes must divide by N. On --device cuda a mesh takes the first N cards
+and exits if there are fewer; on --device cpu it is N entries of the CPU,
+one process standing in for N devices.
 """
 
 import argparse
@@ -85,11 +92,11 @@ def parse_args(argv=None):
                         'exists, so an interrupted batch restarts where '
                         'it died (images are independent jobs)')
     p.add_argument('--data-mesh', default='',
-                   help='not ported: sharding --batch lanes over several '
-                        'GPUs (ROADMAP queue 1, item 7); exits if set')
+                   help="split --batch lanes over a 'data' mesh ('auto', "
+                        "or a device count)")
     p.add_argument('--mesh', default='',
-                   help='not ported: spatial sharding over several GPUs '
-                        '(ROADMAP queue 1, item 7); exits if set')
+                   help="spatial sharding mesh for high-res (e.g. '4' or "
+                        "'auto'); empty = single device")
     p.add_argument('--init', choices=('random', 'content'), default='random',
                    help='initial iterate')
     p.add_argument('--seed', type=int, default=0)
@@ -166,14 +173,14 @@ def load_inputs(args):
     return params, load_weights_doc(args.weights), content_pil, style_np
 
 
-def build_engine(args, inputs, precision, device):
-    """An engine at the given precision with the objective, optimizer and
-    style image set."""
+def build_engine(args, inputs, precision, device, placement=None):
+    """An engine at the given precision (and spatial placement) with the
+    objective, optimizer and style image set."""
     from .engine import StyleTransfer
     from .optim import STEP_SIZES
     params, (weights, scalar_params), _, style_np = inputs
     st = StyleTransfer(params, precision=precision, device=device,
-                       remat=args.remat)
+                       remat=args.remat, placement=placement)
     st.set_weights(weights, scalar_params)
     st.set_optimizer(args.optimizer)
     st.set_step_size(args.step_size if args.step_size is not None
@@ -199,14 +206,38 @@ def start_first_rung(st, args, content, hw, rng):
         raise RuntimeError('engine failed to start (inconsistent state?)')
 
 
+def mesh_of(spec, axis, device):
+    """make_mesh(spec) over one named axis on --device; exits with
+    make_mesh's message where the devices are too few."""
+    from .parallel import make_mesh
+    try:
+        return make_mesh(spec, axis_names=(axis,), device=device)
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
+def spatial_placement(args):
+    """The SpatialPlacement of --mesh, or None."""
+    if not args.mesh:
+        return None
+    from .parallel import SpatialPlacement
+    placement = SpatialPlacement(mesh_of(args.mesh, 'space', args.device),
+                                 axis='space')
+    logger.info('spatial sharding over %d devices: %s', placement.n_shards,
+                ', '.join(str(d) for d in placement.devices))
+    return placement
+
+
 def setup(args):
-    """For parsed CLI args: an engine at --precision on --device with the
-    objective, optimizer and style set (not started), the inputs of
-    load_inputs, and the (h, w) grid of the full --size."""
+    """For parsed CLI args: an engine at --precision on --device (over the
+    --mesh placement) with the objective, optimizer and style set (not
+    started), the inputs of load_inputs, and the (h, w) grid of the full
+    --size."""
     from .engine import resolve_device
     device = resolve_device(args.device)
+    placement = spatial_placement(args)
     inputs = load_inputs(args)
-    st = build_engine(args, inputs, args.precision, device)
+    st = build_engine(args, inputs, args.precision, device, placement)
     wh = im.fit_into_square(inputs[2].size, args.size, scale_up=True)
     return st, inputs, (wh[1], wh[0])
 
@@ -278,7 +309,7 @@ def run_batch(args):
     images run in lane-sized waves, each wave's chunks --pipeline-depth
     deep."""
     from .engine import resolve_device
-    from .engine.batched import BatchedStyleTransfer
+    from .engine.batched import batched_engine
     from .models.weights import resolve_params
 
     outdir = Path(args.output)
@@ -287,10 +318,18 @@ def run_batch(args):
     if args.multi_scale or args.mesh:
         raise SystemExit('--batch does not combine with --multi-scale or '
                          'the spatial --mesh')
-    if args.data_mesh:
-        raise SystemExit('--data-mesh: sharding lanes over several GPUs is '
-                         'not ported (ROADMAP queue 1, item 7)')
     device = resolve_device(args.device)
+    placement = None
+    if args.data_mesh:
+        from .parallel import DataPlacement
+        placement = DataPlacement(mesh_of(args.data_mesh, 'data',
+                                          args.device))
+        if args.lanes % placement.n_groups:
+            raise SystemExit('--lanes (%d) must divide by the data mesh '
+                             '(%d devices)' % (args.lanes,
+                                               placement.n_groups))
+        logger.info('lane axis sharded over %d devices',
+                    placement.n_groups)
     if args.remat:
         logger.info('--remat %s: ignored by --batch (the batched engine '
                     'has no remat, as in the JAX CLI)', args.remat)
@@ -319,10 +358,10 @@ def run_batch(args):
     total_t0 = time.perf_counter()
     n_done = 0
     for hw, group in sorted(groups.items()):
-        engine = BatchedStyleTransfer(
+        engine = batched_engine(
             params, weights, scalar_params, hw, max_lanes=args.lanes,
-            optimizer=args.optimizer, precision=args.precision,
-            device=device)
+            placement=placement, optimizer=args.optimizer,
+            precision=args.precision, device=device)
         for wave_start in range(0, len(group), args.lanes):
             wave = group[wave_start:wave_start + args.lanes]
             lanes = {}
@@ -410,7 +449,8 @@ def optimize(args, st, inputs, ladder, rng):
         # row is the full-precision loss of the main run's result.
         logger.info('polish: %d iterations at %s', args.polish,
                     args.polish_precision)
-        stp = build_engine(args, inputs, args.polish_precision, device)
+        stp = build_engine(args, inputs, args.polish_precision, device,
+                           st.placement)
         stp.set_content(fit_content(content_pil, st.input_hw))
         stp.set_input(st.snapshot())
         # The polish continues the same optimization, so it inherits the
@@ -464,9 +504,6 @@ def main(argv=None):
                     '%s)', ', '.join(ignored), args.device)
     if args.batch:
         return run_batch(args)
-    if args.mesh or args.data_mesh:
-        raise SystemExit('--mesh, --data-mesh: sharding over several GPUs '
-                         'is not ported (ROADMAP queue 1, item 7)')
 
     from .engine import load_checkpoint, save_checkpoint
     st, inputs, target_hw = setup(args)
@@ -478,6 +515,19 @@ def main(argv=None):
 
     ladder = (im.scales(target_hw, min_size=args.min_scale)
               if args.multi_scale else [target_hw])
+    if st.placement is not None:
+        # Snap every rung to a mesh-divisible grid: an awkward aspect
+        # would otherwise replicate at the sizes sharding exists for. The
+        # content squashes by less than one shard's worth of pixels.
+        snapped = []
+        for hw in ladder:
+            s = st.placement.snap_hw(hw)
+            if s != hw:
+                logger.info('snapped %dx%d -> %dx%d for the %d-way mesh',
+                            *hw, *s, st.placement.n_shards)
+            if s not in snapped:
+                snapped.append(s)
+        ladder = snapped
     if args.resume:
         load_checkpoint(st, args.resume)
         logger.info('resumed from %s at iterate %d, %dx%d', args.resume,

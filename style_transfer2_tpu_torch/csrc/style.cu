@@ -221,9 +221,14 @@ gram_partials_kernel(const float* __restrict__ x,
 // chunk ways (a power of two, about 32 chunks a way): way y sums the
 // chunks y, y + ways, ..., then ways 0 .. ways-1 are added in that order,
 // so the order of every sum is fixed by n_chunks alone. Grid:
-// (n_tiles * T * T * ways / RED_THREADS, lanes).
+// (n_tiles * T * T * ways / RED_THREADS, lanes). TARGET false writes the
+// Gram itself (gram_style unread): a shard's phase-1 partial Gram under
+// spatial sharding. A template argument, so that the fused branch's
+// instance is the code it always was, bit for bit (a run-time test of the
+// target changed the fused branch's results on an H100).
 constexpr int RED_THREADS = 256;
 
+template <bool TARGET>
 __global__ void __launch_bounds__(RED_THREADS)
 gram_diff_kernel(const float* __restrict__ partials,
                  const float* __restrict__ gram_style,
@@ -236,7 +241,7 @@ gram_diff_kernel(const float* __restrict__ partials,
   const int e = blockIdx.x * width + x;   // n_tiles * T * T is a multiple
   const size_t stride = (size_t)n_tiles * T * T;
   partials += (size_t)blockIdx.y * n_chunks * stride;
-  gram_style += (size_t)blockIdx.y * c * c;
+  if (TARGET) gram_style += (size_t)blockIdx.y * c * c;
   gdiff += (size_t)blockIdx.y * c * c;
   float sum = 0.f;
 #pragma unroll 4
@@ -253,9 +258,14 @@ gram_diff_kernel(const float* __restrict__ partials,
   const int gj = tj * T + e % T;
   if (gi >= c || gj >= c) return;
   const float g = total * inv_size;
-  gdiff[(size_t)gi * c + gj] = g - gram_style[(size_t)gi * c + gj];
-  if (ti != tj)
-    gdiff[(size_t)gj * c + gi] = g - gram_style[(size_t)gj * c + gi];
+  if (TARGET) {
+    gdiff[(size_t)gi * c + gj] = g - gram_style[(size_t)gi * c + gj];
+    if (ti != tj)
+      gdiff[(size_t)gj * c + gi] = g - gram_style[(size_t)gj * c + gi];
+  } else {
+    gdiff[(size_t)gi * c + gj] = g;
+    if (ti != tj) gdiff[(size_t)gj * c + gi] = g;
+  }
 }
 
 // (c) sgrad[m, j] = scale * sum_k X[m, k] gdiff[k, j]. RT rows per thread:
@@ -369,6 +379,53 @@ style_grad_kernel(const float* __restrict__ x,
   }
 }
 
+// The two halves of the branch, launched on `st`: (a) and (b), the Gram
+// difference (or, with no target, the Gram itself), and (c), the gradient
+// product. Each returns the first nonzero cudaGetLastError() of its
+// launches.
+int launch_gram(const float* x, const float* gram_style, float* partials,
+                float* gdiff, int m, int c, int chunk, int n_chunks,
+                int lanes, float inv_size, cudaStream_t st) {
+  const int nt = (c + T - 1) / T;
+  const int n_tiles = nt * (nt + 1) / 2;
+  gram_partials_kernel<<<dim3(n_tiles, n_chunks, lanes), THREADS, 0, st>>>(
+      x, partials, m, c, nt, chunk);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  int ways = 1;
+  while (ways < 32 && ways * 64 <= n_chunks) ways *= 2;
+  const dim3 grid(n_tiles * T * T * ways / RED_THREADS, lanes);
+  if (gram_style)
+    gram_diff_kernel<true><<<grid, RED_THREADS, 0, st>>>(
+        partials, gram_style, gdiff, c, nt, n_tiles, n_chunks, ways,
+        inv_size);
+  else
+    gram_diff_kernel<false><<<grid, RED_THREADS, 0, st>>>(
+        partials, gram_style, gdiff, c, nt, n_tiles, n_chunks, ways,
+        inv_size);
+  return (int)cudaGetLastError();
+}
+
+int launch_grad(const float* x, const float* gdiff, float* sgrad, int m,
+                int c, int grad_rows, int lanes, float grad_scale,
+                cudaStream_t st) {
+  const int nt = (c + T - 1) / T;
+  const dim3 grid((m + grad_rows - 1) / grad_rows, nt, lanes);
+  if (grad_rows == 64)
+    style_grad_kernel<8><<<grid, THREADS, 0, st>>>(x, gdiff, sgrad, m, c,
+                                                   grad_scale);
+  else
+    style_grad_kernel<4><<<grid, THREADS, 0, st>>>(x, gdiff, sgrad, m, c,
+                                                   grad_scale);
+  return (int)cudaGetLastError();
+}
+
+bool bad_args(const float* x, const float* gdiff, int m, int c, int lanes) {
+  return c % 4 != 0 || ((uintptr_t)x | (uintptr_t)gdiff) % 16 != 0 ||
+         lanes < 1 || lanes > 65535 ||
+         (int64_t)lanes * (m > c ? m : c) > INT32_MAX;
+}
+
 }  // namespace
 
 // x: (lanes, m, c) float32, 16-byte aligned, c a multiple of 4, lanes * m
@@ -384,31 +441,39 @@ extern "C" int st2_style_branch(const float* x, const float* gram_style,
                                 int m, int c, int chunk, int n_chunks,
                                 int grad_rows, int lanes, float inv_size,
                                 float grad_scale, void* stream) {
-  if (c % 4 != 0 || ((uintptr_t)x | (uintptr_t)gdiff) % 16 != 0 ||
-      (grad_rows != 64 && grad_rows != 32) || lanes < 1 || lanes > 65535 ||
-      (int64_t)lanes * (m > c ? m : c) > INT32_MAX)
+  if (bad_args(x, gdiff, m, c, lanes) || (grad_rows != 64 && grad_rows != 32))
     return -1;
   cudaStream_t st = (cudaStream_t)stream;
-  const int nt = (c + T - 1) / T;
-  const int n_tiles = nt * (nt + 1) / 2;
-  gram_partials_kernel<<<dim3(n_tiles, n_chunks, lanes), THREADS, 0, st>>>(
-      x, partials, m, c, nt, chunk);
-  int err = (int)cudaGetLastError();
+  const int err = launch_gram(x, gram_style, partials, gdiff, m, c, chunk,
+                              n_chunks, lanes, inv_size, st);
   if (err) return err;
-  int ways = 1;
-  while (ways < 32 && ways * 64 <= n_chunks) ways *= 2;
-  gram_diff_kernel<<<dim3(n_tiles * T * T * ways / RED_THREADS, lanes),
-                     RED_THREADS, 0, st>>>(partials, gram_style, gdiff, c,
-                                           nt, n_tiles, n_chunks, ways,
-                                           inv_size);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  const dim3 grid((m + grad_rows - 1) / grad_rows, nt, lanes);
-  if (grad_rows == 64)
-    style_grad_kernel<8><<<grid, THREADS, 0, st>>>(x, gdiff, sgrad, m, c,
-                                                   grad_scale);
-  else
-    style_grad_kernel<4><<<grid, THREADS, 0, st>>>(x, gdiff, sgrad, m, c,
-                                                   grad_scale);
-  return (int)cudaGetLastError();
+  return launch_grad(x, gdiff, sgrad, m, c, grad_rows, lanes, grad_scale,
+                     st);
+}
+
+// Spatial sharding splits the branch at the sum over M, which crosses the
+// shards (ops/style.py style_branch_sharded). Phase 1, on each shard's
+// rows: gdiff = X^T X * inv_size - gram_style, with inv_size 1 / the WHOLE
+// map's size, and gram_style null for no target (each shard's partial
+// Gram; the caller sums them over the shards and subtracts G_style once).
+// Phase 2, on each shard's rows against the summed G_diff: sgrad = X
+// G_diff * grad_scale. Arguments as st2_style_branch's; the same kernels
+// and the same fixed orders, so each phase's bits are those of the fused
+// branch's half over the same rows.
+extern "C" int st2_style_gram(const float* x, const float* gram_style,
+                              float* partials, float* gdiff, int m, int c,
+                              int chunk, int n_chunks, int lanes,
+                              float inv_size, void* stream) {
+  if (bad_args(x, gdiff, m, c, lanes)) return -1;
+  return launch_gram(x, gram_style, partials, gdiff, m, c, chunk, n_chunks,
+                     lanes, inv_size, (cudaStream_t)stream);
+}
+
+extern "C" int st2_style_grad(const float* x, const float* gdiff,
+                              float* sgrad, int m, int c, int grad_rows,
+                              int lanes, float grad_scale, void* stream) {
+  if (bad_args(x, gdiff, m, c, lanes) || (grad_rows != 64 && grad_rows != 32))
+    return -1;
+  return launch_grad(x, gdiff, sgrad, m, c, grad_rows, lanes, grad_scale,
+                     (cudaStream_t)stream);
 }

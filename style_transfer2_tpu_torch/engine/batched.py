@@ -26,6 +26,13 @@ as replays of captured CUDA graphs from each key's second call on
 (engine/graphs.py, parallel/batch.py): the stacked state and the norms
 then live in the graphs' static buffers, which lane writes update in
 place.
+
+PlacedBatchedStyleTransfer is the same engine with its lanes split over
+the devices of a DataPlacement (parallel/batch.py; the JAX engine's
+placement=): one BatchedStyleTransfer a device group, each with its own
+step graphs (its work is on one device), behind the same lane-numbered
+interface. Every dispatch begins on every group before any is collected,
+so groups on distinct cards run at once.
 """
 
 import numpy as np
@@ -404,3 +411,138 @@ class BatchedStyleTransfer:
     def lane_image(self, lane):
         """One lane's deprocessed iterate (HxWx3 float32 RGB numpy)."""
         return vgg19.deprocess(self.states['x'][lane:lane + 1])
+
+
+class PlacedBatchedStyleTransfer:
+    """A BatchedStyleTransfer whose max_lanes lanes split over the devices
+    of a parallel.batch.DataPlacement (module docstring): lane i is lane
+    i % per of group i // per, per = max_lanes / (the placement's group
+    count), which must divide. The interface is BatchedStyleTransfer's;
+    `active` is this engine's own list (callers claim a lane in it before
+    add_job), `running` and `t` are read-only joins of the groups'."""
+
+    def __init__(self, params, weights, scalar_params, hw, max_lanes,
+                 placement, optimizer='adam', precision='float32', n_corr=10,
+                 device='cuda'):
+        groups = placement.lane_groups(int(max_lanes))
+        if placement.devices[0].type != torch.device(device).type:
+            raise ValueError('placement over %s devices for an engine on %s'
+                             % (placement.devices[0].type, device))
+        self.placement = placement
+        self.groups = [BatchedStyleTransfer(
+            params, weights, scalar_params, hw, per, optimizer, precision,
+            n_corr, device=d) for d, per in groups]
+        self.per = groups[0][1]
+        first = self.groups[0]
+        self.device = first.device
+        self.spec = first.spec
+        self.default_weights = weights
+        self.default_scalars = scalar_params
+        self.hw = first.hw
+        self.max_lanes = int(max_lanes)
+        self.optimizer_name = optimizer
+        self.precision = precision
+        self.active = [False] * self.max_lanes
+
+    def _at(self, lane):
+        """(the group of lane, its lane there)."""
+        return self.groups[lane // self.per], lane % self.per
+
+    @property
+    def running(self):
+        return [r for g in self.groups for r in g.running]
+
+    @property
+    def t(self):
+        return [t for g in self.groups for t in g.t]
+
+    def free_lane(self):
+        for i, busy in enumerate(self.active):
+            if not busy:
+                return i
+        return None
+
+    def add_job(self, content, style, input_image, weights=None,
+                scalar_params=None, step_size=None, lane=None,
+                lane_state=None, t=0, norms=None):
+        """BatchedStyleTransfer.add_job on the lane's group."""
+        if lane is None:
+            lane = self.free_lane()
+        if lane is None:
+            raise RuntimeError('no free lane (bucket of %d full)'
+                               % self.max_lanes)
+        group, at = self._at(lane)
+        group.add_job(content, style, input_image, weights, scalar_params,
+                      step_size, at, lane_state, t, norms)
+        self.active[lane] = True
+        return lane
+
+    def lane_state(self, lane):
+        group, at = self._at(lane)
+        return group.lane_state(at)
+
+    def lane_norms(self, lane):
+        group, at = self._at(lane)
+        return group.lane_norms(at)
+
+    def norms_host(self):
+        parts = [g.norms_host() for g in self.groups]
+        return (parts[0][0], np.concatenate([p[1] for p in parts], axis=1),
+                np.concatenate([p[2] for p in parts], axis=1))
+
+    def remove_job(self, lane):
+        group, at = self._at(lane)
+        group.remove_job(at)
+        self.active[lane] = False
+
+    def set_running(self, lane, running):
+        group, at = self._at(lane)
+        group.set_running(at, running)
+
+    def any_running(self):
+        return any(g.any_running() for g in self.groups)
+
+    def set_step_size(self, lane, step_size):
+        group, at = self._at(lane)
+        group.set_step_size(at, step_size)
+
+    def set_lane_weights(self, lane, weights, scalar_params):
+        group, at = self._at(lane)
+        group.set_lane_weights(at, weights, scalar_params)
+
+    def begin_steps_all(self, n_steps):
+        """Begins n_steps on every group, then returns; None when no lane
+        runs."""
+        handles = [g.begin_steps_all(n_steps) for g in self.groups]
+        return None if all(h is None for h in handles) else handles
+
+    def collect_steps_all(self, handle):
+        if handle is None:
+            return {}
+        out = {}
+        for i, (group, h) in enumerate(zip(self.groups, handle)):
+            for lane, traces in group.collect_steps_all(h).items():
+                out[i * self.per + lane] = traces
+        return out
+
+    def step_all(self):
+        return {lane: traces[0]
+                for lane, traces in self.run_steps_all(1).items()}
+
+    def run_steps_all(self, n_steps):
+        return self.collect_steps_all(self.begin_steps_all(n_steps))
+
+    def lane_image(self, lane):
+        group, at = self._at(lane)
+        return group.lane_image(at)
+
+
+def batched_engine(params, weights, scalar_params, hw, max_lanes,
+                   placement=None, **kwargs):
+    """A BatchedStyleTransfer, or with a DataPlacement a
+    PlacedBatchedStyleTransfer over its devices; kwargs as theirs."""
+    if placement is None:
+        return BatchedStyleTransfer(params, weights, scalar_params, hw,
+                                    max_lanes, **kwargs)
+    return PlacedBatchedStyleTransfer(params, weights, scalar_params, hw,
+                                      max_lanes, placement, **kwargs)

@@ -8,7 +8,9 @@ first-eval norm cache go to `arrays.pt` through torch.save (in place of
 orbax); the host-side config (weights document, optimizer, step size,
 iterate count, precision) goes to `meta.json`. Content features are not
 stored: they are recomputed from the content image on load. Tensors are
-saved from the host and restored to the loading engine's device.
+saved from the host and restored to the loading engine's device; a
+spatially sharded engine's (parallel/spatial.py) are gathered to the host
+on save and placed again on load, as the JAX package's checkpoint.py does.
 
 The port reads only its own checkpoints, not the JAX package's, so the
 JAX loader's migration of flat-history L-BFGS buffers has no counterpart.
@@ -19,6 +21,7 @@ from pathlib import Path
 
 import torch
 
+from ..parallel.spatial import Sharded
 from .steps import precision_scope
 
 ARRAYS = 'arrays.pt'
@@ -28,6 +31,8 @@ META = 'meta.json'
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, Sharded):
+        tree = tree.gather()
     if isinstance(tree, torch.Tensor):
         return tree.detach().to(device)
     return tree
@@ -82,9 +87,16 @@ def load_checkpoint(st, path):
 
     st.opt_state = arrays.get('opt_state')
     st._input = arrays.get('input')
+    st.content = arrays.get('content')
+    if st.placement is not None:
+        if st.opt_state is not None:
+            st.opt_state = st._place_state(st.opt_state)
+        if st._input is not None:
+            st._input = st._place_image(st._input)
+        if st.content is not None:
+            st.content = st._place_image(st.content)
     if st.opt_state is not None and st._input is not None:
         st.opt_state['x'] = st._input
-    st.content = arrays.get('content')
     st.grams = arrays.get('grams')
     st.norm_vals = arrays.get('norm_vals', {})
     st.norm_set = arrays.get('norm_set', {})

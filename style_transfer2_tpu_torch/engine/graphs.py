@@ -145,6 +145,8 @@ def _launch_counts():
     from ..ops import conv, image, style
     counts = {('conv',) + key: n for key, n in conv.path_launches.items()}
     counts[('style',)] = style.launches
+    counts[('style_gram',)] = style.gram_launches
+    counts[('style_grad',)] = style.grad_launches
     counts[('preprocess',)] = image.preprocess_launches
     counts[('deprocess',)] = image.deprocess_launches
     return counts
@@ -160,6 +162,10 @@ def _credit(delta, sign=1):
                                                                  0) + n
         elif key[0] == 'style':
             style.launches += n
+        elif key[0] == 'style_gram':
+            style.gram_launches += n
+        elif key[0] == 'style_grad':
+            style.grad_launches += n
         elif key[0] == 'preprocess':
             image.preprocess_launches += n
         else:

@@ -19,6 +19,7 @@ import functools
 import torch
 
 from ..optim import adam, lbfgs
+from ..parallel.spatial import Sharded
 from ..utils import tf32
 from .graphs import GraphKey, StepGraphs
 from .objective import make_objective
@@ -100,6 +101,12 @@ def build_step_core(spec, optimizer):
     raise ValueError('Unknown optimizer: %r' % (optimizer,))
 
 
+def _is_array(v):
+    """A tensor, or a Sharded one (parallel/spatial.py): device state, as
+    opposed to the host counters of a state."""
+    return torch.is_tensor(v) or isinstance(v, Sharded)
+
+
 # The args of one step that the step rewrites: the graphs copy these back
 # into their static buffers.
 WRITES = ('state', 'norms_vals', 'norms_set')
@@ -176,9 +183,9 @@ def build_scan_fn(spec, optimizer, primed=False):
         if graphs is None:
             graphs = StepGraphs()
         device = state['x'].device
-        host = {k: v for k, v in state.items() if not torch.is_tensor(v)}
-        args = step_args({k: v for k, v in state.items()
-                          if torch.is_tensor(v)}, inputs)
+        host = {k: v for k, v in state.items() if not _is_array(v)}
+        args = step_args({k: v for k, v in state.items() if _is_array(v)},
+                         inputs)
         n_corr = state['sk'].shape[0] if 'sk' in state else None
 
         def run(kind, body, extra):

@@ -18,9 +18,18 @@ temporal-consistency term toward a previous frame. Each engine holds its
 precision mode's TF32 switches only around the device work it launches
 (engine/steps.py precision_scope), so engines of different precisions can
 share a process.
+
+placement: a parallel.SpatialPlacement shards the iterate, the content,
+their features and the optimizer state over a mesh axis (the JAX engine's
+_place_image, _place_state and _place_replicated); the Grams, norms and
+trace scalars live on the mesh's first device, and the images and `input`
+are gathered there. Every step is then the same step over Sharded arrays
+(parallel/spatial.py), with the same one host sync a chunk; it runs
+eagerly, since the step graphs are captures on one device.
 """
 
 import csv
+import logging
 import time
 
 import numpy as np
@@ -32,6 +41,7 @@ from ..ops.gram import gram_matrix
 from ..ops.image import deprocess_on_device
 from ..ops.resample import resize_nhwc
 from ..optim import OPTIMIZERS, STEP_SIZES, lbfgs
+from ..parallel.spatial import gather, gather_tree
 from ..utils import Trace
 from .objective import (
     LOSS_NAMES,
@@ -42,6 +52,8 @@ from .objective import (
 )
 from .graphs import CudaGraphs, StepGraphs
 from .steps import build_scan_fn, precision_config, precision_scope
+
+logger = logging.getLogger('engine')
 
 
 def _to_host(parts):
@@ -90,15 +102,27 @@ class StyleTransfer:
     state dict. API of reference worker.py:117-315."""
 
     def __init__(self, params, precision='float32', n_corr=10,
-                 device='cuda', remat=False):
+                 device='cuda', remat=False, placement=None):
         """params: the JAX package's params dict of HWIO numpy arrays
         (models.weights). precision: 'float32', 'float32_fast' or
         'bfloat16'; its TF32 switches hold inside this engine's device work
         only (engine/steps.py precision_scope). device: 'cuda' or 'cpu'.
         remat: the backward's rematerialization policy, False, True/'conv'
         or 'block' (models/vgg19.py), fixed for the engine's life; it
-        trades memory for a second forward and changes no value."""
-        self.device = resolve_device(device)
+        trades memory for a second forward and changes no value.
+        placement: None, or a parallel.SpatialPlacement (module docstring)
+        over devices of device's type; the engine's own device is then the
+        mesh's first."""
+        self.placement = placement
+        if placement is None:
+            self.device = resolve_device(device)
+        else:
+            for d in placement.devices:
+                resolve_device(d)
+            if placement.device.type != torch.device(device).type:
+                raise ValueError('placement over %s devices for an engine '
+                                 'on %s' % (placement.device.type, device))
+            self.device = placement.device
         self.precision = precision
         self.compute_dtype = precision_config(precision)[0]
         self.n_corr = n_corr
@@ -137,9 +161,15 @@ class StyleTransfer:
         self.traces = []
         self._weights_cache = None   # (spec, layer_weights, scalars)
         # The captured steps on the card (engine/graphs.py); eager on the
-        # CPU.
-        self._graphs = StepGraphs(CudaGraphs(self.device)
-                                  if self.device.type == 'cuda' else None)
+        # CPU and under a placement.
+        self._graphs = StepGraphs(
+            CudaGraphs(self.device)
+            if self.device.type == 'cuda' and placement is None else None)
+        if placement is not None:
+            logger.info('spatial placement over %d shards (%s): steps run '
+                        'eagerly; the step graphs are per-device captures',
+                        placement.n_shards,
+                        ', '.join(str(d) for d in placement.devices))
 
     # -- properties ---------------------------------------------------------
 
@@ -147,8 +177,8 @@ class StyleTransfer:
     def input(self):
         """The iterate, (1, H, W, 3) float32 (after a step on the card, a
         static buffer of the step's graph: clone what must outlive the
-        next step)."""
-        return self._input
+        next step; under a placement, gathered on the first device)."""
+        return gather(self._input)
 
     @property
     def input_hw(self):
@@ -164,9 +194,21 @@ class StyleTransfer:
     def _tensor(self, value):
         return torch.as_tensor(value, device=self.device)
 
+    def _place_image(self, x):
+        return x if self.placement is None else self.placement.image(x)
+
+    def _place_state(self, tree):
+        return tree if self.placement is None else self.placement.state(tree)
+
+    def _image_tensor(self, image):
+        """A (1, H, W, 3) float32 mean-subtracted image (a tensor, or a
+        Sharded one) as a tensor on this engine's device."""
+        return torch.as_tensor(gather(image), dtype=torch.float32,
+                               device=self.device)
+
     def _zeros_image(self, size):
-        return torch.zeros((1,) + size + (3,), dtype=torch.float32,
-                           device=self.device)
+        return self._place_image(torch.zeros(
+            (1,) + size + (3,), dtype=torch.float32, device=self.device))
 
     # -- state machine (reference worker.py:140-229) -------------------------
 
@@ -199,14 +241,14 @@ class StyleTransfer:
         self._graphs.clear()
         with precision_scope(self.precision):
             state = OPTIMIZERS[self.optimizer_name].resample(
-                self.opt_state, size, new_x=new_x)
+                gather_tree(self.opt_state), size, new_x=gather(new_x))
         if self.optimizer_name == 'lbfgs':
             if (state['sk'].dtype != torch.float32
                     and lbfgs.history_dtype_for(
                         self.compute_dtype, state['x'].shape[1:3]) is None):
                 state = lbfgs.init(state['x'], state['sk'].shape[0])
             self._needs_init = True
-        self.opt_state = state
+        self.opt_state = state = self._place_state(state)
         self._input = state['x']
 
     def resample_input(self, size):
@@ -226,7 +268,8 @@ class StyleTransfer:
         size = tuple(int(s) for s in size)
         with precision_scope(self.precision):
             if self.content is not None:
-                self.content = resize_nhwc(self.content, size, 'lanczos3')
+                self.content = self._place_image(resize_nhwc(
+                    gather(self.content), size, 'lanczos3'))
             else:
                 self.content = self._zeros_image(size)
             self.features = self._content_features()
@@ -267,10 +310,10 @@ class StyleTransfer:
         tensor. An image of another size warm-starts the optimizer state
         there."""
         if preprocessed:
-            image = torch.as_tensor(image, dtype=torch.float32,
-                                    device=self.device)
+            image = self._image_tensor(image)
         else:
             image = vgg19.preprocess(image, self.device)
+        image = self._place_image(image)
         if self._input is not None and self._input.shape == image.shape:
             self._input = image
             if self.opt_state is not None:
@@ -285,7 +328,8 @@ class StyleTransfer:
             self._start()
 
     def set_content(self, image):
-        self.content = vgg19.preprocess(image, self.device)
+        self.content = self._place_image(vgg19.preprocess(image,
+                                                          self.device))
         with precision_scope(self.precision):
             self.features = self._content_features()
         self._start()
@@ -305,7 +349,8 @@ class StyleTransfer:
         every blob, so a later set_weights that adds a style layer finds
         its target."""
         with precision_scope(self.precision):
-            features = self.model(vgg19.preprocess(image, self.device))
+            features = self.model(self._place_image(
+                vgg19.preprocess(image, self.device)))
             self.grams = {layer: gram_matrix(feat)
                           for layer, feat in features.items()}
         self._start()
@@ -341,10 +386,10 @@ class StyleTransfer:
         cache is cleared, since from the second frame on the spec does not
         change while the weight may."""
         if preprocessed:
-            self.temporal_target = torch.as_tensor(
-                image, dtype=torch.float32, device=self.device)
+            target = self._image_tensor(image)
         else:
-            self.temporal_target = vgg19.preprocess(image, self.device)
+            target = vgg19.preprocess(image, self.device)
+        self.temporal_target = self._place_image(target)
         self.scalar_params['temporal'] = float(weight)
         self._weights_cache = None
         self.objective_changed()
@@ -467,7 +512,7 @@ class StyleTransfer:
         spec = self.spec()
         with precision_scope(self.precision):
             rows, prime_row = self._scan(spec, n_steps)
-            image = deprocess_on_device(self._input)
+            image = deprocess_on_device(gather(self._input))
         self.t += n_steps
         prime = None if prime_row is None else (spec, prime_row)
         return StepsDispatch(spec, rows, n_steps, self.t, image, prime)
@@ -529,7 +574,7 @@ class StyleTransfer:
 
     def snapshot(self):
         """The current iterate as a deprocessed HxWx3 float32 RGB array."""
-        return vgg19.deprocess(self._input)
+        return vgg19.deprocess(gather(self._input))
 
     def write_trace(self, filename):
         """Writes the trace history as CSV, one row per trace with a 'step'

@@ -37,7 +37,20 @@ a second copy of it), so the forward leaves only the taps saved. No policy
 lowers the peak of a forward and its vjp with the style taps: it falls in
 conv1_2's backward, which under every policy holds the taps, the caller's
 cotangents, conv1_2's output and two gradients of its size.
+
+Spatial sharding (parallel/spatial.py): x may be a Sharded, its H (or W)
+cut into per-device shards. Each conv then runs shard by shard on the
+shard and its halo rows (ops/conv.py conv3x3_bias_relu_sharded), and each
+2x2 ceil pool shard by shard while every shard holds an even number of
+rows (columns); the first level whose shards would pool unevenly is
+gathered onto the first shard's device, and the rest of the trunk runs
+there, unsharded (the small deep maps the JAX package replicates by
+design). The taps come back Sharded down to that level, plain below it.
+Every remat policy holds: a checkpointed part takes the shards as its
+tensors.
 """
+
+import functools
 
 import torch
 # torch.utils.checkpoint imports torch._dynamo at its first call, and that
@@ -49,8 +62,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.conv import backward_weights, conv3x3_bias_relu
+from ..ops.conv import (backward_weights, conv3x3_bias_relu,
+                        conv3x3_bias_relu_sharded)
 from ..ops.image import MEAN_RGB, deprocess, preprocess  # noqa: F401
+from ..parallel.spatial import Sharded
 
 # (name, out_channels) for each conv layer, in network order.
 CONV_SPECS = (
@@ -126,6 +141,45 @@ def _checkpoint(fn, *args):
                       preserve_rng_state=False)
 
 
+def _checkpoint_part(fn, h):
+    """_checkpoint(fn, h) for fn(h) -> a tuple of tensors and Shardeds,
+    with h a tensor or a Sharded: a Sharded goes in, and comes out, as its
+    shards, the tensors the checkpoint tracks."""
+    if not isinstance(h, Sharded):
+        return _checkpoint(fn, h)
+    layout = []
+
+    def flat_fn(*shards):
+        out = fn(Sharded(shards, h.axis))
+        layout[:] = [(o.axis, len(o.shards)) if isinstance(o, Sharded)
+                     else None for o in out]
+        flat = []
+        for o in out:
+            flat += o.shards if isinstance(o, Sharded) else [o]
+        return tuple(flat)
+
+    flat = list(_checkpoint(flat_fn, *h.shards))
+    out = []
+    for part in layout:
+        if part is None:
+            out.append(flat.pop(0))
+        else:
+            out.append(Sharded(flat[:part[1]], part[0]))
+            del flat[:part[1]]
+    return tuple(out)
+
+
+def _pool(h):
+    """_max_pool_ceil of a tensor, or of a Sharded shard by shard while its
+    shards' extent along the sharded dim is even (the local pools are then
+    the global one's); else of the gathered map."""
+    if isinstance(h, Sharded):
+        if h.shards[0].shape[h.axis] % 2 == 0:
+            return h.map(_max_pool_ceil)
+        h = h.gather()
+    return _max_pool_ceil(h)
+
+
 def _segments(names, policy, own_taps=()):
     """The blob names of the trunk cut into (names, checkpointed) parts,
     run in order: one part, not checkpointed, without block remat; else a
@@ -152,7 +206,7 @@ def _segments(names, policy, own_taps=()):
 
 
 def extract_features(params, x, layers=None, compute_dtype=torch.float32,
-                     remat=False):
+                     remat=False, params_on=None):
     """Runs the network forward and returns {blob: tap} for the requested
     blob names (default: all), stopping at the deepest one.
 
@@ -162,7 +216,9 @@ def extract_features(params, x, layers=None, compute_dtype=torch.float32,
     where a layer lacks 'wt' it is computed here, once per call. x: the
     preprocessed (1, H, W, 3) float32 input. The trunk runs in
     compute_dtype; the taps come back as float32. remat: the policy of the
-    module docstring (remat_policy); it changes no value."""
+    module docstring (remat_policy); it changes no value. x may be a
+    Sharded (module docstring); params_on(device) then gives the params on
+    a shard's device (default: params, for shards on their device)."""
     policy = remat_policy(remat)
     if layers is None:
         layers = BLOB_NAMES
@@ -173,20 +229,31 @@ def extract_features(params, x, layers=None, compute_dtype=torch.float32,
     wanted = frozenset(layers)
     deepest = max(blob_index(name) for name in layers) if layers else 0
 
-    def conv(h, name):
-        p = params[name]
-        wt = p['wt'] if 'wt' in p else backward_weights(p['w'])
-        # The tap is post-ReLU.
+    if params_on is None:
+        def params_on(device):
+            return params
+
+    def weights(p):
+        return p['w'], p['b'], p['wt'] if 'wt' in p else backward_weights(
+            p['w'])
+
+    def one_conv(*args):
         if policy == 'conv':
-            return _checkpoint(conv3x3_bias_relu, h, p['w'], p['b'], wt)
-        return conv3x3_bias_relu(h, p['w'], p['b'], wt)
+            return _checkpoint(conv3x3_bias_relu, *args)
+        return conv3x3_bias_relu(*args)
+
+    def conv(h, name):
+        # The tap is post-ReLU.
+        if isinstance(h, Sharded):
+            return conv3x3_bias_relu_sharded(
+                h, lambda device: weights(params_on(device)[name]), one_conv)
+        return one_conv(h, *weights(params[name]))
 
     def run(names, h):
         """h through the blobs `names`: (h, the float32 taps among them)."""
         taps = []
         for name in names:
-            h = conv(h, name) if name.startswith('conv') else \
-                _max_pool_ceil(h)
+            h = conv(h, name) if name.startswith('conv') else _pool(h)
             if name in wanted:
                 taps.append(h.float())
         return (h,) + tuple(taps)
@@ -199,7 +266,8 @@ def extract_features(params, x, layers=None, compute_dtype=torch.float32,
                 tuple(n for n in wanted if n.startswith('conv')))
     for names, checkpointed in _segments(BLOB_NAMES[1:deepest + 1], policy,
                                          own_taps):
-        out = _checkpoint(run, names, h) if checkpointed else run(names, h)
+        out = (_checkpoint_part(functools.partial(run, names), h)
+               if checkpointed else run(names, h))
         h = out[0]
         feats.update(zip([n for n in names if n in wanted], out[1:]))
     return {name: feats[name] for name in layers}
@@ -222,6 +290,20 @@ class VGG19Features(nn.Module):
             self.register_buffer(name + '_w', w)
             self.register_buffer(name + '_b', p['b'].to(compute_dtype))
             self.register_buffer(name + '_wt', backward_weights(w))
+        # Copies of the weights on the other devices of a spatial mesh.
+        self._replicas = {}
+
+    def params_on(self, device):
+        """params on `device`: the buffers on their own device, else a copy
+        kept for the model's life (a shard on another card)."""
+        device = torch.device(device)
+        if device == self.conv1_1_w.device:
+            return self.params
+        if device not in self._replicas:
+            self._replicas[device] = {
+                name: {k: t.to(device) for k, t in p.items()}
+                for name, p in self.params.items()}
+        return self._replicas[device]
 
     @property
     def params(self):
@@ -233,23 +315,44 @@ class VGG19Features(nn.Module):
     def forward(self, x, layers=None):
         with torch.no_grad():
             return extract_features(self.params, x, layers,
-                                    self.compute_dtype)
+                                    self.compute_dtype,
+                                    params_on=self.params_on)
 
     def features_and_vjp(self, x, layers):
         """Returns (features dict, vjp function): one forward that records
         the graph, and vjp(cotangents) = torch.autograd.grad of the taps
         with those cotangents injected, w.r.t. x — the moral equivalent of
         CaffeModel.backward's sectioned backward (worker.py:88-106). The
-        features are detached; the vjp may be called once."""
+        features are detached; the vjp may be called once. For a Sharded x
+        the taps are Sharded down to the gathered level, each cotangent
+        laid out as its tap, and the gradient is a Sharded laid out as x:
+        one autograd pass over every shard's graph, which carries the halo
+        rows' gradients back across the shards."""
         layers = tuple(layers)
         x = x.detach().requires_grad_(True)
         with torch.enable_grad():
             feats = extract_features(self.params, x, layers,
-                                     self.compute_dtype, self.remat)
+                                     self.compute_dtype, self.remat,
+                                     self.params_on)
 
-        def vjp(diffs):
-            outs = [feats[name] for name in layers]
-            return torch.autograd.grad(
-                outs, x, grad_outputs=[diffs[name] for name in layers])[0]
+        if isinstance(x, Sharded):
+            def vjp(diffs):
+                outs, grads = [], []
+                for name in layers:
+                    feat, diff = feats[name], diffs[name]
+                    if isinstance(feat, Sharded):
+                        outs += feat.shards
+                        grads += diff.shards
+                    else:
+                        outs.append(feat)
+                        grads.append(diff)
+                return Sharded(torch.autograd.grad(outs, x.shards,
+                                                   grad_outputs=grads),
+                               x.axis)
+        else:
+            def vjp(diffs):
+                outs = [feats[name] for name in layers]
+                return torch.autograd.grad(
+                    outs, x, grad_outputs=[diffs[name] for name in layers])[0]
 
         return {name: f.detach() for name, f in feats.items()}, vjp

@@ -26,12 +26,14 @@ the tests and chip_smoke.py hold the kernels against. Any other device
 raises.
 """
 
+import contextlib
 import functools
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..parallel.spatial import Sharded, halo
 from ..utils import aligned, sm_count
 
 # Launches through the wrappers below by (direction, path), 'fwd' or 'bwd'
@@ -257,6 +259,18 @@ def _check(x, w, b, what):
                             % what)
 
 
+def _check_current(x, what):
+    """Raises unless x lies on the current CUDA device: a launch runs on
+    the current device, with x's device's stream. A shard on another card
+    launches inside torch.cuda.device(shard.device)
+    (conv3x3_bias_relu_sharded); the backward runs on autograd's thread
+    for that device."""
+    if x.get_device() != torch.cuda.current_device():
+        raise RuntimeError('%s: tensor on %s, but the current device is '
+                           'cuda:%d' % (what, x.device,
+                                        torch.cuda.current_device()))
+
+
 def launches(direction):
     """The wrappers' launches in one direction ('fwd' or 'bwd'), over
     every path."""
@@ -270,6 +284,7 @@ def _launch_fwd(x, w, b, plan=None):
     (a view into a larger tensor) takes the float32 scalar path or the
     bfloat16 tile (mma.sync) path."""
     _check(x, w, b, 'conv3x3 forward')
+    _check_current(x, 'conv3x3 forward')
     if b.shape != (w.shape[3],):
         raise ValueError('conv3x3 forward: bias shape %s' % (tuple(b.shape),))
     x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
@@ -307,6 +322,7 @@ def _launch_bwd(g, y, wt, plan=None):
     a (path, splits, kspan) to launch instead of bwd_plan's, for timing
     the alternatives (chip_smoke.py, split_sweep.py)."""
     _check(g, wt, None, 'conv3x3 backward')
+    _check_current(g, 'conv3x3 backward')
     if y.shape != g.shape or y.dtype != g.dtype:
         raise ValueError('conv3x3 backward: g and y must match')
     n, h, wd, k = g.shape
@@ -363,3 +379,26 @@ def conv3x3_bias_relu(x, w, b, wt):
         return conv3x3_bias_relu_plain(x, w, b)
     raise RuntimeError('conv3x3_bias_relu: no kernel for device %s'
                        % x.device)
+
+
+def conv3x3_bias_relu_sharded(x, weights_on, conv=conv3x3_bias_relu):
+    """ReLU(conv3x3_SAME(x, w) + b) over a Sharded x (parallel/spatial.py),
+    differentiable in every shard: each shard is padded with one row of
+    each neighbour along the sharded dim (halo: zero rows at the image
+    edge, columns where W is sharded), run through `conv` (the kernels on
+    a CUDA shard, under torch.cuda.device(shard.device) so that it
+    launches on its own card; the plain version on a CPU shard) and
+    cropped back to its own rows. The kernels see the padded shard's
+    shape, so they plan for it, halo rows included. The backward reaches
+    the neighbours' rows through autograd (the halo's torch.cat and
+    .to). weights_on(device) -> (w, b, wt) on that device; conv: the
+    per-shard conv (a checkpointed one under remat)."""
+    d = x.axis
+    out = []
+    for s, padded in zip(x.shards, halo(x)):
+        guard = (torch.cuda.device(s.device) if s.is_cuda
+                 else contextlib.nullcontext())
+        with guard:
+            y = conv(padded, *weights_on(s.device))
+        out.append(y.narrow(d, 1, s.shape[d]))
+    return Sharded(out, d)

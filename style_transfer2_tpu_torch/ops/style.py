@@ -22,19 +22,32 @@ through.
 
 The launch plan (gram_tiles, gram_plan) is a pure function of the shape,
 the lane count and the card's SM count, so the CPU tests check it.
+
+Under spatial sharding (parallel/spatial.py) the sum over M crosses the
+shards, so style_branch_sharded runs the branch as two phases: each
+shard's partial Gram X_s^T X_s / size (size the WHOLE map's c*h*w; phase
+1, the kernels' Gram half with no target: st2_style_gram), summed over the
+shards on the first device, G_style subtracted once; then each shard's
+s_grad = X_s G_diff * 2/(C^2 size) against that G_diff broadcast back
+(phase 2: st2_style_grad). The plain versions run the same two phases.
 """
 
+import contextlib
 import functools
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..parallel.spatial import Sharded, broadcast, reduce_sum
 from ..utils import aligned, sm_count
 
 # Launches of the kernel through fused_style_branch (chip_smoke.py resets
 # and reads this).
 launches = 0
+# Launches of the two phases of style_branch_sharded, one a shard each.
+gram_launches = 0
+grad_launches = 0
 
 _TILE = 64          # output tile edge of the Gram kernel
 _ROW_STEP = 16      # M-chunks are multiples of the kernel's staging depth
@@ -123,6 +136,7 @@ def _launch(feat, gram_style):
                          'feature map\'s device' % (want,))
     if feat.dtype != torch.float32 or gram_style.dtype != torch.float32:
         raise TypeError('fused_style_branch: the kernel takes float32')
+    _check_current(feat)
     m = h * w
     size = m * c
     cp, chunk, n_chunks, n_partials, rows = _plan(m, c, sm_count(dev), b)
@@ -150,11 +164,120 @@ def _launch(feat, gram_style):
     return sgrad, gdiff
 
 
+def _check_current(feat):
+    """Raises unless feat lies on the current CUDA device (the launch runs
+    there, with feat's device's stream)."""
+    if feat.get_device() != torch.cuda.current_device():
+        raise RuntimeError('style branch: tensor on %s, but the current '
+                           'device is cuda:%d' % (feat.device,
+                                                  torch.cuda.current_device()))
+
+
+def style_gram_plain(feat, size):
+    """Phase 1, plain: X^T X / size for a (1, h, w, c) shard, size the
+    whole map's element count."""
+    c = feat.shape[-1]
+    flat = feat.reshape(-1, c).float()
+    return flat.T @ flat / size
+
+
+def style_grad_plain(feat, gram_diff, size):
+    """Phase 2, plain: X G_diff * 2/(c^2 size) for a (1, h, w, c) shard."""
+    _, h, w, c = feat.shape
+    flat = feat.reshape(h * w, c).float()
+    s_grad = flat @ gram_diff * (2.0 / (float(c) * float(c) * float(size)))
+    return s_grad.reshape(1, h, w, c)
+
+
+def _shard_operands(feat, what):
+    """(x padded to a channel multiple of 4 and aligned, c, padded c, the
+    launch plan) of a (1, h, w, c) float32 shard on the current device."""
+    if feat.dim() != 4 or feat.shape[0] != 1:
+        raise ValueError('%s: expected a (1, h, w, c) shard, got %s'
+                         % (what, tuple(feat.shape)))
+    if feat.dtype != torch.float32:
+        raise TypeError('%s: the kernel takes float32' % what)
+    _check_current(feat)
+    _, h, w, c = feat.shape
+    plan = _plan(h * w, c, sm_count(feat.device))
+    x = feat if plan[0] == c else F.pad(feat, (0, plan[0] - c))
+    return aligned(x), c, plan
+
+
+def style_gram(feat, size):
+    """Phase 1: X^T X / size for a (1, h, w, c) float32 shard, size the
+    whole map's c*h*w, as (c, c) on the shard's device. The kernels on a
+    CUDA shard (st2_style_gram, no target), the plain version on a CPU
+    one."""
+    global gram_launches
+    if not feat.is_cuda:
+        return style_gram_plain(feat, size)
+    x, c, (cp, chunk, n_chunks, n_partials, _) = _shard_operands(
+        feat, 'style_gram')
+    partials = x.new_empty(n_partials)
+    gram = x.new_empty(cp, cp)
+    err = _build.lib().st2_style_gram(
+        x.data_ptr(), None, partials.data_ptr(), gram.data_ptr(),
+        x.shape[1] * x.shape[2], cp, chunk, n_chunks, 1, 1.0 / float(size),
+        _build.stream(x))
+    _build.check(err, 'st2_style_gram')
+    gram_launches += 1
+    return gram if cp == c else gram[:c, :c].contiguous()
+
+
+def style_grad(feat, gram_diff, size):
+    """Phase 2: X G_diff * 2/(c^2 size) for a (1, h, w, c) float32 shard
+    and the (c, c) G_diff on its device. The kernel on a CUDA shard
+    (st2_style_grad), the plain version on a CPU one."""
+    global grad_launches
+    if not feat.is_cuda:
+        return style_grad_plain(feat, gram_diff, size)
+    x, c, (cp, _, _, _, rows) = _shard_operands(feat, 'style_grad')
+    gd = gram_diff if cp == c else F.pad(gram_diff, (0, cp - c, 0, cp - c))
+    gd = aligned(gd)
+    _, h, w, _ = x.shape
+    sgrad = x.new_empty(1, h, w, cp)
+    err = _build.lib().st2_style_grad(
+        x.data_ptr(), gd.data_ptr(), sgrad.data_ptr(), h * w, cp, rows, 1,
+        2.0 / (float(c) * float(c) * float(size)), _build.stream(x))
+    _build.check(err, 'st2_style_grad')
+    grad_launches += 1
+    return sgrad if cp == c else sgrad[..., :c].contiguous()
+
+
+def style_branch_sharded(feat, gram_style):
+    """(s_grad, gram_diff) of fused_style_branch for a Sharded (1, h, w, c)
+    float32 map (parallel/spatial.py): phase 1 on each shard (under its
+    own device), the partial Grams summed in shard order on the first
+    shard's device and G_style (there) subtracted once; phase 2 on each
+    shard against G_diff broadcast to its device. s_grad comes back
+    Sharded as feat, gram_diff on the first device."""
+    size = feat.numel()
+    grams = []
+    for s in feat.shards:
+        with _on(s):
+            grams.append(style_gram(s, size))
+    gram_diff = reduce_sum(grams, feat.device) - gram_style
+    out = []
+    for s, gd in zip(feat.shards, broadcast(gram_diff, feat.devices)):
+        with _on(s):
+            out.append(style_grad(s, gd, size))
+    return Sharded(out, feat.axis), gram_diff
+
+
+def _on(t):
+    """torch.cuda.device(t.device) for a CUDA t, else a no-op context."""
+    return (torch.cuda.device(t.device) if t.is_cuda
+            else contextlib.nullcontext())
+
+
 def fused_style_branch(feat, gram_style):
     """(s_grad, gram_diff) for a (1, h, w, c) float32 feature map and its
     (c, c) target Gram, or for (B, h, w, c) lanes and their (B, c, c)
     targets. Launches the CUDA kernels for a CUDA feat; the plain version
-    for a CPU feat."""
+    for a CPU feat. A Sharded feat runs style_branch_sharded."""
+    if isinstance(feat, Sharded):
+        return style_branch_sharded(feat, gram_style)
     if feat.is_cuda:
         return _launch(feat, gram_style)
     if feat.device.type == 'cpu':

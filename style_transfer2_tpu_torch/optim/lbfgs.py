@@ -21,6 +21,12 @@ are stored in bfloat16, and s.y is the dot of the pair as stored: taken
 before rounding it admitted pairs of negative stored curvature, which
 diverged (JAX package, optim/lbfgs.py:40-69,154-187).
 
+Under spatial sharding (parallel/spatial.py) x, the gradient and the
+history are Sharded alike (the history on x's sharded axis, one dim
+further in), the dots are sums of per-shard dots on the first device, and
+the scalars (loss, syk, count, pos) live there too; the rest of the
+arithmetic runs shard by shard.
+
 The *_lanes functions step B independent states stacked on a leading lane
 axis (the batched engine; JAX: jax.vmap of these functions): x and grad
 (B, H, W, 3), sk and yk (B, n_corr, H, W, 3), syk (B, n_corr), loss,
@@ -34,6 +40,7 @@ old values.
 import torch
 
 from ..ops.resample import resize_nhwc
+from ..parallel.spatial import Sharded, reduce_sum
 
 N_CORR_DEFAULT = 10
 SY_MIN = 1e-10
@@ -51,8 +58,22 @@ def history_dtype_for(compute_dtype, hw):
 
 def _vdot(a, b):
     """Float32 dot of two same-shaped tensors (bf16 operands are widened;
-    each bf16 product is exact in float32)."""
+    each bf16 product is exact in float32). Of two Sharded: the per-shard
+    dots summed in shard order on the first device."""
+    if isinstance(a, Sharded):
+        return reduce_sum([_vdot(s, t) for s, t in zip(a.shards, b.shards)],
+                          a.device)
     return torch.dot(a.reshape(-1).float(), b.reshape(-1).float())
+
+
+def _zeros_history(x, n_corr, dtype):
+    """(n_corr,) + x.shape zeros of dtype; for a Sharded x, sharded as x
+    is, so that no device holds the whole history."""
+    if isinstance(x, Sharded):
+        return Sharded([_zeros_history(s, n_corr, dtype) for s in x.shards],
+                       x.axis + 1)
+    return torch.zeros((n_corr,) + tuple(x.shape), dtype=dtype,
+                       device=x.device)
 
 
 def _vdot_lanes(a, b):
@@ -82,10 +103,8 @@ def init(x, n_corr=N_CORR_DEFAULT, history_dtype=None):
         'x': x,
         'loss': torch.zeros((), dtype=torch.float32, device=x.device),
         'grad': torch.zeros_like(x),
-        'sk': torch.zeros((n_corr,) + tuple(x.shape), dtype=hist,
-                          device=x.device),
-        'yk': torch.zeros((n_corr,) + tuple(x.shape), dtype=hist,
-                          device=x.device),
+        'sk': _zeros_history(x, n_corr, hist),
+        'yk': _zeros_history(x, n_corr, hist),
         'syk': torch.zeros((n_corr,), dtype=torch.float32, device=x.device),
         'count': zero_i,
         'pos': zero_i.clone(),   # next write slot (circular)

@@ -16,6 +16,12 @@ vary per lane. A (B,) bool run mask leaves paused and inactive lanes
 frozen: they still compute (the batch is one chain of launches), but
 their optimizer state and norm cache keep their values (torch.where).
 
+DataPlacement splits the lanes over the devices of a mesh's 'data' axis
+(JAX: the lane axis sharded by NamedSharding): each device gets a
+contiguous group of them, and the batched engine keeps one batched step a
+group on its device (engine/batched.py PlacedBatchedStyleTransfer). Since
+nothing reduces across lanes, the groups exchange nothing.
+
 Stacked state: per-lane trees are the single engine's (optim/*.py init,
 engine/transfer.py inputs); stack_lanes puts a lane axis in front of each
 leaf, and an image-bearing leaf (4 or more dims, its batch of 1 at dim
@@ -223,3 +229,31 @@ def unstack_lane(tree, i):
     if _is_image(tree):
         return tree[i].unsqueeze(-4)
     return tree[i]
+
+
+class DataPlacement:
+    """Splits a batched engine's lanes over the mesh's 'data' axis (the
+    first axis of a mesh without one): lane_groups(n) gives each device of
+    the axis a contiguous group of n / (axis size) lanes. A device may
+    repeat (several groups on one card)."""
+
+    def __init__(self, mesh, axis='data'):
+        if axis not in mesh.axis_names:
+            axis = mesh.axis_names[0]
+        self.mesh = mesh
+        self.axis = axis
+        self.devices = mesh.axis_devices(axis)
+
+    @property
+    def n_groups(self):
+        return len(self.devices)
+
+    def lane_groups(self, n_lanes):
+        """[(device, the group's lane count)], in lane order. Raises
+        ValueError unless n_lanes divides by the axis size."""
+        n = len(self.devices)
+        if n_lanes % n:
+            raise ValueError('%d lanes do not divide over the %d-way %r '
+                             'mesh axis' % (n_lanes, n, self.axis))
+        per = n_lanes // n
+        return [(d, per) for d in self.devices]

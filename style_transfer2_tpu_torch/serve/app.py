@@ -19,9 +19,13 @@ Session's host state).
 Config keys beyond the JAX app's: `device` ('cuda', the default, raises at
 startup without CUDA; 'cpu' runs the kernels' plain versions). `remat`
 ('', conv or block; anything else raises when the driver spawns) is the
-engine's rematerialization policy, as in the JAX app. Keys that mean
+engine's rematerialization policy, as in the JAX app. `mesh` (e.g. '4',
+'auto') shards the session's image over that many devices of `device`
+(parallel/spatial.py: the first N cards, failing at startup where there
+are fewer; N entries of the CPU on 'cpu'), and every grid the tier picks
+snaps to multiples of N (_snap_grid), as in the JAX app. Keys that mean
 nothing here (pallas, platform, prewarm_sizes) are logged once and
-ignored; `mesh` (spatial sharding) is not ported and raises.
+ignored.
 
     python -m style_transfer2_tpu_torch.serve.app [config.ini] [-d]
 """
@@ -99,6 +103,8 @@ class SingleSessionTier(sn.EngineActions):
         self.router.enabled_check = lambda: self.sess.worker_ready
         self.persist_path = config.get('persist_path', '')
         self._persist_sig = None
+        # The `mesh` key's SpatialPlacement (on_startup), or None.
+        self.placement = None
         # The automated session schedule (ladder -> polish -> pause): a
         # phases.Schedule or None. The tier's own transition mechanics ride
         # alongside: _await_grid is a pending rung advance (budgets anchor
@@ -156,6 +162,15 @@ class SingleSessionTier(sn.EngineActions):
     def _snap(self, size):
         return snap_size(size, self.config.getint('size_snap', 0))
 
+    def _snap_grid(self, hw):
+        """Ties the session grid to the mesh: under spatial sharding every
+        (H, W) the tier picks must divide by the mesh axis, or the
+        placement degrades to replication exactly at high resolution where
+        it matters."""
+        if self.placement is None:
+            return tuple(hw)
+        return self.placement.snap_hw(hw)
+
     def _dispatch_config(self):
         """(adaptive_max_steps, pipeline_depth, steps_per_dispatch) from the
         config."""
@@ -193,6 +208,7 @@ class SingleSessionTier(sn.EngineActions):
                        or self.config.get('precision', 'float32')),
             device=self.config.get('device', 'cuda'),
             remat=remat or False,
+            placement=self.placement,
             after=self.driver,
             steps_per_dispatch=spd,
             image_every=self.config.getint('image_every', 1),
@@ -318,7 +334,9 @@ class SingleSessionTier(sn.EngineActions):
         style = utils.resize_to_fit(sess.style_image, int(sess.style_size))
 
         reset_state = False
-        grid = (content.size[1], content.size[0])
+        grid = self._snap_grid((content.size[1], content.size[0]))
+        if grid != (content.size[1], content.size[0]):
+            content = sess.content_image.resize(grid[::-1], Image.LANCZOS)
         if sess.input_arr is None:
             sess.input_arr = sn.fresh_random_input(grid)
             sess.input_was_reset = True
@@ -373,8 +391,8 @@ class SingleSessionTier(sn.EngineActions):
         if img is None:
             return (None if sess.input_arr is None
                     else tuple(sess.input_arr.shape[:2]))
-        return tuple(utils.fit_into_square((img.height, img.width), size,
-                                           True))
+        return self._snap_grid(
+            utils.fit_into_square((img.height, img.width), size, True))
 
     async def _maybe_begin_ladder(self, force=False):
         per_rung = self._ladder_iters()
@@ -388,8 +406,9 @@ class SingleSessionTier(sn.EngineActions):
         min_scale = self.config.getint('ladder_min_scale', 96)
         rungs = []
         for hw in utils.scales(target_hw, min_size=min_scale):
-            if hw not in rungs:
-                rungs.append(hw)
+            s = self._snap_grid(hw)
+            if s not in rungs:
+                rungs.append(s)
         if len(rungs) < 2:
             return
         polish_n = (self._polish_iters() if self._polish_applicable()
@@ -588,8 +607,8 @@ class SingleSessionTier(sn.EngineActions):
         # A user-driven resize overrides the automated schedule.
         self.ladder = None
         await self._exit_polish()
-        hw = tuple(utils.fit_into_square(sess.input_arr.shape[:2], size,
-                                         True))
+        hw = self._snap_grid(
+            utils.fit_into_square(sess.input_arr.shape[:2], size, True))
         content = np.uint8(sess.content_image.resize(hw[::-1], Image.LANCZOS))
         sess.its_per_s.clear()
         if sess.i <= 1:
@@ -797,7 +816,9 @@ class SingleSessionTier(sn.EngineActions):
             self.ladder = None   # new content grid overrides the schedule
             await self._exit_polish()
             arr = np.uint8(utils.resize_to_fit(image, self._snap(size)))
-            hw = arr.shape[:2]
+            hw = self._snap_grid(arr.shape[:2])
+            if hw != arr.shape[:2]:
+                arr = np.uint8(image.resize(hw[::-1], Image.LANCZOS))
             if sess.i <= 1:
                 input_image = sn.fresh_random_input(hw)
                 sess.input_arr = input_image
@@ -864,10 +885,16 @@ class SingleSessionTier(sn.EngineActions):
     async def on_startup(self, app):
         # No fallback: without CUDA the default device fails here, before
         # anything is served.
-        resolve_device(self.config.get('device', 'cuda'))
-        if self.config.get('mesh', ''):
-            raise ValueError('config mesh: spatial sharding is not ported '
-                             'yet')
+        device = self.config.get('device', 'cuda')
+        resolve_device(device)
+        mesh_spec = self.config.get('mesh', '')
+        if mesh_spec:
+            from ..parallel import SpatialPlacement, make_mesh
+            self.placement = SpatialPlacement(
+                make_mesh(mesh_spec, axis_names=('space',), device=device))
+            logger.info('spatial sharding over %d devices; session grids '
+                        'snap to multiples of %d',
+                        self.placement.n_shards, self.placement.n_shards)
         for key in IGNORED_KEYS:
             if self.config.get(key, ''):
                 logger.info('config key %s = %s has no meaning in the '

@@ -244,11 +244,13 @@ class Driver:
                  loop=None, steps_per_dispatch=1, image_every=1,
                  adaptive_max_steps=0, pipeline_depth=1,
                  dispatch_timeout=0.0, adaptive_latency_target=0.0,
-                 after=None, remat=False):
+                 after=None, remat=False, placement=None):
         """params: the numpy params dict (models.weights); device: 'cuda'
         (the default; raises without CUDA) or 'cpu' (the kernels' plain
         versions); remat (False / 'conv' / 'block') is the engine's
-        rematerialization policy (models/vgg19.py).
+        rematerialization policy (models/vgg19.py); placement, a
+        parallel.SpatialPlacement or None, shards the engine's image over
+        a mesh (engine/transfer.py).
         steps_per_dispatch > 1 fuses K optimizer steps per device
         dispatch (begin_steps) for throughput; control latency grows to K
         iterations (the reference guarantee is 1, the default).
@@ -297,7 +299,8 @@ class Driver:
             self.tuner = AdaptiveTuner(adaptive_latency_target)
         self._last_collect_end = None
         self.transfer = StyleTransfer(params, precision=precision,
-                                      device=device, remat=remat)
+                                      device=device, remat=remat,
+                                      placement=placement)
         self.loop = loop or asyncio.get_event_loop()
         # One thread owns all device calls; queue depth 1 keeps ordering.
         self.executor = concurrent.futures.ThreadPoolExecutor(

@@ -32,8 +32,13 @@ at startup without CUDA; 'cpu' runs the kernels' plain versions). The
 port compiles nothing per shape, so there is no bucket prewarm:
 `pool_prewarm`, like the single-session app's ignored keys, is logged once
 and ignored, and so is `remat` (the batched engines have no remat, in the
-JAX pool too); `pool_mesh` and `pool_bucket_devices` (data placement over
-several devices) are not ported and raise.
+JAX pool too). `pool_mesh` splits every bucket's lanes over that many
+devices (parallel/batch.py DataPlacement; pool_lanes must divide by it),
+and `pool_bucket_devices` ('256:0-5; 512:6-7', ranges or comma lists of
+device indices) gives each listed bucket size a sub-mesh of its own,
+unlisted sizes the pool_mesh placement, as in the JAX pool. On 'cuda' the
+indices are the cards', and too few cards fail at startup; on 'cpu' each
+index is an entry of the CPU (one process standing in for the devices).
 
     python -m style_transfer2_tpu_torch.serve.pool [config.ini] [-d]
 """
@@ -53,7 +58,7 @@ from PIL import Image
 import yaml
 
 from .. import utils
-from ..engine.batched import BatchedStyleTransfer
+from ..engine.batched import batched_engine
 from ..engine.objective import ObjectiveSpec
 from ..engine.transfer import resolve_device
 from ..models import vgg19
@@ -77,9 +82,6 @@ SESSION_COOKIE = 'pool_session'
 # single-session app's: logged once at startup and ignored. remat among
 # them: the pool's batched engines have none, in the JAX pool too.
 IGNORED_KEYS = ('pool_prewarm', 'remat') + APP_IGNORED_KEYS
-# Config keys of the JAX pool that place buckets on several devices: not
-# ported (ROADMAP queue 1, item 7); a config that sets one fails at startup.
-UNPORTED_KEYS = ('pool_bucket_devices', 'pool_mesh')
 
 
 class PoolSession(sn.Session):
@@ -223,6 +225,9 @@ class PooledTier:
         self.default_hw = None
         self.base_hw = None          # aspect prototype for hw_for()
         self.model_params = None
+        # The pool_mesh DataPlacement of every bucket not listed in
+        # pool_bucket_devices (on_startup), or None.
+        self.placement = None
         self.weights_doc = None
         self.layers = []
         self.sessions = {}
@@ -280,6 +285,34 @@ class PooledTier:
             raise sn.SizeRejected(
                 'Size is over %d' % self.config.getint('max_size', 9999))
 
+    def bucket_placement(self, size):
+        """The placement of a bucket at `size`: a DataPlacement over the
+        devices pool_bucket_devices lists for it ('256:0-5; 512:6-7': each
+        listed size its own sub-mesh), else the pool-wide pool_mesh
+        placement (None: one device)."""
+        from ..parallel import DataPlacement, Mesh
+        from ..parallel.mesh import available_devices
+        spec = self.config.get('pool_bucket_devices', '')
+        for part in spec.split(';'):
+            size_s, _, devs = part.strip().partition(':')
+            if not size_s or int(size_s) != int(size):
+                continue
+            idxs = []
+            for tok in devs.replace(',', ' ').split():
+                if '-' in tok:
+                    a, b = tok.split('-')
+                    idxs.extend(range(int(a), int(b) + 1))
+                else:
+                    idxs.append(int(tok))
+            devices = available_devices(self.config.get('device', 'cuda'),
+                                        max(idxs) + 1)
+            if max(idxs) >= len(devices):
+                raise ValueError('pool_bucket_devices %s: device %d of %d'
+                                 % (part.strip(), max(idxs), len(devices)))
+            return DataPlacement(Mesh([devices[i] for i in idxs],
+                                      ('data',)))
+        return self.placement
+
     def main_precision(self):
         return self.config.get('precision', 'float32')
 
@@ -294,9 +327,10 @@ class PooledTier:
         hw = self.hw_for(size)
         key = (hw, precision)
         if key not in self.engines:
-            self.engines[key] = BatchedStyleTransfer(
+            self.engines[key] = batched_engine(
                 self.model_params, self.weights_doc[0], self.weights_doc[1],
                 hw, max_lanes=self.config.getint('pool_lanes', 4),
+                placement=self.bucket_placement(size),
                 optimizer=self.config.get('pool_optimizer', 'adam'),
                 precision=precision,
                 device=self.config.get('device', 'cuda'))
@@ -1169,12 +1203,13 @@ class PooledTier:
         config = self.config
         # No fallback: without CUDA the default device fails here, before
         # anything is served.
-        resolve_device(config.get('device', 'cuda'))
-        for key in UNPORTED_KEYS:
-            if config.get(key, ''):
-                raise ValueError('config %s: placing buckets on several '
-                                 'devices is not ported yet (ROADMAP queue '
-                                 '1, item 7)' % key)
+        device = config.get('device', 'cuda')
+        resolve_device(device)
+        mesh_spec = config.get('pool_mesh', '')
+        if mesh_spec:
+            from ..parallel import DataPlacement, make_mesh
+            self.placement = DataPlacement(
+                make_mesh(mesh_spec, axis_names=('data',), device=device))
         for key in IGNORED_KEYS:
             if config.get(key, ''):
                 logger.info('config key %s = %s has no meaning in the '
@@ -1216,13 +1251,26 @@ class PooledTier:
             self.tasks.append(asyncio.ensure_future(self.router.heartbeat()))
 
     async def on_cleanup(self, app):
+        """Persists the sessions, then lets go of every engine. The tasks
+        are cancelled AND awaited, so that no suspended frame of drive()
+        or _device_call() keeps the tier; the executor finishes its
+        running call (unless the watchdog found the card wedged) and drops
+        its queued ones, so that its thread holds no engine; and the
+        engine and session tables are emptied, so that the buckets (on the
+        card: their step graphs' memory pools) go now, whoever still holds
+        the tier or its app."""
         self._persist_all()
         if self.router is not None:
             await self.router.unregister()
         for task in self.tasks:
             task.cancel()
+        await asyncio.gather(*self.tasks, return_exceptions=True)
+        self.tasks = []
         if self.executor is not None:
-            self.executor.shutdown(wait=False)
+            self.executor.shutdown(wait=not self.wedged,
+                                   cancel_futures=True)
+        self.sessions.clear()
+        self.engines.clear()
 
 
 def init(args=None, config=None):

@@ -175,7 +175,8 @@ def test_cli_cuda_without_gpu_raises(tmp_path):
 def test_port_imports_no_jax(tmp_path):
     """A fresh interpreter that imports the whole port, its serving tier
     included, and runs its CLI has neither jax nor the JAX package in
-    sys.modules."""
+    sys.modules. The CLI runs sharded (--mesh 2), so the parallel
+    modules' whole path is covered."""
     code = (
         'import json, sys\n'
         'import style_transfer2_tpu_torch.cli as cli\n'
@@ -186,7 +187,9 @@ def test_port_imports_no_jax(tmp_path):
         'style_transfer2_tpu_torch.ops.image\n'
         'import style_transfer2_tpu_torch.engine.batched, '
         'style_transfer2_tpu_torch.parallel, '
-        'style_transfer2_tpu_torch.parallel.batch\n'
+        'style_transfer2_tpu_torch.parallel.batch, '
+        'style_transfer2_tpu_torch.parallel.mesh, '
+        'style_transfer2_tpu_torch.parallel.spatial\n'
         'import style_transfer2_tpu_torch.serve.app, '
         'style_transfer2_tpu_torch.serve.driver, '
         'style_transfer2_tpu_torch.serve.persist, '
@@ -201,7 +204,7 @@ def test_port_imports_no_jax(tmp_path):
     proc = subprocess.run(
         [sys.executable, '-c', code, CONTENT, STYLE, '-o',
          str(tmp_path / 'o.png'), '--device', 'cpu', '--size', '24',
-         '--iterations', '1'],
+         '--iterations', '1', '--mesh', '2'],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
@@ -401,7 +404,8 @@ def test_cli_batch_beside_jax_cli(tmp_path):
 
 
 @pytest.mark.parametrize('flag,match', [
-    (['--data-mesh', '2'], 'item 7'),
+    (['--data-mesh', '2', '--lanes', '3'],
+     r'--lanes \(3\) must divide by the data mesh \(2 devices\)'),
     (['--multi-scale'], 'multi-scale'),
     (['--mesh', '2'], 'mesh')])
 def test_cli_batch_refuses_what_it_does_not_combine_with(tmp_path, flag,
@@ -440,3 +444,100 @@ def test_profile_step_builds_the_batched_engine():
     assert sorted(traces) == [0, 1]
     assert [t['fevals'] for t in traces[1]] == [1, 2]
     assert traces[0][0]['loss'] != traces[1][0]['loss']
+
+
+@pytest.mark.usefixtures('one_thread')
+def test_cli_batch_data_mesh_splits_the_lanes(tmp_path, caplog):
+    """--batch --data-mesh 2 on the CPU: 4 lanes over 2 device groups (two
+    CPU entries), the styled images those of the unsplit batch."""
+    indir, style = _batch_dir(tmp_path, 5, {'a': (40, 60), 'b': (40, 60),
+                                            'c': (40, 60)})
+    images = {}
+    for name, extra in (('split', ['--data-mesh', '2']), ('one', [])):
+        outdir = tmp_path / name
+        with caplog.at_level(logging.INFO, logger='cli'):
+            assert cli.main([str(indir), str(style), '--batch', '-o',
+                             str(outdir), '--size', '24', '--iterations',
+                             '3', '--lanes', '4', '--device', 'cpu',
+                             '--model-weights', 'random'] + extra) == 0
+        images[name] = {p.name: np.asarray(Image.open(p), np.float32)
+                        for p in outdir.iterdir()}
+    assert any('lane axis sharded over 2 devices' in r.getMessage()
+               for r in caplog.records)
+    assert sorted(images['split']) == sorted(images['one']) == [
+        'a_styled.png', 'b_styled.png', 'c_styled.png']
+    for name, img in images['one'].items():
+        np.testing.assert_allclose(images['split'][name], img, atol=1.0,
+                                   err_msg=name)
+
+
+def _cli_trace(tmp_path, name, extra):
+    trace = tmp_path / (name + '.csv')
+    assert cli.main([CONTENT, STYLE, '-o', str(tmp_path / (name + '.png')),
+                     '--device', 'cpu', '--size', '34', '--iterations', '3',
+                     '--trace-csv', str(trace), '--model-weights',
+                     'random'] + extra) == 0
+    with open(trace, newline='') as f:
+        return [{k: v for k, v in r.items() if k != 'time'}
+                for r in csv.DictReader(f)]
+
+
+@pytest.mark.usefixtures('one_thread')
+@pytest.mark.parametrize('ladder', [[], ['--multi-scale', '--min-scale',
+                                         '18']],
+                         ids=['single_scale', 'ladder'])
+def test_cli_mesh_matches_the_unsharded_cli(tmp_path, ladder):
+    """--mesh 2 --device cpu, at one scale (26x34) and up the ladder
+    (18x24, 26x34: rungs that divide by 2, so nothing snaps): the trace
+    of every step, the L-BFGS primes included, matches the unsharded
+    CLI's (tests/test_parallel.py's rtol 5e-4, atol 1e-6)."""
+    got = _cli_trace(tmp_path, 'mesh', ladder + ['--mesh', '2'])
+    want = _cli_trace(tmp_path, 'one', ladder)
+    assert len(got) == len(want) == (4 if not ladder else 8)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert list(g) == list(w)
+        for key in w:
+            if key in ('step', 'fevals') or w[key] == '':
+                assert g[key] == w[key]
+                continue
+            np.testing.assert_allclose(float(g[key]), float(w[key]),
+                                       rtol=5e-4, atol=1e-6,
+                                       err_msg='row %d %s' % (i, key))
+
+
+@pytest.mark.usefixtures('one_thread')
+def test_cli_mesh_snaps_every_rung(tmp_path, caplog):
+    """--mesh 2 up a ladder whose first rung is 21x28: it snaps to 22x28
+    (logged), and the run ends on the 30x40 target."""
+    with caplog.at_level(logging.INFO, logger='cli'):
+        assert cli.main([CONTENT, STYLE, '-o', str(tmp_path / 'o.png'),
+                         '--device', 'cpu', '--size', '40', '--iterations',
+                         '2', '--multi-scale', '--min-scale', '24',
+                         '--model-weights', 'random', '--mesh', '2']) == 0
+    msgs = [r.getMessage() for r in caplog.records]
+    assert 'snapped 21x28 -> 22x28 for the 2-way mesh' in msgs
+    assert any(m.startswith('scale 22x28:') for m in msgs)
+    with Image.open(tmp_path / 'o.png') as img:
+        assert img.size == (40, 30)
+
+
+def test_cli_mesh_over_too_many_devices_exits(tmp_path, monkeypatch):
+    """A mesh of more devices than there are exits with make_mesh's
+    message, before anything is loaded (one device available here)."""
+    from style_transfer2_tpu_torch.parallel import mesh
+    monkeypatch.setattr(mesh, 'available_devices',
+                        lambda device, n: [torch.device('cpu')])
+    with pytest.raises(SystemExit, match="Mesh '2' needs 2 devices, "
+                                         "have 1"):
+        cli.main([CONTENT, STYLE, '-o', str(tmp_path / 'x.png'),
+                  '--device', 'cpu', '--size', '32', '--iterations', '1',
+                  '--mesh', '2'])
+    assert not (tmp_path / 'x.png').exists()
+
+
+def test_cli_mesh_on_cuda_without_gpu_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip('this machine has a GPU')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        cli.main([CONTENT, STYLE, '-o', str(tmp_path / 'x.png'),
+                  '--size', '32', '--iterations', '1', '--mesh', '2'])

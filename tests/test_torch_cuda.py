@@ -1115,3 +1115,121 @@ def test_dropped_engine_returns_its_graph_memory(cuda):
     assert private_segments()
     del st
     assert not private_segments()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('c', [64, 6, 512])
+def test_style_phases_match_plain_on_card(cuda, c):
+    """The two-phase entry points (st2_style_gram with no target,
+    st2_style_grad) on one shard of a map cut 4 ways, against their plain
+    versions and the fused kernel's halves: phase 1 summed over the 4
+    shards minus G_style is the fused G_diff's, phase 2 on each shard its
+    rows of the fused s_grad. Each launch counted once, bitwise
+    repeatable."""
+    from style_transfer2_tpu_torch.parallel import SpatialPlacement, Mesh
+    rng = np.random.RandomState(c)
+    feat = torch.relu(torch.tensor(np.float32(rng.randn(1, 44, 21, c)),
+                                   device=cuda))
+    gram_style = torch.tensor(np.float32(rng.rand(c, c) * 1e-3),
+                              device=cuda)
+    before = (style.gram_launches, style.grad_launches)
+    xs = SpatialPlacement(Mesh([cuda] * 4, ('space',))).image(feat)
+    s_sh, gd_sh = style.fused_style_branch(xs, gram_style)
+    assert (style.gram_launches, style.grad_launches) == (
+        before[0] + 4, before[1] + 4)
+    s_f, gd_f = style.fused_style_branch(feat, gram_style)
+    s_p, gd_p = style.fused_style_branch_plain(feat, gram_style)
+    for got in (gd_sh, gd_f):
+        assert float((got - gd_p).abs().max()) <= 1e-4 * max(
+            float(gd_p.abs().max()), float(gram_style.abs().max()))
+    for got in (s_sh.gather(), s_f):
+        assert float((got - s_p).abs().max()) <= 1e-4 * float(
+            s_p.abs().max())
+    size = feat.numel()
+    shard = xs.shards[1]
+    g_k = style.style_gram(shard, size)
+    assert torch.equal(g_k, style.style_gram(shard, size))
+    g_p = style.style_gram_plain(shard, size)
+    assert float((g_k - g_p).abs().max()) <= 1e-4 * float(g_p.abs().max())
+    s_k = style.style_grad(shard, gd_sh, size)
+    assert torch.equal(s_k, style.style_grad(shard, gd_sh, size))
+    s_q = style.style_grad_plain(shard, gd_sh, size)
+    assert float((s_k - s_q).abs().max()) <= 1e-4 * float(s_q.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hw', [(40, 24), (30, 40)], ids=['H', 'W'])
+def test_halo_conv_matches_plain_on_card(cuda, hw):
+    """conv3x3_bias_relu_sharded on 4 shards of one card (H-sharded at
+    40x24, W at 30x40), forward and backward, against the plain conv of
+    the whole map; the kernels launch once a shard each way."""
+    from style_transfer2_tpu_torch.parallel import SpatialPlacement, Mesh
+    x, w, b, g = _conv_case(7, (1,) + hw + (64,), 64)
+    xt, wt, bt, gt = (torch.from_numpy(a).to(cuda) for a in (x, w, b, g))
+    placement = SpatialPlacement(Mesh([cuda] * 4, ('space',)))
+    xs = placement.image(xt).requires_grad_(True)
+    before = (conv.launches('fwd'), conv.launches('bwd'))
+    wb = conv.backward_weights(wt)
+    ys = conv.conv3x3_bias_relu_sharded(xs, lambda device: (wt, bt, wb))
+    dxs = torch.autograd.grad(ys.shards, xs.shards,
+                              placement.image(gt).shards)
+    assert (conv.launches('fwd'), conv.launches('bwd')) == (
+        before[0] + 4, before[1] + 4)
+    x32 = xt.clone().requires_grad_(True)
+    y_ref = conv.conv3x3_bias_relu_plain(x32, wt, bt)
+    pre = F.conv2d(x32.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1), bt,
+                   padding=1).permute(0, 2, 3, 1)
+    y_k = ys.gather()
+    dx_ref = torch.autograd.grad(pre, x32, gt * (y_k > 0).float())[0]
+    scale = max(1.0, float(y_ref.abs().max()))
+    assert float((y_k - y_ref).abs().max()) <= 1e-4 * scale
+    dx = torch.cat(dxs, xs.axis)
+    assert float((dx - dx_ref).abs().max()) <= 1e-4 * max(
+        1.0, float(dx_ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('precision,rtol', [('float32', 5e-3),
+                                            ('bfloat16', 2e-2)])
+def test_sharded_engine_on_card_matches_unsharded(cuda, precision, rtol):
+    """A StyleTransfer over 4 shards of one card against the unsharded
+    (graphed) engine: 48x64, 4 L-BFGS steps, every trace key of the prime
+    within rtol (float32: of every step); the sharded steps run eagerly
+    and launch both style phases on the three style layers above the
+    gathered level (12 rows a shard: pool3 gathers), the fused branch
+    on conv4_1."""
+    from style_transfer2_tpu_torch.engine import StyleTransfer
+    from style_transfer2_tpu_torch.models import random_params
+    from style_transfer2_tpu_torch.parallel import (Mesh, Sharded,
+                                                    SpatialPlacement)
+    weights = {'content': {'conv4_2': 0.08},
+               'style': {n: 1.0 for n in ('conv1_1', 'conv2_1', 'conv3_1',
+                                          'conv4_1')}}
+    scalars = {'p': 50.0, 'p_power': 6.0, 'tv': 5.0, 'tv_power': 2.0}
+    rng = np.random.RandomState(3)
+    images = [rng.randint(0, 256, (48, 64, 3)).astype(np.uint8)
+              for _ in range(3)]
+    runs = []
+    for placement in (None, SpatialPlacement(Mesh([cuda] * 4,
+                                                  ('space',)))):
+        st = StyleTransfer(random_params(0), precision, placement=placement)
+        st.set_weights(weights, scalars)
+        st.set_content(images[0])
+        st.set_style(images[1])
+        st.set_input(images[2])
+        assert st.start()
+        before = (style.gram_launches, style.launches)
+        st.run_steps(4)
+        if placement is not None:
+            assert isinstance(st._input, Sharded)
+            assert len(st._graphs) == 0
+            assert (style.gram_launches - before[0],
+                    style.launches - before[1]) == (4 * 3 * 5, 5)
+        runs.append([t.data for t in st.traces])
+    rows = range(5) if precision == 'float32' else [0]
+    for i in rows:
+        for key, want in runs[0][i].items():
+            if key in ('time', 'fevals'):
+                continue
+            got = runs[1][i][key]
+            assert abs(got - want) <= rtol * abs(want), (i, key, got, want)

@@ -2,9 +2,10 @@
 the tests of tests/test_pool.py and the pool tests of
 tests/test_persist_phase.py adapted to style_transfer2_tpu_torch.serve.pool,
 the keys that mean nothing in the port (pool_prewarm logged once and
-ignored; pool_mesh and pool_bucket_devices raise), the default device's
-failure without CUDA, and every device call on the tier's one executor
-thread, at startup and in a restore too."""
+ignored), pool_mesh and pool_bucket_devices placing buckets, the default
+device's failure without CUDA, every device call on the tier's one
+executor thread, at startup and in a restore too, and a closed tier
+letting go of its engines."""
 
 import asyncio
 import base64
@@ -626,16 +627,68 @@ def test_pool_stats_reports_lanes_and_capacity_separately(pool_client):
     loop.run_until_complete(asyncio.wait_for(body(), 600))
 
 
-@pytest.mark.parametrize('key,value', [('pool_mesh', 'auto'),
+def test_closed_tier_lets_go_of_its_engines():
+    """Once the client is closed, nothing reaches the tier's engines: two
+    sessions iterate, the server closes, and every bucket dies at the next
+    garbage collection (on the card each holds its step graphs' memory
+    pool). A suspended drive() or _device_call() frame, or the executor's
+    thread, used to keep them."""
+    import gc
+    import weakref
+    refs = []
+
+    async def body(client, tier):
+        sessions = [await WSSession(client).open() for _ in range(2)]
+        for s in sessions:
+            await s.recv_until('state')
+            await s.send({'type': 'start'})
+        for s in sessions:
+            for _ in range(3):
+                await s.recv_until('iterateInfo')
+        refs.extend(weakref.ref(e) for e in tier.engines.values())
+
+    _run_tier(port_pool.init, _config(), body)
+    gc.collect()
+    assert refs and not [r for r in refs if r() is not None]
+
+
+@pytest.mark.parametrize('key,value', [('pool_mesh', '2'),
                                        ('pool_bucket_devices',
                                         '32:0-1; 48:2,3')])
-def test_pool_multi_device_keys_raise(key, value):
-    """The JAX pool's data placement over several devices (pool_mesh, and
-    pool_bucket_devices' device subsets per bucket) is not ported: a config
-    that sets either fails at startup, naming the ROADMAP item."""
-    with pytest.raises(ValueError, match='%s.*ROADMAP queue 1, item 7'
-                       % key):
-        _start(_config(**{key: value}))
+def test_pool_multi_device_keys_place_buckets(key, value):
+    """pool_mesh splits each bucket's 2 lanes over 2 devices, and
+    pool_bucket_devices gives the 32px bucket devices 0-1 of its own (two
+    CPU entries here): the default bucket is a PlacedBatchedStyleTransfer
+    of two one-lane groups, and a session on it iterates."""
+    from style_transfer2_tpu_torch.engine.batched import (
+        PlacedBatchedStyleTransfer)
+
+    async def body(client, tier):
+        engine = _default_engine(tier)
+        assert isinstance(engine, PlacedBatchedStyleTransfer)
+        assert [g.max_lanes for g in engine.groups] == [1, 1]
+        a = await WSSession(client).open()
+        await a.recv_until('state')
+        await a.send({'type': 'start'})
+        for _ in range(100):
+            info = await a.recv_until('iterateInfo')
+            if info['i'] >= 3:
+                break
+        assert np.isfinite(info['trace']['loss'])
+        assert engine.t[_lane_of(tier, a.cookie)] >= 3
+        await a.ws.close()
+
+    _run_tier(port_pool.init, _config(**{key: value}), body)
+
+
+def test_pool_bucket_devices_sub_mesh_spans_the_listed_indices():
+    """pool_bucket_devices names device indices (on the CPU each is an
+    entry of the CPU): a listed bucket's sub-mesh spans its indices, an
+    unlisted one takes the pool_mesh placement (none here)."""
+    tier = port_pool.PooledTier(_config(pool_bucket_devices='32:0-2'))
+    placement = tier.bucket_placement(32)
+    assert placement.n_groups == 3
+    assert tier.bucket_placement(48) is None
 
 
 def test_pooled_ladder_climbs_buckets():

@@ -1,8 +1,9 @@
 """The port's web app on the CPU (config device = cpu): the app tests of
 tests/test_serve.py adapted to style_transfer2_tpu_torch.serve.app, the
 ladder -> float32 polish -> pause schedule end to end, the browser protocol
-held against the JAX app's for one script, and the startup failures (no
-CUDA for the default device, a spatial mesh) and ignored config keys."""
+held against the JAX app's for one script, the startup failure of the
+default device without CUDA, a spatial mesh snapping the session's grid,
+and the ignored config keys."""
 
 import asyncio
 import base64
@@ -444,9 +445,45 @@ def test_default_device_needs_cuda(extra):
         _start(config)
 
 
-def test_mesh_is_not_ported():
-    with pytest.raises(ValueError, match='spatial sharding is not ported'):
-        _start(_config(mesh='4'))
+def test_mesh_snaps_the_grid_and_steps():
+    """mesh = 4: the session's image shards over 4 CPU entries; a content
+    upload at 66x50 snaps to 68x52 (_snap_grid), and the sharded engine
+    steps there with a finite loss."""
+    from style_transfer2_tpu_torch.parallel import Sharded
+    loop = asyncio.new_event_loop()
+    asyncio.set_event_loop(loop)
+    app = port_app.init(config=_config(mesh='4'))
+    client = TestClient(TestServer(app), loop=loop)
+    loop.run_until_complete(client.start_server())
+    tier = app['tier']
+
+    async def body():
+        assert tier.placement.n_shards == 4
+        b = Browser(await client.ws_connect('/websocket'))
+        await b.recv_until('state')
+        resp = await client.post('/upload', data={
+            'size': '66', 'slot': 'content',
+            'data': _data_url((66, 50), 7)})
+        assert resp.status == 200
+        size = await b.recv_until('newSize')
+        assert (size['height'], size['width']) == (68, 52)
+        await b.send('start')
+        for _ in range(100):
+            info = await b.recv_until('iterateInfo')
+            if info['i'] >= 2 and tier.driver.transfer.input_hw == (68, 52):
+                break
+        assert np.isfinite(info['trace']['loss'])
+        engine = tier.driver.transfer
+        assert engine.placement is tier.placement
+        assert isinstance(engine._input, Sharded)
+        assert {tuple(s.shape) for s in engine._input.shards} == {
+            (1, 17, 52, 3)}
+        await b.ws.close()
+    try:
+        loop.run_until_complete(asyncio.wait_for(body(), 300))
+    finally:
+        loop.run_until_complete(client.close())
+        loop.close()
 
 
 def test_config_remat_reaches_engine(caplog):

@@ -475,3 +475,59 @@ def test_graph_phase_runs_on_the_cpu(monkeypatch, tmp_path):
             for name in ('eager', 'graphed'):
                 run = out[precision][kind][name]
                 assert len(run['ms']) == 2 and run['it_s'] > 0
+
+
+@pytest.mark.usefixtures('one_thread')
+def test_shard_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    """The shard phase's runs end to end on the CPU (4 CPU entries for the
+    shards): float32 and bfloat16 at 24x32 against unsharded engines, the
+    style phases once a shard a style layer an evaluation, the W-fallback
+    at 30x40, the checkpoint resumed bit for bit, 4 lanes over a 2-way
+    data mesh, the CLI's --mesh 1; the card's memory statistics
+    stubbed."""
+    import logging
+    import types
+
+    for name, value in (('SHARD_DEVICE', 'cpu'), ('SHARD_SIZE', 32),
+                        ('SHARD_ITERATIONS', 4), ('SHARD_CHUNK', 2),
+                        ('SHARD_W_SIZE', 40), ('SHARD_W_ITERATIONS', 2),
+                        ('SHARD_BATCH_SIZE', 32),
+                        ('SHARD_BATCH_ITERATIONS', 2),
+                        ('SHARD_CLI_SIZE', 24), ('OUT_DIR', tmp_path)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    # The plain versions count no launches: the counts the float32 run
+    # needs. Of initial_weights.yaml's 4 style layers, conv1_1 and conv2_1
+    # stay sharded at 6 rows a shard (pool2 gathers): 4 shards x 2 layers
+    # x 5 evaluations (the prime and 4 steps) a phase, the fused branch 2
+    # x 5.
+    counts = dict(dict.fromkeys(chip_smoke.KERNELS, 1), style_gram=40,
+                  style_grad=40, fused_style_branch=10)
+    monkeypatch.setattr(chip_smoke, 'shard_launch_counts',
+                        lambda: dict(counts))
+    fake = types.SimpleNamespace(
+        device=torch.device, cuda=types.SimpleNamespace(
+            synchronize=lambda: None, memory_allocated=lambda: 0,
+            reset_peak_memory_stats=lambda: None, empty_cache=lambda: None,
+            max_memory_allocated=lambda: 2 ** 20))
+    log = chip_smoke.CliLog()
+    logger = logging.getLogger('cli')
+    level = logger.level
+    logger.addHandler(log)
+    logger.setLevel(logging.INFO)
+    try:
+        launches, result = chip_smoke.shard_runs(fake, 'a CPU', log)
+    finally:
+        logger.removeHandler(log)
+        logger.setLevel(level)
+    assert launches == counts
+    assert json.loads((tmp_path / 'shard.json').read_text()) == result
+    assert result['hw'] == [24, 32] and result['n_shards'] == 4
+    for precision in ('float32', 'bfloat16'):
+        run = result[precision]
+        assert run['worst_rel_err'] <= chip_smoke.SHARD_RTOL[precision]
+        assert run['losses'][1] < run['losses'][0]
+        assert run['halo_bytes_step'] > 0
+    assert result['w_fallback']['hw'] == [30, 40]
+    assert result['checkpoint']['resumed_equal']
+    assert result['batch']['worst_rel_err'] <= chip_smoke.PARITY_RTOL
+    assert result['cli'] == {'mesh_1': 'ok'}
