@@ -86,7 +86,12 @@ exits non-zero:
                highres.json.
   7. parity  — the CUDA engine against the CPU engine (the plain versions)
                on small inputs, 5 steps at one size and a 2-rung ladder:
-               every trace key within the golden rtol.
+               every trace key within the golden rtol; then random_params(0)
+               written as a caffemodel (write_caffemodel) and read back
+               (resolve_params), and as a torchvision state dict
+               (params_from_torchvision): graphed float32 L-BFGS steps at
+               the 512px grid from each equal bit for bit to those from
+               random_params(0) itself.
   8. graph   — graphed engines against eager ones on the 512px main path's
                inputs in one process: the bitwise checks, then 20-step
                chunks in turns (ms and host us a step, nodes, capture
@@ -216,10 +221,23 @@ exits non-zero:
                seconds, and a profiler session leaves torch's host path
                slower for the rest of the process.
 
-The line before the last is one JSON object with each kernel's measured
-numbers (style_gram and style_grad: the style branch's two phases, which
-the shard phase runs); the last line is {"ok": true, "device": {...}}. Outputs go to
-chiprun_out/chip_smoke/.
+Every kernel's bound and every step's floor come from the port's roofline
+(style_transfer2_tpu_torch/utils/perfmodel.py: kernel_bound with
+conv_cost, style_cost and image_cost; model_step; model_step_sharded).
+Each step a phase measures is read against its floor: the graph phase's
+chunks (512px, one image and 4 lanes, both precisions, eager and
+graphed), each ladder rung and the polish, each highres run, and the
+shard phase's unsharded step and its sharded step on one card (whose
+halo bytes must equal the roofline's). Each record gains model_flops,
+floor_ms, bound_by, mfu (model FLOPs over the card's peak over the
+measured ms) and share_of_floor; a share above MAX_SHARE fails the run.
+
+The last three lines are JSON objects: the roofline line ({"roofline":
+[one row a measured step: path, floor and measured ms, mfu, share,
+bound_by], "device": nvidia-smi's name and power limit}), the kernels line
+(each kernel's measured numbers; style_gram and style_grad: the style
+branch's two phases, which the shard phase runs), and {"ok": true,
+"device": {...}}. Outputs go to chiprun_out/chip_smoke/.
 """
 
 import asyncio
@@ -454,35 +472,63 @@ def style_taps(h, w):
 STYLE_TAPS = {'512': style_taps(384, 512), '543x724': style_taps(543, 724),
               '1024': style_taps(768, 1024)}
 
-# The least time the card could take: the larger of the operations over the peak rate of their type and the
-# bytes over the memory rate, each input read once and each output written
-# once. NVIDIA's H100 SXM data sheet: FP32 67 TFLOP/s outside the tensor
-# cores, bf16 dense 989 TFLOP/s, HBM3 3.35 TB/s.
-PEAK_FLOPS = {'float32': 67e12, 'bfloat16': 989e12}
-HBM_BYTES_S = 3.35e12
-ITEMSIZE = {'float32': 4, 'bfloat16': 2}
-
-
+# The least time the card could take: the larger of the operations over
+# the peak rate of their type and the bytes over the memory rate, each
+# input read once and each output written once. The costs, the H100's
+# data-sheet rates and the step floors come from the port's roofline
+# (style_transfer2_tpu_torch/utils/perfmodel.py).
 def bound(flops, nbytes, dtype_name='float32'):
     """(bound ms, 'operations' or 'bytes')."""
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    t_mem = nbytes / HBM_BYTES_S * 1e3
-    return (t_ops, 'operations') if t_ops >= t_mem else (t_mem, 'bytes')
+    from style_transfer2_tpu_torch.utils import perfmodel
+    t, by = perfmodel.kernel_bound(flops, nbytes, dtype_name)
+    return t * 1e3, by
 
 
 def conv_bounds(shape, dtype_name, n=1):
     """Bounds (ms, kind) of the forward and the masked backward at (H, W,
-    Cin, Cout) over n images: 2*9*n*H*W*Cin*Cout operations each; the
-    forward moves x, w, b and y, the backward g, y, w and dx."""
-    h, w, cin, cout = shape
-    px = n * h * w
-    flops = 2 * 9 * px * cin * cout
-    size = ITEMSIZE[dtype_name]
-    fwd = bound(flops, size * (px * (cin + cout) + 9 * cin * cout + cout),
-                dtype_name)
-    bwd = bound(flops, size * (px * (2 * cout + cin) + 9 * cin * cout),
-                dtype_name)
-    return fwd, bwd
+    Cin, Cout) over n images (perfmodel.conv_cost: 2*9*n*H*W*Cin*Cout
+    operations each; the forward moves x, w, b and y, the backward g, y, w
+    and dx)."""
+    from style_transfer2_tpu_torch.utils import perfmodel
+    return tuple(bound(*perfmodel.conv_cost(n, *shape, direction,
+                                            dtype_name), dtype_name)
+                 for direction in ('fwd', 'bwd'))
+
+
+# The roofline of each measured step, in the order the phases ran: one
+# row a path (roofline()); the line before the kernels line sums it up.
+ROOFLINE = []
+# No card beats its floor: a share above this fails the run (the margin
+# covers host-clock jitter on short chunks).
+MAX_SHARE = 1.05
+
+
+def step_model(hw, precision, remat=False, lanes=1):
+    """perfmodel.model_step at an hw iterate with initial_weights.yaml's
+    taps (the objective of every measured run here), times `lanes`
+    images."""
+    from style_transfer2_tpu_torch import cli
+    from style_transfer2_tpu_torch.engine.objective import ObjectiveSpec
+    from style_transfer2_tpu_torch.utils import perfmodel
+    spec = ObjectiveSpec.from_weights(*cli.load_weights_doc(None))
+    model = perfmodel.model_step(tuple(hw), precision, remat,
+                                 content_layers=spec.content_layers,
+                                 style_layers=spec.style_layers)
+    return model.lanes(lanes)
+
+
+def roofline(path, hw, precision, ms, remat=False, lanes=1, model=None):
+    """A measured step read against its floor: returns the fields a
+    phase's record keeps, model_flops, floor_ms, bound_by, mfu (the model
+    FLOPs over the card's peak over the measured ms) and share_of_floor
+    (the floor over the measured ms), and appends them to ROOFLINE with
+    the path. model: step_model's by default."""
+    model = model or step_model(hw, precision, remat, lanes)
+    fields = model.fields_at(ms / 1e3)
+    ROOFLINE.append(dict(fields, path=path, hw=list(hw),
+                         precision=precision, remat=remat or None,
+                         lanes=lanes, ms=ms))
+    return fields
 
 
 def say(phase, msg):
@@ -886,6 +932,7 @@ def check_style(torch, rng, tap, where, pending, lanes=1, timing=(15, 3),
     float64 instead, and the float32 plain version's own distance from it
     is reported: at millions of rows the float32 sums of both stray."""
     from style_transfer2_tpu_torch.ops import style
+    from style_transfer2_tpu_torch.utils import perfmodel
     h, w, c = tap
     m = h * w
 
@@ -973,11 +1020,11 @@ def check_style(torch, rng, tap, where, pending, lanes=1, timing=(15, 3),
                     torch.bmm(flat, gd_k))
 
         t_l = timed(lib)
-    # Operations: M*C*(C+1) for the Gram (symmetric: the upper triangle
-    # with its diagonal) and 2*M*C^2 for the gradient product; bytes: X and
-    # G_style read, and G_diff and s_grad written, once; each per lane.
-    t_b, t_by = bound(lanes * (m * c * (c + 1) + 2 * m * c * c),
-                      lanes * 4 * (2 * m * c + 2 * c * c))
+    # perfmodel.style_cost: M*C*(C+1) operations for the Gram (symmetric:
+    # the upper triangle with its diagonal) and 2*M*C^2 for the gradient
+    # product; bytes: X and G_style read, and G_diff and s_grad written,
+    # once; each per lane.
+    t_b, t_by = bound(*perfmodel.style_cost(m, c, lanes))
     say('kernels', 'style float32 %-8s %-16s %.3f ms (plain, two cuBLAS '
         'matmuls, %.3f; x%.2f; %.0f%% of bound %.3f) err %.2g/%.2g; '
         'bitwise repeatable%s' % (
@@ -1009,6 +1056,7 @@ def check_image(torch, rng, hw, pending, timing=(15, 3)):
     from the host array (the kernel's input crosses in its own dtype, the
     plain version's as float32)."""
     from style_transfer2_tpu_torch.ops import image
+    from style_transfer2_tpu_torch.utils import perfmodel
     dev = torch.device('cuda')
     mean = torch.as_tensor(image.MEAN_RGB, device=dev)
     rows = []
@@ -1054,11 +1102,12 @@ def check_image(torch, rng, hw, pending, timing=(15, 3)):
         de_p = timed(lambda: image.deprocess_plain(x_k))
         pre_l = timed(pre_lib)
         de_l = timed(de_lib)
-        # Bytes: the image in its own dtype and 12 bytes a pixel out
-        # (preprocess); 12 in and 12 out (deprocess).
+        # perfmodel.image_cost: the image in its own dtype and 12 bytes a
+        # pixel out (preprocess); 12 in and 12 out (deprocess).
         px = hw[0] * hw[1]
-        pre_b = bound(0, px * (3 * src.element_size() + 12))[0]
-        de_b = bound(0, px * 24)[0]
+        pre_b = bound(*perfmodel.image_cost(px, src.element_size(),
+                                            'preprocess'))[0]
+        de_b = bound(*perfmodel.image_cost(px, 4, 'deprocess'))[0]
         say('kernels', 'image %-7s %-12s preprocess %.4f ms (plain %.4f, '
             'x%.2f; torch.sub %.4f; %.0f%% of bound %.4f), from host %.3f '
             'ms (plain %.3f); deprocess %.4f ms (plain %.4f, x%.2f; '
@@ -1702,6 +1751,10 @@ def phase_graph(torch, smi):
                                 '%s %s' % (kind, precision))
             for name in rates:
                 rates[name]['memory'] = memory[name]
+                rates[name]['roofline'] = roofline(
+                    'graph %s %s %s' % (kind, precision, name), GRAPH_HW,
+                    precision, rates[name]['median_ms'],
+                    lanes=1 if kind == 'one_image' else LANES)
             entry[kind] = rates
             say('graph', '%s %s: memory held after warm-up, allocated / '
                 'reserved MiB: eager %.0f / %.0f, graphed %.0f / %.0f; a '
@@ -1811,8 +1864,13 @@ def phase_ladder(torch, log):
                                              losses[0], losses[-1]))
         with Image.open(png) as img:
             require(img.size == top_wh, 'PNG size %s' % (img.size,))
+        # Each rung's ms a step from its logged it/s (the prime and any
+        # capture of the rung included) against the rung's floor.
         entry = {'wall_s': wall, 'rungs': [
-            {'hw': list(hw), 'it_s': a[4], 's': a[3]}
+            dict({'hw': list(hw), 'it_s': a[4], 's': a[3]},
+                 **roofline(
+                     'ladder %s rung %dx%d' % ((precision,) + hw), hw,
+                     precision, 1e3 / a[4]))
             for hw, a in zip(LADDER_1024, rung_logs)]}
         if extra:
             polish = read_trace(OUT_DIR / ('ladder_%s.polish.csv'
@@ -1825,8 +1883,12 @@ def phase_ladder(torch, log):
             polish_s = [a[1] for a in
                         log.args_of('polish: %d iters in %.2fs')]
             require(len(polish_s) == 1, 'polish time not logged')
-            entry['polish'] = {'s': polish_s[0], 'first_loss': losses[0],
-                               'last_loss': losses[-1]}
+            entry['polish'] = dict(
+                {'s': polish_s[0], 'first_loss': losses[0],
+                 'last_loss': losses[-1]},
+                **roofline(
+                    'ladder %s polish float32' % precision,
+                    LADDER_1024[-1], 'float32', 1e3 * polish_s[0] / POLISH))
             say('ladder', '%s polish: %d float32 iterations at %dx%d in '
                 '%.3f s, loss %.6g -> %.6g' % (
                     precision, POLISH, top_wh[1], top_wh[0], polish_s[0],
@@ -2063,12 +2125,14 @@ def highres_run(torch, log, memory, precision, remat):
         'base_allocated': base, 'losses': [losses[0], losses[-1]],
         'replays': REPLAYS[what], 'launches': counts,
         'paths': path_counts()}
+    entry.update(roofline(what, hw, precision, entry['ms_step'], remat))
     say('highres', '%s: %d L-BFGS iterations at %dx%d in chunks of %d: '
         '%.3f it/s (%.1f ms a step) over the last %d, loss %.6g -> %.6g, '
         '%.1f s from the call to the PNG; capture s %s%s; peak allocated '
         '%.0f MiB over the start (%.0f MiB before it), peak reserved %.0f '
         'MiB, reserved at the chunks %s MiB; '
-        '%d graph replays; launches %s; conv paths %s' % (
+        '%d graph replays; launches %s; conv paths %s; floor %.2f ms '
+        '(%s), %.1f%% of it, MFU %.1f%%' % (
             what, HIGHRES_ITERATIONS, hw[0], hw[1], HIGHRES_CHUNK, it_s,
             entry['ms_step'], n1 - n0, losses[0], losses[-1],
             entry['wall_s'], ', '.join('%.3f' % t for t in
@@ -2078,7 +2142,9 @@ def highres_run(torch, log, memory, precision, remat):
             entry['peak_bytes'] / 2 ** 20, base / 2 ** 20,
             entry['max_memory_reserved'] / 2 ** 20,
             ' '.join('%.0f' % (b / 2 ** 20) for b in memory.reserved),
-            entry['replays'], counts, entry['paths']))
+            entry['replays'], counts, entry['paths'], entry['floor_ms'],
+            entry['bound_by'], 100 * entry['share_of_floor'],
+            100 * entry['mfu']))
     return entry, counts, rows
 
 
@@ -2188,6 +2254,63 @@ def phase_parity(torch):
     say('parity', '2-rung float32 L-BFGS ladder 24x32 -> 34x45, 3 steps a '
         'rung: worst trace rel err %.3g (rtol %g)' % (worst[1],
                                                       PARITY_RTOL))
+    weights_round_trip()
+
+
+def torchvision_state_dict(params):
+    """params as a torchvision vgg19().state_dict() of CPU tensors:
+    'features.N.weight' (OIHW) and 'features.N.bias', N counting the
+    features module's layers (a ReLU after each conv, a pool after each
+    block)."""
+    import torch
+    from style_transfer2_tpu_torch.models import CONV_SPECS
+    state, index, block = {}, 0, '1'
+    for name, _ in CONV_SPECS:
+        if name[4] != block:
+            index, block = index + 1, name[4]        # the block's pool
+        state['features.%d.weight' % index] = torch.from_numpy(
+            np.ascontiguousarray(params[name]['w'].transpose(3, 2, 0, 1)))
+        state['features.%d.bias' % index] = torch.from_numpy(
+            params[name]['b'])
+        index += 2                                   # the conv and its ReLU
+    return state
+
+
+def weights_round_trip():
+    """random_params(0) written by write_caffemodel and read back by
+    resolve_params, and as a torchvision state dict through
+    params_from_torchvision: graphed float32 L-BFGS steps at the 512px
+    grid from each (single_bits: traces, images, state, norms) equal, bit
+    for bit, those from random_params(0) passed directly."""
+    from style_transfer2_tpu_torch.engine import graphs
+    from style_transfer2_tpu_torch.models import (params_from_torchvision,
+                                                  resolve_params,
+                                                  write_caffemodel)
+    inputs = graph_inputs()
+    params = inputs[0]
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    path = OUT_DIR / 'round_trip.caffemodel'
+    try:
+        write_caffemodel(params, path)
+        size = path.stat().st_size
+        from_caffe = resolve_params(str(path))
+    finally:
+        path.unlink(missing_ok=True)     # 80 MB: not kept with the outputs
+    from_torch = params_from_torchvision(torchvision_state_dict(params))
+    replays = graphs.replays
+    want = single_bits(inputs, 'float32', 'lbfgs', True)
+    for what, loaded in (('caffemodel', from_caffe),
+                         ('torchvision', from_torch)):
+        same_bits('weights from a %s' % what,
+                  single_bits((loaded,) + tuple(inputs[1:]), 'float32',
+                              'lbfgs', True), want)
+    require(graphs.replays > replays, 'weights round trip: nothing '
+            'replayed')
+    say('parity', 'random_params(0) through a %d-byte caffemodel '
+        '(write_caffemodel, resolve_params) and a torchvision state dict '
+        '(params_from_torchvision): graphed float32 L-BFGS steps at %dx%d '
+        'equal bit for bit to random_params(0)\'s (traces, images, state, '
+        'norms)' % ((size,) + GRAPH_HW))
 
 
 class GridLog:
@@ -3849,16 +3972,61 @@ def shard_planned(torch, precision, hw, n):
     return sorted(want)
 
 
-def halo_bytes(hw, n, itemsize):
-    """Bytes a step exchanges between the n H-shards of an hw iterate: at
-    each conv of the trunk, one row of each neighbour across the n - 1
-    boundaries, forward, and those rows' gradients back; and TV's two
-    circular rolls of the float32 image, one row across each of the n
-    boundaries."""
-    total = 0
-    for _, w, cin, _ in trunk_convs(*hw):
-        total += 2 * 2 * (n - 1) * w * cin * itemsize
-    return total + 2 * n * hw[1] * 3 * 4
+class Exchanges:
+    """Counts the bytes the port's halo and roll exchanges move while the
+    block runs: the neighbours' rows each halo call takes (forward,
+    recomputes included), the gradients that flow back to them (a hook on
+    each padded shard), and the rows a roll along the sharded dim takes
+    across shards. The program keeps no counter: this wraps ops/conv.py's
+    halo and parallel/spatial.py's roll for the block's duration."""
+
+    def __init__(self):
+        self.forward = self.backward = self.rolls = 0
+
+    def __enter__(self):
+        from style_transfer2_tpu_torch.ops import conv
+        from style_transfer2_tpu_torch.parallel import spatial
+        real_halo, real_roll = conv.halo, spatial.roll
+
+        def halo(x):
+            out = real_halo(x)
+            d, n = x.axis, len(x.shards)
+            for i, padded in enumerate(out):
+                for j in (i - 1, i + 1):
+                    if 0 <= j < n:
+                        row = x.shards[j].narrow(d, 0, 1)
+                        self.forward += row.numel() * row.element_size()
+                if padded.requires_grad:
+                    padded.register_hook(self._back(d, i, n))
+            return out
+
+        def roll(x, shifts, dims):
+            if dims % x.ndim == x.axis:
+                for shard in x.shards:
+                    row = shard.narrow(x.axis, 0, 1)
+                    self.rolls += row.numel() * row.element_size()
+            return real_roll(x, shifts, dims)
+
+        conv.halo, spatial.roll = halo, roll
+        self._restore = lambda: (setattr(conv, 'halo', real_halo),
+                                 setattr(spatial, 'roll', real_roll))
+        return self
+
+    def __exit__(self, *exc):
+        self._restore()
+
+    def _back(self, d, i, n):
+        def hook(g):
+            rows = [0] if i > 0 else []
+            if i < n - 1:
+                rows.append(g.shape[d] - 1)
+            for r in rows:
+                row = g.narrow(d, r, 1)
+                self.backward += row.numel() * row.element_size()
+        return hook
+
+    def total(self):
+        return self.forward + self.backward + self.rolls
 
 
 def shard_launch_counts():
@@ -3925,6 +4093,7 @@ def shard_runs(torch, smi, log):
     from style_transfer2_tpu_torch.ops import conv
     from style_transfer2_tpu_torch.parallel import (Mesh, Sharded,
                                                     SpatialPlacement)
+    from style_transfer2_tpu_torch.utils import perfmodel
     devices = shard_devices(torch, SHARD_N)
     say('shard', '%d shards on %s%s' % (
         SHARD_N, ', '.join(str(d) for d in devices),
@@ -3963,13 +4132,38 @@ def shard_runs(torch, smi, log):
                 require(conv.path_launches.get(key, 0) > 0, 'shard %s: no '
                         '%s launches on the %s path planned for a shard'
                         % (precision, key[0], key[1]))
-        itemsize = ITEMSIZE[precision]
-        result['halo_bytes_step'] = halo_bytes(hw, SHARD_N, itemsize)
+        # The port's roofline of the sharded step: its halo count must be
+        # what one more step's exchanges move on the card; its floor of
+        # the whole sharded step on one card (the n shards' work, halo
+        # rows in) reads the sharded ms, and the unsharded floor the
+        # unsharded ms. A share across cards needs more cards.
+        spec = st.spec()
+        model = perfmodel.model_step_sharded(
+            hw, SHARD_N, precision, False,
+            content_layers=spec.content_layers,
+            style_layers=spec.style_layers)
+        with Exchanges() as moved:
+            st.collect_steps(st.begin_steps(1), fetch_image=False)
+        result['halo_bytes_step'] = moved.total()
+        require(model.halo_bytes == result['halo_bytes_step'], 'shard %s: '
+                'the roofline counts %d halo bytes a step, the exchanges '
+                'moved %d' % (precision, model.halo_bytes,
+                              result['halo_bytes_step']))
+        result['model_halo_bytes_step'] = model.halo_bytes
+        result['jax_halo_bytes_device'] = model.jax_halo_bytes
+        result['unsharded_roofline'] = roofline(
+            'shard unsharded %s' % precision, hw, precision,
+            result['unsharded_ms_step'])
+        result['one_card_roofline'] = roofline(
+            'shard %d shards on one card %s' % (SHARD_N, precision), hw,
+            precision, result['sharded_ms_step'], model=model.one_card)
         result['conv_paths'] = path_counts()
         say('shard', '%s %dx%d over %d shards: %d L-BFGS steps in chunks '
             'of %d, %.2f ms a step sharded against %.2f unsharded (x%.2f, '
             'the one-card cost of sharding on %s), worst trace rel err '
-            '%.3g (%s, rtol %g), loss %.6g -> %.6g; halo %.2f MiB a step; '
+            '%.3g (%s, rtol %g), loss %.6g -> %.6g; halo %.2f MiB a step '
+            '(the roofline\'s too; JAX-style %.2f MiB a device); floor '
+            '%.3f ms one card sharded (%.1f%%), %.3f unsharded (%.1f%%); '
             'peak %.0f MiB sharded, %.0f unsharded; launches %s' % (
                 precision, hw[0], hw[1], SHARD_N, SHARD_ITERATIONS,
                 SHARD_CHUNK, result['sharded_ms_step'],
@@ -3979,6 +4173,11 @@ def shard_runs(torch, smi, log):
                 == 'float32' else 'the prime',
                 SHARD_RTOL[precision], *result['losses'],
                 result['halo_bytes_step'] / 2 ** 20,
+                model.jax_halo_bytes / 2 ** 20,
+                result['one_card_roofline']['floor_ms'],
+                100 * result['one_card_roofline']['share_of_floor'],
+                result['unsharded_roofline']['floor_ms'],
+                100 * result['unsharded_roofline']['share_of_floor'],
                 result['sharded_peak_mib'], result['unsharded_peak_mib'],
                 counts))
         results[precision] = result
@@ -4127,6 +4326,7 @@ def check_style_phases(torch, rng, tap, n, pending, timing=(15, 3)):
     X^T X; of X G_diff), the fused branch's time at the same tap beside.
     Returns the two rows."""
     from style_transfer2_tpu_torch.ops import style
+    from style_transfer2_tpu_torch.utils import perfmodel
     h, w, c = tap
     m = h * w
     size = n * m * c
@@ -4151,12 +4351,12 @@ def check_style_phases(torch, rng, tap, n, pending, timing=(15, 3)):
     for name, got, want, kernel, plain, lib, flops, nbytes in (
             ('style_gram', g_k, g_p, lambda: style.style_gram(feat, size),
              lambda: style.style_gram_plain(feat, size),
-             lambda: torch.mm(flat.T, flat), m * c * (c + 1),
-             4 * (m * c + c * c)),
+             lambda: torch.mm(flat.T, flat),
+             *perfmodel.style_cost(m, c, phase='gram')),
             ('style_grad', s_k, s_p, lambda: style.style_grad(feat, gd, size),
              lambda: style.style_grad_plain(feat, gd, size),
-             lambda: torch.mm(flat, gd), 2 * m * c * c,
-             4 * (2 * m * c + c * c))):
+             lambda: torch.mm(flat, gd),
+             *perfmodel.style_cost(m, c, phase='grad'))):
         # s_grad is ~1e-9 in magnitude: errors relative to each output's
         # own max, as check_style's.
         err = float((got - want).abs().max())
@@ -4235,6 +4435,25 @@ def phase_shard(torch, smi, log, rows, pending, parts, worst):
 
 
 
+def phase_roofline(smi):
+    """Every measured step against its floor (ROOFLINE), in one object for
+    the roofline line, beside the card's name and power limit; fails where
+    a share of the floor exceeds MAX_SHARE, since no card beats its
+    floor."""
+    for row in ROOFLINE:
+        say('roofline', '%-44s %9.3f ms, floor %8.3f ms (%s): %5.1f%% of '
+            'it, MFU %5.1f%%' % (row['path'], row['ms'], row['floor_ms'],
+                                 row['bound_by'],
+                                 100 * row['share_of_floor'],
+                                 100 * row['mfu']))
+        require(row['share_of_floor'] <= MAX_SHARE, 'roofline %s: %.3f ms '
+                'measured against a floor of %.3f ms' % (
+                    row['path'], row['ms'], row['floor_ms']))
+    return {'roofline': [{k: row[k] for k in (
+        'path', 'hw', 'precision', 'remat', 'lanes', 'floor_ms', 'ms', 'mfu',
+        'share_of_floor', 'bound_by')} for row in ROOFLINE], 'device': smi}
+
+
 def main():
     import torch
     smi = phase_device(torch)
@@ -4287,6 +4506,7 @@ def main():
         '%.3f, bfloat16 %.3f; step graph replays by run: %s' % (
             rates['float32'], rates['bfloat16'],
             ', '.join('%s %d' % kv for kv in REPLAYS.items())))
+    print(json.dumps(phase_roofline(smi)), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -207,6 +207,23 @@ def wgmma_bn(cout):
     return 128 if cout % 128 == 0 else 64
 
 
+# The bfloat16 mma.sync tile kernel (csrc/conv3x3.cu: BK, TC): the input
+# channels it stages a pass; a block owns _TC output channels.
+_MMA_BK = 32
+
+
+def mma_staging(path, cout):
+    """(input channels a stage holds, output channels a block owns) of a
+    bfloat16 tensor-core path into cout channels: TILE, the mma.sync
+    kernel's 32 by 64; WGMMA and WGMMA_SPLIT, 16 by wgmma_bn(cout). Each
+    tap's channels pad to the first, the output's to the second."""
+    if path == TILE:
+        return _MMA_BK, _TC
+    if path in (WGMMA, WGMMA_SPLIT):
+        return _WG_K, wgmma_bn(cout)
+    raise ValueError('mma_staging: %r is not a tensor-core path' % (path,))
+
+
 def wgmma_weights(w):
     """The wgmma kernel's weights from w (3, 3, Cin, Cout): zero-padded to
     Cin a multiple of 16 and Cout of BN (wgmma_bn), and blocked (Cout/BN,

@@ -11,7 +11,12 @@ lanes, each a job on the content image from its own random start, and a
 step advances every lane:
 the step's wall ms, the device-kernel ms summed per step, the device's idle
 share (1 - kernel ms / wall ms), kernels launched per step, and the costliest
-kernels. Needs CUDA; there is no CPU fallback.
+kernels; and the wall ms read against the step's roofline
+(utils/perfmodel.py model_step at the engine's taps, grid, precision and
+remat; with --batch, lanes times one image's): model_flops, floor_ms,
+bound_by, mfu (model FLOPs over the card's peak over the wall ms) and
+share_of_floor (the floor over the wall ms). With --mesh, the floor is
+the unsharded step's work. Needs CUDA; there is no CPU fallback.
 """
 
 import argparse
@@ -24,7 +29,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import cli
-from .utils import fit_into_square
+from .utils import fit_into_square, perfmodel
 
 
 def parse_args(argv=None):
@@ -43,8 +48,9 @@ def parse_args(argv=None):
 
 
 def batched_steps(cli_args):
-    """(run_steps(n), hw) of a BatchedStyleTransfer with cli_args.lanes
-    jobs on the content image, built as the CLI's --batch builds it."""
+    """(run_steps(n), hw, the objective's spec) of a BatchedStyleTransfer
+    with cli_args.lanes jobs on the content image, built as the CLI's
+    --batch builds it."""
     from .engine import resolve_device
     from .engine.batched import BatchedStyleTransfer
     device = resolve_device(cli_args.device)
@@ -62,23 +68,33 @@ def batched_steps(cli_args):
         engine.add_job(content, style_np,
                        rng.uniform(0, 255, hw + (3,)).astype(np.uint8),
                        step_size=cli_args.step_size)
-    return engine.run_steps_all, hw
+    return engine.run_steps_all, hw, engine.spec
 
 
 def single_steps(cli_args):
-    """(run_steps(n), hw) of the CLI's single-image engine."""
+    """(run_steps(n), hw, the objective's spec) of the CLI's single-image
+    engine."""
     st, inputs, hw = cli.setup(cli_args)
     cli.start_first_rung(st, cli_args, cli.fit_content(inputs[2], hw), hw,
                          np.random.RandomState(cli_args.seed))
-    return lambda n: st.run_steps(n, fetch_image=False), hw
+    return lambda n: st.run_steps(n, fetch_image=False), hw, st.spec()
+
+
+def roofline(cli_args, hw, spec, wall_ms):
+    """The step's roofline fields at wall_ms a step (module docstring)."""
+    lanes = cli_args.lanes if cli_args.batch else 1
+    model = perfmodel.model_step(
+        hw, cli_args.precision, False if cli_args.batch else cli_args.remat,
+        content_layers=spec.content_layers, style_layers=spec.style_layers)
+    return model.lanes(lanes).fields_at(wall_ms / 1e3)
 
 
 def main(argv=None):
     args, cli_args = parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError('profile_step needs CUDA')
-    run_steps, hw = (batched_steps if cli_args.batch
-                     else single_steps)(cli_args)
+    run_steps, hw, spec = (batched_steps if cli_args.batch
+                           else single_steps)(cli_args)
     run_steps(args.warmup)
     torch.cuda.synchronize()
 
@@ -103,14 +119,16 @@ def main(argv=None):
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:args.top]
     if args.chrome_trace:
         prof.export_chrome_trace(args.chrome_trace)
-    print(json.dumps({
+    print(json.dumps(dict({
         'device': torch.cuda.get_device_name(0),
         'precision': cli_args.precision, 'hw': list(hw),
         'lanes': cli_args.lanes if cli_args.batch else 1,
+        'remat': False if cli_args.batch else cli_args.remat,
         'wall_ms_per_step': wall_ms, 'kernel_ms_per_step': busy_ms,
         'idle_share': 1.0 - busy_ms / wall_ms,
         'kernels_per_step': launches / args.steps,
-        'top_kernels_ms': [[name[:80], ms] for name, ms in top]}))
+        'top_kernels_ms': [[name[:80], ms] for name, ms in top]},
+        **roofline(cli_args, hw, spec, wall_ms))))
     return 0
 
 

@@ -955,9 +955,7 @@ class SingleSessionTier(sn.EngineActions):
 def init(args=None, config=None):
     if config is None:
         config = utils.read_config(args)
-    debug_level = config.getint('debug', 0)
-    if args is not None and args.debug:
-        debug_level += args.debug
+    debug_level = utils.debug_level(args, config)
     tier = SingleSessionTier(config, debug_level)
 
     template_vars = {'ga_tracking_code': config.get('ga_tracking_code', '')}

@@ -3,7 +3,8 @@ switch, the 16-byte alignment the kernels' vector loads need and the
 card's SM count that their launch plans take; with the submodules the
 serving tier calls: the layered config (config), process setup
 (logging), the it/s EWMA (meanvar) and the image fitting, resampling and
-resolution ladder (images).
+resolution ladder (images); and the H100 roofline of a step (perfmodel,
+imported by name: it imports the model).
 
 The same behaviour as style_transfer2_tpu/utils/ (tracing.py:Trace,
 config.py, logging.py, meanvar.py, images.py) and
@@ -17,18 +18,19 @@ from collections import OrderedDict
 
 import torch
 
-from .config import parse_args, read_config
-from .images import (as_pil, fit_into_square, resample_hwc, resize_to_fit,
-                     scales)
+from .config import debug_level, parse_args, read_config
+from .images import (as_pil, fit_into_square, resample_hwc, resample_nchw,
+                     resize_to_fit, scales)
 from .logging import setup_exceptions, setup_logging, setup_signals
 from .meanvar import DecayingMean
 
 __all__ = [
     'PRECISION_RANK', 'Trace', 'aligned', 'sm_count', 'tf32',
-    'parse_args', 'read_config',
+    'debug_level', 'parse_args', 'read_config',
     'setup_exceptions', 'setup_logging', 'setup_signals',
     'DecayingMean',
-    'as_pil', 'fit_into_square', 'resample_hwc', 'resize_to_fit', 'scales',
+    'as_pil', 'fit_into_square', 'resample_hwc', 'resample_nchw',
+    'resize_to_fit', 'scales',
 ]
 
 # Precision modes ordered by exactness: a polish phase runs only when its

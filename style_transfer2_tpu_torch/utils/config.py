@@ -36,3 +36,12 @@ def read_config(args=None):
         configs.append(args.config)
     cp.read(configs)
     return cp['DEFAULT']
+
+
+def debug_level(args, config):
+    """The combined debug level: the command line's --debug count plus the
+    config's debug key (reference app.py:393-395)."""
+    level = config.getint('debug', 0)
+    if args is not None:
+        level += getattr(args, 'debug', 0)
+    return level

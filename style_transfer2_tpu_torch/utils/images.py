@@ -1,9 +1,9 @@
 """Host-side image helpers (style_transfer2_tpu/utils/images.py; reference
 utils.py:130-160,193-223,307-309): the image fitting and resolution ladder
-the CLI and the serving tier use, and the PIL Lanczos resample the serving
-tier uses for a user-paced resize of the iterate. The JAX package prefers
-its native resampler where that library is built; the port always takes
-PIL's path.
+the CLI and the serving tier use, and the PIL resamples of an HWC image
+(the serving tier's user-paced resize of the iterate) and of an NCHW
+stack, one float32 plane at a time. The JAX package prefers its native
+resampler where that library is built; the port always takes PIL's path.
 """
 
 import math
@@ -56,6 +56,28 @@ def resample_hwc(a, hw):
     for i in range(a.shape[-1]):
         b[:, :, i] = Image.fromarray(a[:, :, i]).resize((hw[1], hw[0]),
                                                         Image.LANCZOS)
+    return b
+
+
+def _pil_method(method):
+    if method in ('lanczos', Image.LANCZOS):
+        return Image.LANCZOS
+    if method in ('bilinear', Image.BILINEAR):
+        return Image.BILINEAR
+    raise ValueError('Unsupported resampling method: %r' % (method,))
+
+
+def resample_nchw(a, hw, method='lanczos'):
+    """Resamples an NxCxHxW array to a new (h, w) with PIL ('lanczos' or
+    'bilinear'), one float32 plane at a time. Float32 result."""
+    a = np.float32(a)
+    pil_method = _pil_method(method)
+    n, ch = a.shape[:2]
+    b = np.zeros((n, ch, hw[0], hw[1]), np.float32)
+    for i in range(n):
+        for j in range(ch):
+            b[i, j] = Image.fromarray(a[i, j]).resize((hw[1], hw[0]),
+                                                      pil_method)
     return b
 
 

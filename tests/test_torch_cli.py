@@ -438,12 +438,50 @@ def test_profile_step_builds_the_batched_engine():
         '--batch', '--lanes', '2', '--device', 'cpu', '--size', '24',
         '--model-weights', 'random', '--steps', '2'])
     assert args.steps == 2 and cli_args.batch and cli_args.lanes == 2
-    run_steps, hw = profile_step.batched_steps(cli_args)
+    run_steps, hw, spec = profile_step.batched_steps(cli_args)
     assert hw == (18, 24)
+    assert spec.style_layers == ('conv1_1', 'conv2_1', 'conv3_1', 'conv4_1')
     traces = run_steps(2)
     assert sorted(traces) == [0, 1]
     assert [t['fevals'] for t in traces[1]] == [1, 2]
     assert traces[0][0]['loss'] != traces[1][0]['loss']
+    # The roofline of a 2-lane step: twice one image's counts.
+    from style_transfer2_tpu_torch.utils import perfmodel
+    one = perfmodel.model_step(hw, 'float32', content_layers=('conv4_2',),
+                               style_layers=spec.style_layers)
+    got = profile_step.roofline(cli_args, hw, spec, 5.0)
+    assert got['model_flops'] == 2 * one.flops
+    assert got['floor_ms'] == 2 * one.t_floor * 1e3
+    assert got['bound_by'] == one.bound
+    np.testing.assert_allclose(got['mfu'], 2 * one.flops / 67e12 / 5e-3,
+                               rtol=1e-12)
+    np.testing.assert_allclose(got['share_of_floor'],
+                               2 * one.t_floor / 5e-3, rtol=1e-12)
+
+
+@pytest.mark.usefixtures('one_thread')
+@pytest.mark.parametrize('extra,remat', [([], False),
+                                         (['--remat', 'block'], 'block')])
+def test_profile_step_reads_the_single_engine_against_its_floor(extra,
+                                                                remat):
+    """profile_step's single-image engine (built here on the CPU) and its
+    roofline fields: the engine's taps, grid, precision and remat."""
+    from style_transfer2_tpu_torch import profile_step
+    from style_transfer2_tpu_torch.utils import perfmodel
+    args, cli_args = profile_step.parse_args([
+        '--device', 'cpu', '--size', '24', '--model-weights', 'random',
+        '--precision', 'bfloat16'] + extra)
+    run_steps, hw, spec = profile_step.single_steps(cli_args)
+    assert hw == (18, 24) and spec.content_layers == ('conv4_2',)
+    run_steps(1)
+    want = perfmodel.model_step(hw, 'bfloat16', remat,
+                                content_layers=spec.content_layers,
+                                style_layers=spec.style_layers)
+    got = profile_step.roofline(cli_args, hw, spec, 2.0)
+    assert got == {'model_flops': want.flops,
+                   'floor_ms': want.t_floor * 1e3, 'bound_by': want.bound,
+                   'mfu': want.mfu_at(2e-3),
+                   'share_of_floor': want.sol_at(2e-3)}
 
 
 @pytest.mark.usefixtures('one_thread')

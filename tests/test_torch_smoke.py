@@ -7,6 +7,7 @@ import importlib.util
 import json
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -175,6 +176,8 @@ def test_highres_runs_on_the_cpu(monkeypatch, tmp_path):
         assert run['memory_reserved_at_chunks'] == [2 ** 21] * 3
         assert run['max_memory_allocated'] == run['peak_bytes'] == 2 ** 20
         assert ('remat_ms_step' in run) == (run['remat'] is not None)
+        _assert_roofline(run, run['ms_step'], run['precision'], (24, 32),
+                         run['remat'] or False)
     for name in ('float32_remat_block', 'bfloat16_remat_conv'):
         assert (tmp_path / ('highres_%s.csv' % name)).exists()
         assert not (tmp_path / ('highres_%s.png' % name)).exists()
@@ -419,6 +422,93 @@ def test_video_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     assert sorted(result['profile_kernels']) == ['conv', 'image', 'style']
 
 
+def _assert_roofline(fields, ms, precision, hw, remat=False, lanes=1):
+    """A phase record's roofline fields: perfmodel.model_step at hw with
+    initial_weights.yaml's taps, lanes times, read at ms a step."""
+    from style_transfer2_tpu_torch.utils import perfmodel
+    model = perfmodel.model_step(hw, precision, remat,
+                                 content_layers=('conv4_2',),
+                                 style_layers=('conv1_1', 'conv2_1',
+                                               'conv3_1', 'conv4_1'))
+    model = model.lanes(lanes) if lanes > 1 else model
+    assert fields['model_flops'] == model.flops
+    assert fields['floor_ms'] == model.t_floor * 1e3
+    assert fields['bound_by'] == model.bound
+    assert fields['mfu'] == model.mfu_at(ms / 1e3)
+    assert fields['share_of_floor'] == model.sol_at(ms / 1e3)
+
+
+def test_roofline_line_and_its_limit(monkeypatch, capsys):
+    """The roofline line holds a row a measured step beside the card's
+    name and power limit; a share of the floor above MAX_SHARE fails."""
+    monkeypatch.setattr(chip_smoke, 'ROOFLINE', [])
+    slow = chip_smoke.roofline('graph one_image float32 graphed',
+                               (384, 512), 'float32', 8.3)
+    assert round(slow['share_of_floor'], 3) == 0.417
+    assert slow['bound_by'] == 'compute'
+    line = chip_smoke.phase_roofline('NVIDIA H100 80GB HBM3, 700.00 W')
+    assert line['device'] == 'NVIDIA H100 80GB HBM3, 700.00 W'
+    assert line['roofline'] == [{
+        'path': 'graph one_image float32 graphed', 'hw': [384, 512],
+        'precision': 'float32', 'remat': None, 'lanes': 1,
+        'floor_ms': slow['floor_ms'], 'ms': 8.3, 'mfu': slow['mfu'],
+        'share_of_floor': slow['share_of_floor'], 'bound_by': 'compute'}]
+    assert 'graph one_image float32 graphed' in capsys.readouterr().out
+    lanes = chip_smoke.roofline('graph lanes4 bfloat16 graphed', (384, 512),
+                                'bfloat16', 10.8, lanes=4)
+    assert lanes['floor_ms'] == 4 * chip_smoke.step_model(
+        (384, 512), 'bfloat16').t_floor * 1e3
+    chip_smoke.roofline('too fast', (384, 512), 'float32', 3.0)
+    with pytest.raises(RuntimeError, match='too fast'):
+        chip_smoke.phase_roofline('a card')
+
+
+def test_torchvision_state_dict_is_torchvisions_layout():
+    """chip_smoke's torchvision state dict: features.N with N counting a
+    ReLU after each conv and a pool after each block, as the JAX
+    package's index table has it."""
+    from style_transfer2_tpu.models.weights import _TORCHVISION_INDEX
+    from style_transfer2_tpu_torch.models import random_params
+    params = random_params(0)
+    state = chip_smoke.torchvision_state_dict(params)
+    assert sorted(state) == sorted(
+        'features.%d.%s' % (i, k) for i in _TORCHVISION_INDEX.values()
+        for k in ('weight', 'bias'))
+    w = state['features.%d.weight' % _TORCHVISION_INDEX['conv3_2']]
+    assert tuple(w.shape) == (256, 256, 3, 3)
+    assert torch.equal(w.permute(2, 3, 1, 0),
+                       torch.from_numpy(params['conv3_2']['w']))
+
+
+@pytest.mark.usefixtures('one_thread')
+def test_weights_round_trip_runs_on_the_cpu(monkeypatch, tmp_path):
+    """The parity phase's weights round trip at 24x32 on the CPU, with a
+    capture backend that replays without a card: the steps from the
+    caffemodel's and the torchvision state dict's params equal those from
+    random_params(0) bit for bit, and the caffemodel is not left behind;
+    a params dict one bit off is caught."""
+    monkeypatch.setattr(chip_smoke, 'GRAPH_DEVICE', 'cpu')
+    monkeypatch.setattr(chip_smoke, 'GRAPH_BACKEND', _FakeGraphs)
+    monkeypatch.setattr(chip_smoke, 'GRAPH_HW', (24, 32))
+    monkeypatch.setattr(chip_smoke, 'OUT_DIR', tmp_path)
+    chip_smoke.weights_round_trip()
+    assert list(tmp_path.iterdir()) == []
+    from style_transfer2_tpu_torch.models import weights
+    real = weights.params_from_torchvision
+
+    def off_by_a_bit(state, caffe_scale=False):
+        params = real(state, caffe_scale)
+        w = params['conv1_1']['w']
+        w.view(np.uint32)[0, 0, 0, 0] ^= 1
+        return params
+
+    monkeypatch.setattr(weights, 'params_from_torchvision', off_by_a_bit)
+    import style_transfer2_tpu_torch.models as models
+    monkeypatch.setattr(models, 'params_from_torchvision', off_by_a_bit)
+    with pytest.raises(RuntimeError, match='torchvision'):
+        chip_smoke.weights_round_trip()
+
+
 class _ReplayGraph:
     def __init__(self, fn):
         self.fn = fn
@@ -475,6 +565,9 @@ def test_graph_phase_runs_on_the_cpu(monkeypatch, tmp_path):
             for name in ('eager', 'graphed'):
                 run = out[precision][kind][name]
                 assert len(run['ms']) == 2 and run['it_s'] > 0
+                _assert_roofline(run['roofline'], run['median_ms'],
+                                 precision, (24, 32), False,
+                                 1 if kind == 'one_image' else 4)
 
 
 @pytest.mark.usefixtures('one_thread')
@@ -527,6 +620,17 @@ def test_shard_phase_runs_on_the_cpu(monkeypatch, tmp_path):
         assert run['worst_rel_err'] <= chip_smoke.SHARD_RTOL[precision]
         assert run['losses'][1] < run['losses'][0]
         assert run['halo_bytes_step'] > 0
+        # conv1_1 to conv2_2 sharded (pool2 gathers 3-row shards), TV's
+        # two rolls; the roofline's count is what a step's exchanges
+        # moved.
+        itemsize = 4 if precision == 'float32' else 2
+        assert run['halo_bytes_step'] == run['model_halo_bytes_step'] == (
+            2 * 2 * 3 * (32 * (3 + 64) + 16 * (64 + 128)) * itemsize
+            + 2 * 4 * 32 * 3 * 4)
+        _assert_roofline(run['unsharded_roofline'],
+                         run['unsharded_ms_step'], precision, (24, 32))
+        assert run['one_card_roofline']['floor_ms'] > \
+            run['unsharded_roofline']['floor_ms']
     assert result['w_fallback']['hw'] == [30, 40]
     assert result['checkpoint']['resumed_equal']
     assert result['batch']['worst_rel_err'] <= chip_smoke.PARITY_RTOL
