@@ -198,16 +198,28 @@ exits non-zero:
                falling loss; every kernel of the sharded path launched,
                the conv paths planned at the shard shapes among the
                launches, both style phases once a shard a style layer an
-               evaluation, no step graph (the sharded chunk runs
-               eagerly); a W-fallback grid (510x680) held the same way
-               over 5 steps; 4 float32 lanes at 512px over a 2-way data
+               evaluation, the sharded steps replayed from their graphs
+               (one capture over the shards, engine/graphs.py); in each
+               precision the graphed sharded engine against an eager one
+               bit for bit (step, a chunk, an objective change, two
+               chunks in flight, step: traces, images, state, norms),
+               then 20-step chunks of both in turns (ms and host us a
+               step, the memory each holds, each read against the 4
+               shards' floor on one card), the node counts of the step
+               and prime graphs and the capture seconds; a W-fallback
+               grid (510x680) held the same way over 5 steps and graphed
+               against eager bit for bit in both precisions; bf16 at
+               2880x3840 over the 4 shards, graphed, 8 steps after the
+               capture, beside the highres phase's unsharded bf16 step;
+               4 float32 lanes at 512px over a 2-way data
                mesh against the unsharded batched engine, every key of
                each lane over 3 steps; a sharded checkpoint resumed, its
                next chunk equal bit for bit; the CLI with --mesh 1, and
                --mesh N for N above the card count exiting with
                make_mesh's message. Printed and in shard.json: ms a step
                sharded and unsharded (the one-card cost of sharding),
-               halo bytes a step, peak memory.
+               graphed and eager, host us a step, halo bytes a step, peak
+               memory.
  14. profile — every kernel and library call timed in phase 3, on the
                same inputs: host_us, the host clock over HOST_CALLS
                back-to-back calls with no sync (the enqueue cost), then
@@ -227,8 +239,9 @@ conv_cost, style_cost and image_cost; model_step; model_step_sharded).
 Each step a phase measures is read against its floor: the graph phase's
 chunks (512px, one image and 4 lanes, both precisions, eager and
 graphed), each ladder rung and the polish, each highres run, and the
-shard phase's unsharded step and its sharded step on one card (whose
-halo bytes must equal the roofline's). Each record gains model_flops,
+shard phase's unsharded step and its sharded steps on one card (graphed
+and eager, and at 2880x3840; whose halo bytes must equal the
+roofline's). Each record gains model_flops,
 floor_ms, bound_by, mfu (model FLOPs over the card's peak over the
 measured ms) and share_of_floor; a share above MAX_SHARE fails the run.
 
@@ -1625,7 +1638,7 @@ def graph_nodes(torch, inputs, precision):
     return dict(zip(('step', 'prime'), backend.nodes))
 
 
-def time_chunks(torch, runs, what):
+def time_chunks(torch, runs, what, phase='graph'):
     """runs: {'eager': fn, 'graphed': fn}, fn(n) enqueueing one n-step
     chunk and returning a collect callable. In turns (eager, graphed,
     graphed, eager) GRAPH_ROUNDS times: the ms a step over a synced
@@ -1657,7 +1670,7 @@ def time_chunks(torch, runs, what):
         row['median_ms'] = float(np.median(row['ms']))
         row['it_s'] = 1e3 / row['median_ms']
         row['median_host_us'] = float(np.median(row['host_us']))
-    say('graph', '%s: ms a step eager %s, graphed %s (median %.3f / %.3f, '
+    say(phase, '%s: ms a step eager %s, graphed %s (median %.3f / %.3f, '
         'x%.2f); host us a step until a %d-step chunk is enqueued eager '
         '%.1f, graphed %.1f' % (
             what, ', '.join('%.3f' % v for v in out['eager']['ms']),
@@ -3815,6 +3828,17 @@ SHARD_BATCH_SIZE = 512
 SHARD_BATCH_ITERATIONS = 3
 SHARD_CLI_SIZE = 256
 SHARD_DEVICE = 'cuda'
+# A factory of the graphed engines' capture backend, None for the engine's
+# own (the CPU tests give a stand-in that replays without a card).
+SHARD_BACKEND = None
+# The 3840px run over the shards: the highres phase's grid and style size,
+# bf16, a chunk of 2 (the prime and the step's warm-up, the step's
+# capture), then SHARD_HIGHRES_STEPS replays timed.
+SHARD_HIGHRES_HW = HIGHRES_HW
+SHARD_HIGHRES_SIZE = HIGHRES_SIZE
+SHARD_HIGHRES_STEPS = 8
+# One-step enqueues timed behind a synced card, for each engine.
+SHARD_HOST_TRIALS = 5
 # Traces of a sharded step against the unsharded one: the golden rtol in
 # float32, each step taken from the unsharded run's own state (two free
 # fixed-step L-BFGS trajectories part exponentially: summed in another
@@ -3858,14 +3882,20 @@ def shard_hw(content, size):
     return (wh[1], wh[0])
 
 
-def shard_engine(inputs, precision, hw, placement):
+def shard_engine(inputs, precision, hw, placement, graphed=True):
     """A started L-BFGS StyleTransfer of the shard phase's objective at hw
-    over `placement` (None: unsharded), from a seed-0 random iterate."""
+    over `placement` (None: unsharded), from a seed-0 random iterate; its
+    steps replay graphs (graphed=False: run eagerly, for the A/B)."""
     from style_transfer2_tpu_torch import cli
     from style_transfer2_tpu_torch.engine import StyleTransfer
+    from style_transfer2_tpu_torch.engine.graphs import StepGraphs
     params, (weights, scalars), style_img, content = inputs
     st = StyleTransfer(params, precision=precision, device=SHARD_DEVICE,
                        placement=placement)
+    if not graphed:
+        eager(st)
+    elif SHARD_BACKEND is not None:
+        st._graphs = StepGraphs(SHARD_BACKEND())
     st.set_weights(weights, scalars)
     st.set_optimizer('lbfgs')
     st.set_step_size(1.0)
@@ -4062,8 +4092,9 @@ def shard_run(torch, inputs, precision, placement, hw):
     counts = shard_launch_counts()
     result['sharded_peak_mib'] = (torch.cuda.max_memory_allocated()
                                   - base) / 2 ** 20
-    require(graphs.replays == 0, 'shard %s: the sharded steps replayed '
-            'a graph' % precision)
+    REPLAYS['shard ' + precision] = graphs.replays
+    require(graphs.replays > 0, 'shard %s: the sharded steps replayed no '
+            'graph' % precision)
     losses = [t['loss'] for t in got]
     require(all(math.isfinite(v) for v in losses), 'shard %s: non-finite '
             'loss' % precision)
@@ -4083,17 +4114,214 @@ def shard_run(torch, inputs, precision, placement, hw):
     return st, got, want, counts, result
 
 
+def shard_bits(inputs, precision, hw, placement, graphed):
+    """single_bits on a sharded engine at hw: step, a chunk, an objective
+    change, two chunks in flight, step; the state gathered."""
+    import torch
+    from style_transfer2_tpu_torch.parallel.spatial import Sharded, gather
+    st = shard_engine(inputs, precision, hw, placement, graphed)
+    weights, scalars = inputs[1]
+    images = [st.step()[0], st.run_steps(4)[0]]
+    st.set_weights(weights, dict(scalars, tv=scalars.get('tv', 1.0) * 0.8))
+    a, b = st.begin_steps(3), st.begin_steps(2)
+    images += [img for img, _ in st.collect_steps_many([a, b])]
+    images.append(st.step()[0])
+    rows = [{k: v for k, v in t.data.items() if k != 'time'}
+            for t in st.traces]
+    state = {k: gather(v).clone() if isinstance(v, Sharded)
+             or torch.is_tensor(v) else v for k, v in st.opt_state.items()}
+    norms = {k: float(v) for k, v in st.norm_vals.items()}
+    return rows, images, state, norms
+
+
+def shard_nodes(torch, inputs, precision, hw, placement):
+    """Node counts of the sharded L-BFGS step and prime graphs at hw, or
+    None where this torch keeps no graph to count."""
+    from style_transfer2_tpu_torch.engine.graphs import StepGraphs
+    backend = CountingGraphs(torch)
+    st = shard_engine(inputs, precision, hw, placement)
+    st._graphs = StepGraphs(backend)
+    try:
+        st.run_steps(2)              # prime and step warm, step captured
+        st.objective_changed()
+        st.run_steps(1)              # prime captured
+    except (TypeError, AttributeError) as e:    # no keep_graph here
+        say('shard', 'node count not measured: %s' % e)
+        return None
+    torch.cuda.synchronize()
+    return dict(zip(('step', 'prime'), backend.nodes))
+
+
+def shard_graph(torch, inputs, precision, hw, placement, model):
+    """The sharded step's graphs at hw in one precision: graphed against
+    eager bit for bit (shard_bits; fails where a bit differs), then
+    GRAPH_CHUNK-step chunks in turns (time_chunks: ms a step, host us a
+    step, memory), each read against the 4 shards' floor on one card
+    (model.one_card), the node counts and the capture seconds."""
+    from style_transfer2_tpu_torch.engine import graphs
+    graphs.captures.clear()
+    same_bits('shard graphed %s %dx%d' % ((precision,) + tuple(hw)),
+              shard_bits(inputs, precision, hw, placement, True),
+              shard_bits(inputs, precision, hw, placement, False))
+
+    def warm(graphed):
+        def build():
+            st = shard_engine(inputs, precision, hw, placement, graphed)
+            st.run_steps(2)
+            st.run_steps(2)
+            return st
+        return resident(torch, build)
+
+    def chunk(st):
+        def run(n):
+            handle = st.begin_steps(n)
+            return lambda: st.collect_steps(handle, fetch_image=False)
+        return run
+
+    engines, memory = {}, {}
+    for name, graphed in (('eager', False), ('graphed', True)):
+        engines[name], memory[name] = warm(graphed)
+    rates = time_chunks(torch, {n: chunk(e) for n, e in engines.items()},
+                        '%d shards %s' % (SHARD_N, precision), 'shard')
+    for name, row in rates.items():
+        # The host's enqueue of one step behind a synced card, where no
+        # launch waits for room in the card's queue.
+        row['host_us_one_step'] = []
+        for _ in range(SHARD_HOST_TRIALS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            collect = chunk(engines[name])(1)
+            row['host_us_one_step'].append(
+                (time.perf_counter() - t0) * 1e6)
+            collect()
+        row['median_host_us_one_step'] = float(np.median(
+            row['host_us_one_step']))
+    del engines
+    for name, row in rates.items():
+        row['memory'] = memory[name]
+        row['host_share'] = row['median_host_us'] / (1e3 * row['median_ms'])
+        row['roofline'] = roofline(
+            'shard %d shards on one card %s %s' % (SHARD_N, precision, name),
+            hw, precision, row['median_ms'], model=model.one_card)
+    out = {'bitwise': True, 'rates': rates,
+           'nodes': shard_nodes(torch, inputs, precision, hw, placement),
+           'capture_s': [dict(c, hw=list(c['hw'])) for c in graphs.captures
+                         if c['shards'] == SHARD_N]}
+    say('shard', '%s %dx%d over %d shards, graphed against eager: equal bit '
+        'for bit (traces, images, state, norms); ms a step graphed %.3f, '
+        'eager %.3f (x%.2f); host us a step graphed %.1f (%.1f%% of the '
+        'step), eager %.1f; a step enqueued behind a synced card: graphed '
+        '%.1f us, eager %.1f; graph nodes %s; capture s %s; held after '
+        'warm-up, allocated / reserved MiB: graphed %.0f / %.0f, eager %.0f '
+        '/ %.0f; floor %.3f ms one card, %.1f%% of it graphed' % (
+            precision, hw[0], hw[1], SHARD_N, rates['graphed']['median_ms'],
+            rates['eager']['median_ms'], rates['eager']['median_ms']
+            / rates['graphed']['median_ms'],
+            rates['graphed']['median_host_us'],
+            100 * rates['graphed']['host_share'],
+            rates['eager']['median_host_us'],
+            rates['graphed']['median_host_us_one_step'],
+            rates['eager']['median_host_us_one_step'], out['nodes'],
+            ', '.join('%s %.3f' % (c['kind'], c['seconds'])
+                      for c in out['capture_s']),
+            memory['graphed']['allocated'] / 2 ** 20,
+            memory['graphed']['reserved'] / 2 ** 20,
+            memory['eager']['allocated'] / 2 ** 20,
+            memory['eager']['reserved'] / 2 ** 20,
+            rates['graphed']['roofline']['floor_ms'],
+            100 * rates['graphed']['roofline']['share_of_floor']))
+    return out
+
+
+def shard_highres(torch, inputs, placement):
+    """bf16 at SHARD_HIGHRES_HW over the shards, graphed: a 2-step chunk
+    (the prime and the step's warm-up, the step's capture), then
+    SHARD_HIGHRES_STEPS replays timed on the host clock at a synced
+    collect; beside the highres phase's unsharded bf16 run where this run
+    has one (highres.json)."""
+    import gc
+    from PIL import Image
+    from style_transfer2_tpu_torch.engine import graphs
+    from style_transfer2_tpu_torch.utils import perfmodel, resize_to_fit
+    hw = SHARD_HIGHRES_HW
+    with Image.open(STYLE) as img:
+        style_img = np.uint8(resize_to_fit(img.convert('RGB'),
+                                           SHARD_HIGHRES_SIZE))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    graphs.captures.clear()
+    replays = graphs.replays
+    st = shard_engine(inputs[:2] + (style_img,) + inputs[3:], 'bfloat16',
+                      hw, placement)
+    t0 = time.perf_counter()
+    st.collect_steps(st.begin_steps(2), fetch_image=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    st.collect_steps(st.begin_steps(SHARD_HIGHRES_STEPS), fetch_image=False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3 / SHARD_HIGHRES_STEPS
+    losses = [t.data['loss'] for t in st.traces]
+    what = 'shard %dx%d bfloat16' % hw
+    require(all(math.isfinite(v) for v in losses), '%s: non-finite loss'
+            % what)
+    require(losses[-1] < losses[0], '%s: loss did not fall: %.6g -> %.6g'
+            % (what, losses[0], losses[-1]))
+    require(graphs.replays - replays >= SHARD_HIGHRES_STEPS + 1,
+            '%s: %d replays' % (what, graphs.replays - replays))
+    spec = st.spec()
+    model = perfmodel.model_step_sharded(
+        hw, SHARD_N, 'bfloat16', False, content_layers=spec.content_layers,
+        style_layers=spec.style_layers)
+    out = {'hw': list(hw), 'ms_step': ms, 'it_s': 1e3 / ms,
+           'first_chunk_s': t1 - t0,
+           'capture_s': [c['seconds'] for c in graphs.captures],
+           'peak_bytes': torch.cuda.max_memory_allocated() - base,
+           'max_memory_reserved': torch.cuda.max_memory_reserved(),
+           'losses': [losses[0], losses[-1]],
+           'replays': graphs.replays - replays}
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    unsharded = OUT_DIR / 'highres.json'
+    out['unsharded_ms_step'] = (
+        json.loads(unsharded.read_text())['runs']['bfloat16 no remat'][
+            'ms_step'] if unsharded.exists() else None)
+    out['roofline'] = roofline('%s %d shards on one card graphed'
+                               % (what, SHARD_N), hw, 'bfloat16', ms,
+                               model=model.one_card)
+    say('shard', '%s over %d shards, graphed: %.1f ms a step over %d '
+        'replays (%.3f it/s) against %s unsharded (the highres phase); '
+        'first chunk (prime, warm-up, capture) %.1f s, capture s %s; peak '
+        'allocated %.0f MiB, reserved %.0f MiB; loss %.6g -> %.6g; floor '
+        '%.2f ms one card, %.1f%% of it' % (
+            what, SHARD_N, ms, SHARD_HIGHRES_STEPS, out['it_s'],
+            'not measured' if out['unsharded_ms_step'] is None
+            else '%.1f ms' % out['unsharded_ms_step'], out['first_chunk_s'],
+            ', '.join('%.3f' % c for c in out['capture_s']),
+            out['peak_bytes'] / 2 ** 20, out['max_memory_reserved'] / 2 ** 20,
+            losses[0], losses[-1], out['roofline']['floor_ms'],
+            100 * out['roofline']['share_of_floor']))
+    return out
+
+
 def shard_runs(torch, smi, log):
     """The shard phase's engine runs (shard docstring), with every kernel
     of the sharded path launched in the float32 run, the conv paths
     planned at the shards' shapes (halo rows included) among its
     launches and both style phases once a shard a style layer an
-    evaluation. Writes shard.json; returns (the float32 sharded run's
-    launch counts, the result dict)."""
+    evaluation, the sharded steps replayed from graphs; each precision's
+    graphed sharded step against the eager one (shard_graph), the
+    W-fallback's too, and the 3840px run (shard_highres). Writes
+    shard.json; returns (the float32 sharded run's launch counts, the
+    result dict)."""
     from style_transfer2_tpu_torch.ops import conv
     from style_transfer2_tpu_torch.parallel import (Mesh, Sharded,
                                                     SpatialPlacement)
     from style_transfer2_tpu_torch.utils import perfmodel
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
     devices = shard_devices(torch, SHARD_N)
     say('shard', '%d shards on %s%s' % (
         SHARD_N, ', '.join(str(d) for d in devices),
@@ -4142,8 +4370,13 @@ def shard_runs(torch, smi, log):
             hw, SHARD_N, precision, False,
             content_layers=spec.content_layers,
             style_layers=spec.style_layers)
+        # Counted over one eager step: a replay calls no Python, so the
+        # wrappers Exchanges counts in run only where the step does.
+        graphed = st._graphs
+        eager(st)
         with Exchanges() as moved:
             st.collect_steps(st.begin_steps(1), fetch_image=False)
+        st._graphs = graphed
         result['halo_bytes_step'] = moved.total()
         require(model.halo_bytes == result['halo_bytes_step'], 'shard %s: '
                 'the roofline counts %d halo bytes a step, the exchanges '
@@ -4159,7 +4392,8 @@ def shard_runs(torch, smi, log):
             precision, result['sharded_ms_step'], model=model.one_card)
         result['conv_paths'] = path_counts()
         say('shard', '%s %dx%d over %d shards: %d L-BFGS steps in chunks '
-            'of %d, %.2f ms a step sharded against %.2f unsharded (x%.2f, '
+            'of %d, %.2f ms a step sharded against %.2f unsharded, both '
+            'graphed (x%.2f, '
             'the one-card cost of sharding on %s), worst trace rel err '
             '%.3g (%s, rtol %g), loss %.6g -> %.6g; halo %.2f MiB a step '
             '(the roofline\'s too; JAX-style %.2f MiB a device); floor '
@@ -4186,6 +4420,8 @@ def shard_runs(torch, smi, log):
             results['checkpoint'] = shard_checkpoint(st, placement)
         del st
         torch.cuda.empty_cache()
+        result['graph'] = shard_graph(torch, inputs, precision, hw,
+                                      placement, model)
 
     w_hw = shard_hw(inputs[3], SHARD_W_SIZE)
     require(w_hw[0] % SHARD_N and not w_hw[1] % SHARD_N,
@@ -4197,10 +4433,17 @@ def shard_runs(torch, smi, log):
     results['w_fallback'] = {'hw': list(w_hw), 'worst_rel_err': shard_forced(
         inputs, 'float32', w_hw, placement, SHARD_W_ITERATIONS,
         'shard W-fallback')}
+    for precision in ('float32', 'bfloat16'):
+        same_bits('shard W-fallback graphed %s' % precision,
+                  shard_bits(inputs, precision, w_hw, placement, True),
+                  shard_bits(inputs, precision, w_hw, placement, False))
+    results['w_fallback']['bitwise'] = True
     say('shard', 'float32 %dx%d (H %% %d != 0: W-sharded), %d steps, each '
-        'from the unsharded state: worst trace rel err %.3g' % (
+        'from the unsharded state: worst trace rel err %.3g; graphed equal '
+        'to eager bit for bit in float32 and bfloat16' % (
             w_hw[0], w_hw[1], SHARD_N, SHARD_W_ITERATIONS,
             results['w_fallback']['worst_rel_err']))
+    results['highres'] = shard_highres(torch, inputs, placement)
 
     results['batch'] = shard_batch(torch, inputs, devices)
     results['cli'] = shard_cli(torch, log)

@@ -55,6 +55,27 @@ a prime and a step graph for each of two objective structures, which is
 what an objective change back and forth (the web app's weight edits,
 video's first and chained frames) needs.
 
+Spatial sharding. A Sharded leaf (parallel/spatial.py) flattens into one
+leaf a shard, its path ending in a ShardOf (the sharded axis, the shard's
+index), and each shard's static buffer lives on its shard's device; the
+tree is rebuilt with a Sharded of the static shards on the same axis. So
+the sharded iterate, history, moments, content taps and temporal target
+follow the copy-in rules above shard by shard, a setter that places a new
+Sharded reaches the next replay, and a leaf of another layout raises
+(another shard count or axis: another structure; other extents: another
+shape; another device). The trace row stays one float32 buffer on the
+first device. Shards that share one card (a device repeated in the mesh)
+are captured as any step is: every .to between them is the tensor itself.
+Shards on several cards are one capture too (CudaGraphs with `devices`):
+it begins on the first card's side stream; each other card's side stream
+joins it by waiting on an event recorded inside the capture, is that
+card's current stream while the step runs (a copy between cards orders
+itself after the current streams of both, and autograd runs a card's
+backward on the stream its forward used), allocates into a private pool
+on its card, and is joined back before the capture ends. A replay then
+orders the first card's stream after every other card's current stream
+(the copy-in) and theirs after it.
+
 Rematerialization. A remat engine's step (models/vgg19.py) is captured
 and replayed like any other: the recomputed forward runs inside
 autograd's backward, on the capture stream, into the graphs' pool. The
@@ -70,10 +91,13 @@ every replay. `replays` and `captures` count what every engine did
 """
 
 import collections
+import contextlib
 import sys
 import time
 
 import torch
+
+from ..parallel.spatial import Sharded
 
 # Least recently used graphs beyond this many are dropped (docstring).
 MAX_GRAPHS = 4
@@ -83,20 +107,30 @@ replays = 0
 # (CudaGraphs.make_room).
 emptied = 0
 # One entry a capture, newest last: {'kind', 'hw', 'lanes', 'dtype',
-# 'seconds'} (chip_smoke.py reports capture seconds from it).
+# 'shards', 'seconds'} (chip_smoke.py reports capture seconds from it).
 captures = collections.deque(maxlen=256)
 
 # What a graph is captured for: kind 'step' or 'prime', the ObjectiveSpec,
 # the optimizer, the grid, the lanes (1 for the single engine), the
-# compute dtype, the L-BFGS history's dtype (None for Adam) and its length.
+# compute dtype, the L-BFGS history's dtype (None for Adam) and its
+# length, and the iterate's layout: None, or for a Sharded iterate its
+# sharded axis and its shards' devices (H or W follows from the grid).
 GraphKey = collections.namedtuple('GraphKey', (
     'kind', 'spec', 'optimizer', 'hw', 'lanes', 'dtype', 'history_dtype',
-    'n_corr'))
+    'n_corr', 'layout'))
+
+# The last element of a shard's path: the Sharded's axis and the shard's
+# index in it.
+ShardOf = collections.namedtuple('ShardOf', ('axis', 'index'))
 
 
 def _flatten(tree, path=()):
     """[(path, leaf)] of a tree of dicts (by sorted key), tuples and lists
-    (by position), with tensors, floats and None (no buffer) as leaves."""
+    (by position), with tensors, floats and None (no buffer) as leaves; a
+    Sharded gives one leaf a shard, at path + (ShardOf(axis, i),)."""
+    if isinstance(tree, Sharded):
+        return [(path + (ShardOf(tree.axis, i),), shard)
+                for i, shard in enumerate(tree.shards)]
     if isinstance(tree, dict):
         out = []
         for key in sorted(tree):
@@ -113,6 +147,8 @@ def _flatten(tree, path=()):
 def _rebuild(tree, leaves):
     """tree's structure with the leaves from the iterator `leaves`, in
     _flatten's order."""
+    if isinstance(tree, Sharded):
+        return Sharded([next(leaves) for _ in tree.shards], tree.axis)
     if isinstance(tree, dict):
         return {key: _rebuild(tree[key], leaves) for key in sorted(tree)}
     if isinstance(tree, (tuple, list)):
@@ -135,9 +171,9 @@ def materialize(args, device):
 
 
 def _describe(leaf):
-    """A leaf's dtype and shape, for an error message."""
-    return 'None' if leaf is None else '%s %s' % (leaf.dtype,
-                                                  tuple(leaf.shape))
+    """A leaf's dtype, shape and device, for an error message."""
+    return 'None' if leaf is None else '%s %s on %s' % (
+        leaf.dtype, tuple(leaf.shape), leaf.device)
 
 
 def _launch_counts():
@@ -172,47 +208,124 @@ def _credit(delta, sign=1):
             image.deprocess_launches += n
 
 
+def _index(device):
+    """A CUDA device's index (the current device's for a bare 'cuda')."""
+    device = torch.device(device)
+    return torch.cuda.current_device() if device.index is None else \
+        device.index
+
+
+def _route_to_pool(device, pool):
+    """From now on, device's allocations on its current stream come from
+    the private pool `pool` on that card (from any thread: autograd's
+    device thread too)."""
+    torch._C._cuda_beginAllocateCurrentStreamToPool(_index(device), pool)
+
+
+def _end_route(device, pool):
+    torch._C._cuda_endAllocateToPool(_index(device), pool)
+
+
+def _release_pool(device, pool):
+    """Drops one capture's hold on device's private pool `pool`; its
+    memory goes back at the next emptying of the cache once no capture
+    holds it."""
+    torch._C._cuda_releasePool(_index(device), pool)
+
+
 class CudaGraphs:
     """The capture backend on the card: a side stream for warm-ups and
     captures, one private memory pool for every graph of its StepGraphs
-    until they are all dropped (reset)."""
+    until they are all dropped (reset). devices: a spatial placement's
+    devices (a device may repeat); each card among them other than
+    `device` gets a side stream of its own and a private pool there, and
+    joins every capture (module docstring)."""
 
-    def __init__(self, device):
-        self.device = device
-        self.stream = torch.cuda.Stream(device)
+    # The other cards: ((device, side stream), ...), none for one card.
+    others = ()
+
+    def __init__(self, device, devices=()):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device)
         self.pool = torch.cuda.graph_pool_handle()
+        seen = {_index(self.device)}
+        others = []
+        for d in map(torch.device, devices):
+            if _index(d) not in seen:
+                seen.add(_index(d))
+                others.append((d, torch.cuda.Stream(d)))
+        self.others = tuple(others)
+        # One entry a capture's hold on another card's pool.
+        self._held = []
 
     def reset(self):
         """Once every graph of the pool is gone: its memory back to CUDA,
-        and a fresh pool for the graphs captured from now on. The
-        caching allocator keeps a pool whose last graph died until its
-        cache is emptied, even when an allocation elsewhere runs out of
-        memory, and refuses it another capture. Emptying the cache waits
-        for the card, so that a replay still in flight finishes first."""
+        on every card, and a fresh pool for the graphs captured from now
+        on. The caching allocator keeps a pool whose last graph died until
+        its cache is emptied, even when an allocation elsewhere runs out
+        of memory, and refuses it another capture. Emptying the cache
+        waits for the cards, so that a replay still in flight finishes
+        first."""
+        for device in self._held:
+            _release_pool(device, self.pool)
+        self._held = []
         torch.cuda.empty_cache()
         self.pool = torch.cuda.graph_pool_handle()
 
     def make_room(self):
-        """Empties the allocator's cache where the card's free memory is
-        less than the bytes it caches beyond those in use (mostly the
-        warm-up's working set, which the capture will allocate again in
-        the graphs' pool): a capture that ran out could not free them."""
+        """Empties the allocator's cache where a card's free memory is less
+        than the bytes it caches beyond those in use (mostly the warm-up's
+        working set, which the capture will allocate again in the graphs'
+        pool): a capture that ran out could not free them."""
         global emptied
-        cached = (torch.cuda.memory_reserved(self.device)
-                  - torch.cuda.memory_allocated(self.device))
-        if torch.cuda.mem_get_info(self.device)[0] < cached:
-            torch.cuda.empty_cache()
-            emptied += 1
+        for device in [self.device] + [d for d, _ in self.others]:
+            cached = (torch.cuda.memory_reserved(device)
+                      - torch.cuda.memory_allocated(device))
+            if torch.cuda.mem_get_info(device)[0] < cached:
+                torch.cuda.empty_cache()
+                emptied += 1
+                return
+
+    @contextlib.contextmanager
+    def _current(self):
+        """Each other card's side stream current on its card, then the
+        first card's side stream current (the first card current)."""
+        with contextlib.ExitStack() as stack:
+            for _, stream in self.others:
+                stack.enter_context(torch.cuda.stream(stream))
+            stack.enter_context(torch.cuda.stream(self.stream))
+            yield
 
     def warm(self, fn):
-        """fn() eagerly on the side stream, ordered after the caller's
-        stream's work and before its later work."""
-        main = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(main)
-        with torch.cuda.stream(self.stream):
+        """fn() eagerly on the side streams, ordered after the caller's
+        streams' work and before their later work."""
+        callers = [(torch.cuda.current_stream(self.device), self.stream)] + [
+            (torch.cuda.current_stream(d), s) for d, s in self.others]
+        for caller, side in callers:
+            side.wait_stream(caller)
+        with self._current():
             result = fn()
-        main.wait_stream(self.stream)
+        for caller, side in callers:
+            caller.wait_stream(side)
         return result
+
+    @contextlib.contextmanager
+    def _joined(self):
+        """Inside a capture begun on the first card's side stream: each
+        other card's side stream joins it (an event recorded inside the
+        capture), is current on its card and allocates into its private
+        pool; at the end each is joined back (the first card's stream
+        waits on it) before its pool stops taking allocations."""
+        with contextlib.ExitStack() as stack:
+            for device, stream in self.others:
+                stack.enter_context(torch.cuda.stream(stream))
+                stream.wait_stream(self.stream)
+                _route_to_pool(device, self.pool)
+                self._held.append(device)
+                stack.callback(_end_route, device, self.pool)
+                stack.callback(self.stream.wait_stream, stream)
+            stack.enter_context(torch.cuda.stream(self.stream))
+            yield
 
     def capture(self, fn):
         """fn's launches captured (not run) as a graph with replay(). The
@@ -227,10 +340,31 @@ class CudaGraphs:
             graph.capture_begin(pool=self.pool,
                                 capture_error_mode='thread_local')
             try:
-                fn()
+                with self._joined():
+                    fn()
             finally:
                 graph.capture_end()
-        return graph
+        if not self.others:
+            return graph
+        return _JoinedGraph(graph, self.device, [d for d, _ in self.others])
+
+
+class _JoinedGraph:
+    """A graph captured over several cards. replay() launches it on the
+    first card's current stream after every other card's current stream
+    (where the copy-in ran), and orders those after it."""
+
+    def __init__(self, graph, device, others):
+        self.graph, self.device, self.others = graph, device, others
+
+    def replay(self):
+        main = torch.cuda.current_stream(self.device)
+        streams = [torch.cuda.current_stream(d) for d in self.others]
+        for stream in streams:
+            main.wait_stream(stream)
+        self.graph.replay()
+        for stream in streams:
+            stream.wait_stream(main)
 
 
 class _Graph:
@@ -279,7 +413,7 @@ class _Graph:
             if leaf is dst:
                 continue
             if (leaf is None or dst is None or leaf.shape != dst.shape
-                    or leaf.dtype != dst.dtype):
+                    or leaf.dtype != dst.dtype or leaf.device != dst.device):
                 raise ValueError('step graph: %s is %s, captured as %s' % (
                     '/'.join(map(str, self.paths[i])), _describe(leaf),
                     _describe(dst)))
@@ -354,6 +488,8 @@ class StepGraphs:
         graph = _Graph(self.backend, body, args, writes, out_shape, device)
         captures.append({'kind': key.kind, 'hw': key.hw, 'lanes': key.lanes,
                          'dtype': str(key.dtype).replace('torch.', ''),
+                         'shards': 1 if key.layout is None
+                         else len(key.layout[1]),
                          'seconds': time.perf_counter() - t0})
         self._graphs[key] = graph
         while len(self._graphs) > MAX_GRAPHS:

@@ -147,11 +147,14 @@ def step_args(state, inputs):
 def graph_key(kind, spec, optimizer, state, lanes=1, dtype=torch.float32,
               n_corr=None):
     """The GraphKey of a step or prime over this (per-lane or stacked)
-    optimizer state."""
+    optimizer state; a Sharded iterate's axis and devices are its
+    layout."""
     x = state['x']
     hist = state['sk'].dtype if 'sk' in state else None
+    layout = ((x.axis, tuple(x.devices)) if isinstance(x, Sharded)
+              else None)
     return GraphKey(kind, spec, optimizer, tuple(x.shape[-3:-1]), lanes,
-                    dtype, hist, n_corr)
+                    dtype, hist, n_corr, layout)
 
 
 @functools.lru_cache(maxsize=64)

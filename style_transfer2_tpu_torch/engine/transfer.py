@@ -24,12 +24,12 @@ their features and the optimizer state over a mesh axis (the JAX engine's
 _place_image, _place_state and _place_replicated); the Grams, norms and
 trace scalars live on the mesh's first device, and the images and `input`
 are gathered there. Every step is then the same step over Sharded arrays
-(parallel/spatial.py), with the same one host sync a chunk; it runs
-eagerly, since the step graphs are captures on one device.
+(parallel/spatial.py), with the same one host sync a chunk, and on the
+card the same graphs: one capture over the placement's cards, each shard's
+static buffers on its own device (engine/graphs.py).
 """
 
 import csv
-import logging
 import time
 
 import numpy as np
@@ -52,8 +52,6 @@ from .objective import (
 )
 from .graphs import CudaGraphs, StepGraphs
 from .steps import build_scan_fn, precision_config, precision_scope
-
-logger = logging.getLogger('engine')
 
 
 def _to_host(parts):
@@ -160,16 +158,12 @@ class StyleTransfer:
 
         self.traces = []
         self._weights_cache = None   # (spec, layer_weights, scalars)
-        # The captured steps on the card (engine/graphs.py); eager on the
-        # CPU and under a placement.
+        # The captured steps on the card (engine/graphs.py), over every
+        # card of the placement; eager on the CPU.
         self._graphs = StepGraphs(
-            CudaGraphs(self.device)
-            if self.device.type == 'cuda' and placement is None else None)
-        if placement is not None:
-            logger.info('spatial placement over %d shards (%s): steps run '
-                        'eagerly; the step graphs are per-device captures',
-                        placement.n_shards,
-                        ', '.join(str(d) for d in placement.devices))
+            CudaGraphs(self.device, () if placement is None
+                       else placement.devices)
+            if self.device.type == 'cuda' else None)
 
     # -- properties ---------------------------------------------------------
 

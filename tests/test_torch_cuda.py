@@ -899,16 +899,19 @@ def _eager(engine):
     return engine
 
 
-def _single_run(hw, precision, optimizer, graphed, remat=False):
+def _single_run(hw, precision, optimizer, graphed, remat=False,
+                placement=None):
     """One engine through step, a chunk, an objective change, two chunks in
-    flight and step again: its traces, end images, state and norms."""
+    flight and step again: its traces, end images, state (a Sharded
+    gathered) and norms."""
     from style_transfer2_tpu_torch.engine import StyleTransfer
     from style_transfer2_tpu_torch.models import random_params
+    from style_transfer2_tpu_torch.parallel import Sharded
     rng = np.random.RandomState(4)
     content, style_img, inp = (rng.randint(0, 256, hw + (3,)).astype(
         np.uint8) for _ in range(3))
     st = StyleTransfer(random_params(0), precision, device='cuda',
-                       remat=remat)
+                       remat=remat, placement=placement)
     if not graphed:
         _eager(st)
     st.set_weights(GRAPH_WEIGHTS, GRAPH_SCALARS)
@@ -924,7 +927,8 @@ def _single_run(hw, precision, optimizer, graphed, remat=False):
     a, b = st.begin_steps(3), st.begin_steps(2)
     images += [img for img, _ in st.collect_steps_many([a, b])]
     images.append(st.step()[0])
-    state = {k: v.clone() if torch.is_tensor(v) else v
+    state = {k: v.gather() if isinstance(v, Sharded) else
+             v.clone() if torch.is_tensor(v) else v
              for k, v in st.opt_state.items()}
     norms = {k: float(v) for k, v in st.norm_vals.items()}
     return st, [t.data for t in st.traces], images, state, norms
@@ -1117,6 +1121,55 @@ def test_dropped_engine_returns_its_graph_memory(cuda):
     assert not private_segments()
 
 
+def _shards(cuda, n):
+    from style_transfer2_tpu_torch.parallel import Mesh, SpatialPlacement
+    return SpatialPlacement(Mesh([cuda] * n, ('space',)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('precision', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('optimizer', ['lbfgs', 'adam'])
+@pytest.mark.parametrize('n', [2, 4])
+def test_graphed_sharded_engine_equals_eager_bitwise(cuda, n, optimizer,
+                                                     precision):
+    """A StyleTransfer over n shards of one card replays captured graphs
+    of its sharded step (and of its L-BFGS prime) from each key's second
+    call on: through step, a chunk, an objective change, two chunks in
+    flight and step, the traces, images, state (a bf16 L-BFGS history at
+    this grid) and norms are the eager sharded engine's bits."""
+    from style_transfer2_tpu_torch.engine import graphs
+    from style_transfer2_tpu_torch.parallel import Sharded
+    hw = (400, 408)              # above the bf16 history's pixel gate
+    replays = graphs.replays
+    st, *got = _single_run(hw, precision, optimizer, True,
+                           placement=_shards(cuda, n))
+    assert graphs.replays - replays == 10 + (optimizer == 'lbfgs')
+    assert len(st._graphs) == (2 if optimizer == 'lbfgs' else 1)
+    assert isinstance(st._input, Sharded) and len(st._input.shards) == n
+    eager = _single_run(hw, precision, optimizer, False,
+                        placement=_shards(cuda, n))
+    _assert_runs_equal(got, eager[1:])
+    if optimizer == 'lbfgs' and precision == 'bfloat16':
+        assert got[2]['sk'].dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+def test_dropped_sharded_engine_returns_its_graph_memory(cuda):
+    """A graphed engine over 4 shards of one card holds its graphs' private
+    pool while it lives and gives it back when it goes."""
+    def private_segments():
+        torch.cuda.synchronize()
+        return [seg for seg in torch.cuda.memory._snapshot()['segments']
+                if tuple(seg.get('segment_pool_id', (0, 0))) != (0, 0)]
+
+    assert not private_segments()
+    st = _single_run((96, 128), 'bfloat16', 'lbfgs', True,
+                     placement=_shards(cuda, 4))[0]
+    assert len(st._graphs) == 2 and private_segments()
+    del st
+    assert not private_segments()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('c', [64, 6, 512])
 def test_style_phases_match_plain_on_card(cuda, c):
@@ -1193,11 +1246,12 @@ def test_halo_conv_matches_plain_on_card(cuda, hw):
                                             ('bfloat16', 2e-2)])
 def test_sharded_engine_on_card_matches_unsharded(cuda, precision, rtol):
     """A StyleTransfer over 4 shards of one card against the unsharded
-    (graphed) engine: 48x64, 4 L-BFGS steps, every trace key of the prime
-    within rtol (float32: of every step); the sharded steps run eagerly
-    and launch both style phases on the three style layers above the
+    engine, both graphed: 48x64, 4 L-BFGS steps, every trace key of the
+    prime within rtol (float32: of every step); the sharded step is
+    captured once and replayed, and the launches counted (replays
+    credited) are both style phases on the three style layers above the
     gathered level (12 rows a shard: pool3 gathers), the fused branch
-    on conv4_1."""
+    on conv4_1, once an evaluation."""
     from style_transfer2_tpu_torch.engine import StyleTransfer
     from style_transfer2_tpu_torch.models import random_params
     from style_transfer2_tpu_torch.parallel import (Mesh, Sharded,
@@ -1222,7 +1276,7 @@ def test_sharded_engine_on_card_matches_unsharded(cuda, precision, rtol):
         st.run_steps(4)
         if placement is not None:
             assert isinstance(st._input, Sharded)
-            assert len(st._graphs) == 0
+            assert len(st._graphs) == 1
             assert (style.gram_launches - before[0],
                     style.launches - before[1]) == (4 * 3 * 5, 5)
         runs.append([t.data for t in st.traces])

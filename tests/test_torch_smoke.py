@@ -573,11 +573,14 @@ def test_graph_phase_runs_on_the_cpu(monkeypatch, tmp_path):
 @pytest.mark.usefixtures('one_thread')
 def test_shard_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     """The shard phase's runs end to end on the CPU (4 CPU entries for the
-    shards): float32 and bfloat16 at 24x32 against unsharded engines, the
-    style phases once a shard a style layer an evaluation, the W-fallback
-    at 30x40, the checkpoint resumed bit for bit, 4 lanes over a 2-way
-    data mesh, the CLI's --mesh 1; the card's memory statistics
-    stubbed."""
+    shards), with a capture backend that replays without a card: float32
+    and bfloat16 at 24x32 against unsharded engines, the sharded steps
+    replayed, the style phases once a shard a style layer an evaluation,
+    the graphed sharded engine against the eager one bit for bit and the
+    two timed in turns, the W-fallback at 30x40 (bit for bit too), the
+    24x32 stand-in of the 3840px run, the checkpoint resumed bit for bit,
+    4 lanes over a 2-way data mesh, the CLI's --mesh 1; the card's memory
+    statistics and node counts stubbed."""
     import logging
     import types
 
@@ -586,8 +589,14 @@ def test_shard_phase_runs_on_the_cpu(monkeypatch, tmp_path):
                         ('SHARD_W_SIZE', 40), ('SHARD_W_ITERATIONS', 2),
                         ('SHARD_BATCH_SIZE', 32),
                         ('SHARD_BATCH_ITERATIONS', 2),
-                        ('SHARD_CLI_SIZE', 24), ('OUT_DIR', tmp_path)):
+                        ('SHARD_CLI_SIZE', 24), ('OUT_DIR', tmp_path),
+                        ('SHARD_BACKEND', _FakeGraphs),
+                        ('SHARD_HIGHRES_HW', (24, 32)),
+                        ('SHARD_HIGHRES_SIZE', 32),
+                        ('SHARD_HIGHRES_STEPS', 2), ('GRAPH_CHUNK', 2),
+                        ('GRAPH_HOST_CHUNK', 1), ('GRAPH_ROUNDS', 1)):
         monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, 'shard_nodes', lambda *a: None)
     # The plain versions count no launches: the counts the float32 run
     # needs. Of initial_weights.yaml's 4 style layers, conv1_1 and conv2_1
     # stay sharded at 6 rows a shard (pool2 gathers): 4 shards x 2 layers
@@ -600,6 +609,7 @@ def test_shard_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     fake = types.SimpleNamespace(
         device=torch.device, cuda=types.SimpleNamespace(
             synchronize=lambda: None, memory_allocated=lambda: 0,
+            memory_reserved=lambda: 0, max_memory_reserved=lambda: 2 ** 21,
             reset_peak_memory_stats=lambda: None, empty_cache=lambda: None,
             max_memory_allocated=lambda: 2 ** 20))
     log = chip_smoke.CliLog()
@@ -631,7 +641,22 @@ def test_shard_phase_runs_on_the_cpu(monkeypatch, tmp_path):
                          run['unsharded_ms_step'], precision, (24, 32))
         assert run['one_card_roofline']['floor_ms'] > \
             run['unsharded_roofline']['floor_ms']
+        graph = run['graph']
+        assert graph['bitwise'] and graph['nodes'] is None
+        assert {c['kind'] for c in graph['capture_s']} == {'step', 'prime'}
+        for name in ('eager', 'graphed'):
+            rates = graph['rates'][name]
+            assert len(rates['ms']) == 2 and rates['host_share'] > 0
+            assert len(rates['host_us_one_step']) == \
+                chip_smoke.SHARD_HOST_TRIALS
+            assert rates['roofline']['floor_ms'] == \
+                run['one_card_roofline']['floor_ms']
     assert result['w_fallback']['hw'] == [30, 40]
+    assert result['w_fallback']['bitwise']
+    highres = result['highres']
+    assert highres['hw'] == [24, 32] and highres['unsharded_ms_step'] is None
+    assert highres['replays'] >= 3 and highres['ms_step'] > 0
+    assert highres['losses'][1] < highres['losses'][0]
     assert result['checkpoint']['resumed_equal']
     assert result['batch']['worst_rel_err'] <= chip_smoke.PARITY_RTOL
     assert result['cli'] == {'mesh_1': 'ok'}
