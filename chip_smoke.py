@@ -34,7 +34,13 @@ exits non-zero:
                768x1024 iterates, and with a lane axis at the 512px taps,
                4 lanes in one launch sequence, each lane also held against
                the one-map kernel on that lane and two torch.bmm timed as
-               the library call; the image kernels (preprocess from uint8
+               the library call; the bf16 loss feed's kernels (the style
+               branch's bf16 Gram and product phases, sumsq) at the taps
+               of the 512px and 768x1024 iterates and of 4 lanes of the
+               512px one, each against float64 on the same bf16 values
+               and against its plain version, bitwise repeatable, beside
+               cuBLAS's bf16 GEMM (check_feed); the image kernels
+               (preprocess from uint8
                and float32, deprocess) at every rung of the 1024px ladder,
                bit for bit. The conv forward and backward and the style
                branch must give the same bits on a second call. Each row
@@ -70,7 +76,9 @@ exits non-zero:
                plain version in float64 (the float32 plain version's own
                error beside), the image kernels at both grids bit for bit,
                each a median of 5 after 1 warm-up on maps drawn on the
-               card; one forward and vjp of the model at that iterate
+               card, and the bf16 feed's kernels at its taps
+               (check_feed); one forward and vjp of the model at that
+               iterate
                for each precision and policy (the bytes the forward
                leaves, the peak, the gradient bit for bit the plain one);
                then five runs: float32 and bfloat16 without remat,
@@ -86,7 +94,10 @@ exits non-zero:
                highres.json.
   7. parity  — the CUDA engine against the CPU engine (the plain versions)
                on small inputs, 5 steps at one size and a 2-rung ladder:
-               every trace key within the golden rtol; then random_params(0)
+               every trace key within the golden rtol; the CUDA bf16
+               objective (the loss feed) at each evaluation of a CPU bf16
+               run's 5 L-BFGS steps at 48x64, unfolded and folded, within
+               FEED_PARITY_RTOL (feed_eval_parity); then random_params(0)
                written as a caffemodel (write_caffemodel) and read back
                (resolve_params), and as a torchvision state dict
                (params_from_torchvision): graphed float32 L-BFGS steps at
@@ -233,6 +244,12 @@ exits non-zero:
                seconds, and a profiler session leaves torch's host path
                slower for the rest of the process.
 
+Every run requires each kernel of its precision launched
+(PRECISION_KERNELS): a bfloat16 run the feed's bf16 style phases and
+sumsq, a float32 run the fused float32 style branch; the bf16 main run and
+the feed parity also that no float32 style kernel launched, and the shard
+phase the exact count of each style kernel.
+
 Every kernel's bound and every step's floor come from the port's roofline
 (style_transfer2_tpu_torch/utils/perfmodel.py: kernel_bound with
 conv_cost, style_cost and image_cost; model_step; model_step_sharded).
@@ -287,8 +304,22 @@ WARM_START_RISE = 1.25
 # bits (tests/test_pallas_conv.py uses 3e-2). The image kernels do the plain
 # version's one float32 add or subtract per element: tolerance 0.
 TOL = {'float32': 1e-4, 'bfloat16': 3e-2}
-STYLE_TOL = 1e-4          # float32 only: the taps are float32 in both modes
+STYLE_TOL = 1e-4          # the float32 branch and phases
+# The bf16 loss feed's kernels, each against float64 on the same bf16
+# values, relative to the reference's largest magnitude: the Gram sums
+# exact products in float32 (FEED_GRAM_TOL, as STYLE_TOL); the product
+# rounds its float32 sums to bf16 once, by at most 2^-8 of a value (bf16's
+# unit roundoff), plus the float32 sums' own error (FEED_PRODUCT_TOL);
+# sumsq sums in float32 (SUMSQ_TOL).
+FEED_GRAM_TOL = 1e-4
+FEED_PRODUCT_TOL = 2.0 ** -8 + 1e-5
+SUMSQ_TOL = 1e-5
 PARITY_RTOL = 5e-3        # tests/test_golden.py's trace tolerance
+# The bf16 feed's CUDA objective against the CPU one at the CPU run's
+# iterates: the two devices' bf16 convs round some taps apart, as the
+# sharded bf16 prime's bound (SHARD_RTOL) allows.
+FEED_PARITY_RTOL = 2e-2
+FEED_PARITY_STEPS = 5
 
 # Calls of each kernel and library call under torch.profiler (device_ms),
 # and back-to-back calls timed on the host clock (host_us).
@@ -306,20 +337,34 @@ STEP_FIELDS = ('ms', 'plain_ms', 'bound_ms', 'library_ms', 'device_ms',
                'host_us', 'library_device_ms', 'library_host_us')
 
 KERNELS = ('conv3x3_bias_relu_fwd', 'conv3x3_bias_relu_bwd',
-           'fused_style_branch', 'preprocess', 'deprocess')
+           'fused_style_branch', 'style_gram_bf16', 'style_grad_bf16',
+           'sumsq', 'preprocess', 'deprocess')
+# The bf16 loss feed's kernels (engine/objective.py): a bfloat16 run
+# launches them and not the fused float32 style branch; a float32 run the
+# reverse.
+FEED_KERNELS = ('style_gram_bf16', 'style_grad_bf16', 'sumsq')
+PRECISION_KERNELS = {
+    'float32': tuple(k for k in KERNELS if k not in FEED_KERNELS),
+    'bfloat16': tuple(k for k in KERNELS if k != 'fused_style_branch')}
 # Each kernel's sources (the first holds its entry point) and the TPU
 # kernel it replaces. The convs' bfloat16 wgmma paths and their split sum
 # run in conv3x3_wgmma.cu, everything else of the convs in conv3x3.cu.
+# sumsq replaces no Pallas kernel: it is the JAX feed's f32_sumsq, which
+# XLA fused.
 _CONV_SOURCES = ('style_transfer2_tpu_torch/csrc/conv3x3.cu',
                  'style_transfer2_tpu_torch/csrc/conv3x3_wgmma.cu')
+_STYLE_SOURCES = ('style_transfer2_tpu_torch/csrc/style.cu',)
+_STYLE_KERNEL = 'style_transfer2_tpu/ops/pallas/style_kernel.py:35'
 SOURCES = {
     'conv3x3_bias_relu_fwd': (_CONV_SOURCES,
                               'style_transfer2_tpu/ops/pallas/conv.py:174'),
     'conv3x3_bias_relu_bwd': (_CONV_SOURCES,
                               'style_transfer2_tpu/ops/pallas/conv.py:183'),
-    'fused_style_branch': (('style_transfer2_tpu_torch/csrc/style.cu',),
-                           'style_transfer2_tpu/ops/pallas/'
-                           'style_kernel.py:35'),
+    'fused_style_branch': (_STYLE_SOURCES, _STYLE_KERNEL),
+    'style_gram_bf16': (_STYLE_SOURCES, _STYLE_KERNEL),
+    'style_grad_bf16': (_STYLE_SOURCES, _STYLE_KERNEL),
+    'sumsq': (('style_transfer2_tpu_torch/csrc/reduce.cu',),
+              'style_transfer2_tpu/engine/objective.py:239'),
     'preprocess': (('style_transfer2_tpu_torch/csrc/image.cu',),
                    'style_transfer2_tpu/ops/pallas/preprocess.py:34'),
     'deprocess': (('style_transfer2_tpu_torch/csrc/image.cu',),
@@ -673,19 +718,24 @@ def require_paths(what, precision):
 
 def counters():
     """Every kernel's launch count, by name."""
-    from style_transfer2_tpu_torch.ops import conv, image, style
+    from style_transfer2_tpu_torch.ops import conv, image, reduce, style
     return {'conv3x3_bias_relu_fwd': conv.launches('fwd'),
             'conv3x3_bias_relu_bwd': conv.launches('bwd'),
             'fused_style_branch': style.launches,
+            'style_gram_bf16': style.gram_bf16_launches,
+            'style_grad_bf16': style.grad_bf16_launches,
+            'sumsq': reduce.launches,
             'preprocess': image.preprocess_launches,
             'deprocess': image.deprocess_launches}
 
 
 def reset_counters():
     from style_transfer2_tpu_torch.engine import graphs
-    from style_transfer2_tpu_torch.ops import conv, image, style
+    from style_transfer2_tpu_torch.ops import conv, image, reduce, style
     graphs.replays = 0
     style.launches = style.gram_launches = style.grad_launches = 0
+    style.gram_bf16_launches = style.grad_bf16_launches = 0
+    reduce.launches = 0
     conv.path_launches.clear()
     image.preprocess_launches = image.deprocess_launches = 0
 
@@ -1060,6 +1110,190 @@ def check_style(torch, rng, tap, where, pending, lanes=1, timing=(15, 3),
     return row
 
 
+def check_feed_style(torch, rng, tap, where, pending, lanes=1, n=1,
+                     timing=(15, 3)):
+    """The bf16 loss feed's style phases (ops/style.py style_gram,
+    style_product) at one bf16 tap (h, w, c), one map or `lanes` maps, of
+    a map cut n ways (size the whole map's): each against float64 on the
+    same bf16 values (FEED_GRAM_TOL, FEED_PRODUCT_TOL) and against its
+    plain version, bitwise repeatable, timed beside its plain version and
+    cuBLAS's bf16 GEMM (torch.mm, or torch.bmm over lanes: the library
+    yardstick, bf16 out). The product takes the Gram difference the Gram
+    phase gave against a target drawn like the map. Returns the two
+    rows."""
+    from style_transfer2_tpu_torch.ops import style
+    from style_transfer2_tpu_torch.utils import perfmodel
+    h, w, c = tap
+    m = h * w
+    size = n * m * c
+    many = lanes > 1
+
+    def timed(fn):
+        return median_ms(fn, torch, *timing)
+
+    feat = torch.relu(draw(torch, rng, (lanes, h, w, c))).to(torch.bfloat16)
+    other = torch.relu(draw(torch, rng, (lanes, m, c)))
+    target = torch.bmm(other.transpose(1, 2), other) / (m * c)
+    del other
+    if not many:
+        target = target[0]
+    flat = feat.reshape(lanes, m, c)
+    x64 = flat.double()
+    g64 = torch.bmm(x64.transpose(1, 2), x64) / size
+    g_k = style.style_gram(feat, size, many)
+    g_p = style.style_gram_plain(feat, size, many)
+    require(torch.equal(g_k, style.style_gram(feat, size, many)),
+            'feed gram %s x%d: two calls differ' % (tap, lanes))
+    d = (g_p - target).contiguous()
+    s_k = style.style_product(feat, d)
+    s_p = style.style_product_plain(feat, d)
+    require(torch.equal(s_k, style.style_product(feat, d)),
+            'feed product %s x%d: two calls differ' % (tap, lanes))
+    d_bf16 = d.to(torch.bfloat16)
+    s64 = torch.bmm(x64, d_bf16.double().reshape(lanes, c, c))
+    del x64
+    torch.cuda.synchronize()
+
+    def rel(got, want):
+        got = got.double().reshape(want.shape)
+        err = float((got - want).abs().max())
+        return err, err / float(want.abs().max())
+
+    rows = []
+    g_err, g_rel = rel(g_k, g64)
+    s_err, s_rel = rel(s_k, s64)
+    same = float((s_k == s_p).double().mean())
+    plain = (rel(g_p, g64)[1], rel(s_p, s64)[1])
+    del g64, s64
+    require(math.isfinite(g_rel) and g_rel <= FEED_GRAM_TOL, 'feed gram %s '
+            'x%d: rel err %.3g against float64' % (tap, lanes, g_rel))
+    require(math.isfinite(s_rel) and s_rel <= FEED_PRODUCT_TOL, 'feed '
+            'product %s x%d: rel err %.3g against float64' % (tap, lanes,
+                                                              s_rel))
+    if many:
+        def gram_lib():
+            return torch.bmm(flat.transpose(1, 2), flat)
+
+        def grad_lib():
+            return torch.bmm(flat, d_bf16)
+    else:
+        flat2 = flat[0]
+
+        def gram_lib():
+            return torch.mm(flat2.T, flat2)
+
+        def grad_lib():
+            return torch.mm(flat2, d_bf16)
+    for name, phase, kernel, plain_fn, lib, err, r, p_rel in (
+            ('style_gram_bf16', 'gram',
+             lambda: style.style_gram(feat, size, many),
+             lambda: style.style_gram_plain(feat, size, many), gram_lib,
+             g_err, g_rel, plain[0]),
+            ('style_grad_bf16', 'grad', lambda: style.style_product(feat, d),
+             lambda: style.style_product_plain(feat, d), grad_lib, s_err,
+             s_rel, plain[1])):
+        t_b, t_by = bound(*perfmodel.style_cost(m, c, lanes, phase,
+                                                'bfloat16'), 'bfloat16')
+        row = {'kernel': name, 'dtype': 'bfloat16', 'where': where,
+               'shape': list(tap), 'lanes': lanes, 'ms': timed(kernel),
+               'plain_ms': timed(plain_fn), 'library_ms': timed(lib),
+               'bound_ms': t_b, 'bound_by': t_by, 'abs_err': err,
+               'f64_rel_err': r, 'plain_f64_rel_err': p_rel}
+        if phase == 'grad':
+            row['same_as_plain'] = same
+        pending.append((row, '', kernel))
+        pending.append((row, 'library_', lib))
+        rows.append(row)
+    say('kernels', 'style bf16 %-8s %-16s x%d: gram %.3f ms (plain %.3f, '
+        'cuBLAS bf16 %.3f; %.0f%% of bound %.3f) f64 err %.2g (plain %.2g); '
+        'product %.3f ms (plain %.3f, cuBLAS bf16 %.3f; %.0f%% of bound '
+        '%.3f) f64 err %.2g (plain %.2g), %.4f of its values the plain '
+        'version\'s bits; bitwise repeatable' % (
+            where, tap, lanes, rows[0]['ms'], rows[0]['plain_ms'],
+            rows[0]['library_ms'], 100 * rows[0]['bound_ms'] / rows[0]['ms'],
+            rows[0]['bound_ms'], g_rel, plain[0], rows[1]['ms'],
+            rows[1]['plain_ms'], rows[1]['library_ms'],
+            100 * rows[1]['bound_ms'] / rows[1]['ms'], rows[1]['bound_ms'],
+            s_rel, plain[1], same))
+    return rows
+
+
+def check_sumsq(torch, rng, shape, where, pending, lanes=False,
+                timing=(15, 3)):
+    """ops/reduce.py sumsq of a bf16 tensor of `shape` (per lane where
+    lanes) against float64 on the same values (SUMSQ_TOL) and its plain
+    version, bitwise repeatable, timed beside the plain version (no one
+    PyTorch call sums float32 squares of bf16 values without a float32
+    copy: library_ms None). Returns the row."""
+    from style_transfer2_tpu_torch.ops import reduce
+    from style_transfer2_tpu_torch.utils import perfmodel
+
+    def timed(fn):
+        return median_ms(fn, torch, *timing)
+
+    t = draw(torch, rng, shape).to(torch.bfloat16)
+    got = reduce.sumsq(t, lanes)
+    require(torch.equal(got, reduce.sumsq(t, lanes)),
+            'sumsq %s: two calls differ' % (shape,))
+    plain = reduce.sumsq_plain(t, lanes)
+    dims = tuple(range(1, len(shape))) if lanes else None
+    sq = t.double().square()
+    want = sq.sum(dim=dims) if lanes else sq.sum()
+    del sq
+    err = float((got.double() - want).abs().max())
+    r = err / float(want.abs().max())
+    p_rel = float((plain.double() - want).abs().max() / want.abs().max())
+    require(math.isfinite(r) and r <= SUMSQ_TOL, 'sumsq %s: rel err %.3g '
+            'against float64' % (shape, r))
+
+    def kernel():
+        return reduce.sumsq(t, lanes)
+
+    t_b, t_by = bound(*perfmodel.sumsq_cost(t.numel()))
+    row = {'kernel': 'sumsq', 'dtype': 'bfloat16', 'where': where,
+           'shape': list(shape), 'lanes': shape[0] if lanes else 1,
+           'ms': timed(kernel),
+           'plain_ms': timed(lambda: reduce.sumsq_plain(t, lanes)),
+           'library_ms': None, 'bound_ms': t_b, 'bound_by': t_by,
+           'abs_err': err, 'f64_rel_err': r, 'plain_f64_rel_err': p_rel}
+    pending.append((row, '', kernel))
+    say('kernels', 'sumsq bf16 %-8s %-22s %.4f ms (plain %.4f; %.0f%% of '
+        'bound %.4f) f64 err %.2g (plain %.2g); bitwise repeatable' % (
+            where, tuple(shape), row['ms'], row['plain_ms'],
+            100 * t_b / row['ms'], t_b, r, p_rel))
+    return row
+
+
+def check_feed(torch, rng, hw, where, pending, worst, parts=None, lanes=1,
+               n=1, timing=(15, 3)):
+    """The feed's kernels at the style taps of an hw iterate (one shard of
+    it cut n ways, or `lanes` maps) and sumsq at those taps and at the
+    content tap conv4_2 (one sum a tap: an unfolded step's s_raw and c_diff
+    reductions); folds each row's error into worst and, given parts, makes
+    the rows the kernels' summary entries. Returns the rows."""
+    rows = []
+    taps = style_taps(hw[0] // n, hw[1])
+    h4, w4, _ = taps[-1]
+    for tap in taps:
+        rows += check_feed_style(torch, rng, tap, where, pending, lanes, n,
+                                 timing)
+    for tap in taps + [(h4, w4, 512)]:
+        rows.append(check_sumsq(torch, rng, (lanes,) + tap, where, pending,
+                                lanes > 1, timing))
+    for row in rows:
+        worst[row['kernel']] = max(worst[row['kernel']], row['abs_err'])
+        if parts is not None:
+            parts[row['kernel']].append((row, ''))
+    for name in FEED_KERNELS:
+        mine = [r for r in rows if r['kernel'] == name]
+        say('kernels', '%s %s x%d summed over its %d calls: %.3f ms (plain '
+            '%.3f; bound %.3f)' % (name, where, lanes, len(mine),
+                                   sum(r['ms'] for r in mine),
+                                   sum(r['plain_ms'] for r in mine),
+                                   sum(r['bound_ms'] for r in mine)))
+    return rows
+
+
 def check_image(torch, rng, hw, pending, timing=(15, 3)):
     """Preprocess from uint8 and from float32 and deprocess at one rung,
     bit for bit against the plain versions. Times: the kernel alone on a
@@ -1223,6 +1457,17 @@ def phase_kernels(torch):
                 where, total[0], total[1], total[0] / total[1],
                 100 * total[2] / total[0], total[2]))
 
+    # The bf16 loss feed's kernels at the taps of the 512px and 768x1024
+    # iterates and of 4 lanes of the 512px one; the 512px step's rows make
+    # their summary entries and are profiled.
+    feed_rng = np.random.RandomState(3 * LANES)
+    for where, hw, lanes in (('512', (384, 512), 1), ('1024', (768, 1024), 1),
+                             ('512x4', (384, 512), LANES)):
+        main = where == '512'
+        rows += check_feed(torch, feed_rng, hw, where,
+                           pending if main else [], worst,
+                           parts if main else None, lanes)
+
     for hw in LADDER_1024:
         for row in check_image(torch, rng, hw, pending):
             rows.append(row)
@@ -1384,11 +1629,15 @@ def replays():
     return graphs.replays
 
 
-def require_all_launched(counts, what):
-    """Every kernel launched, and the steps ran as graph replays
+def require_all_launched(counts, what, precisions):
+    """Every kernel of the run's precisions launched (PRECISION_KERNELS:
+    a bfloat16 run's style taps take the feed's bf16 phases, a float32
+    run's the fused branch), and the steps ran as graph replays
     (engine/graphs.py; the launch counts above include the replays')."""
-    for name, n in counts.items():
-        require(n > 0, '%s: kernel %s never launched' % (what, name))
+    want = {k for p in precisions for k in PRECISION_KERNELS[p]}
+    for name in sorted(want):
+        require(counts[name] > 0, '%s: kernel %s never launched'
+                % (what, name))
     n = replays()
     require(n > 0, '%s: no step graph replayed' % what)
     REPLAYS[what] = n
@@ -1421,7 +1670,11 @@ def phase_main(torch):
         counts = counters()
         paths = path_counts()
         require(rc == 0, 'cli.main returned %r' % (rc,))
-        require_all_launched(counts, 'main ' + precision)
+        require_all_launched(counts, 'main ' + precision, (precision,))
+        if precision == 'bfloat16':
+            require(counts['fused_style_branch'] == 0, 'main bfloat16: the '
+                    'float32 style branch launched %d times'
+                    % counts['fused_style_branch'])
         require_paths('main', precision)
         for name, n in counts.items():
             launches[name] += n
@@ -1834,7 +2087,9 @@ def phase_ladder(torch, log):
         counts = counters()
         paths = path_counts()
         require(rc == 0, 'cli.main returned %r' % (rc,))
-        require_all_launched(counts, 'ladder ' + precision)
+        # The bfloat16 run's polish runs in float32.
+        require_all_launched(counts, 'ladder ' + precision,
+                             {precision, 'float32'})
         require_paths('ladder', precision)
         for name, n in counts.items():
             launches[name] += n
@@ -1987,6 +2242,9 @@ def highres_kernels(torch, worst):
             rows.append(row)
             worst['fused_style_branch'] = max(worst['fused_style_branch'],
                                               row['abs_err'])
+        rows += check_feed(torch, gen, HIGHRES_HW, size, [], worst,
+                           timing=HIGHRES_TIMING)
+        torch.cuda.empty_cache()
         for hw in (HIGHRES_HW, HIGHRES_STYLE_HW):
             for row in check_image(torch, rng, hw, [], timing=HIGHRES_TIMING):
                 rows.append(row)
@@ -2099,7 +2357,7 @@ def highres_run(torch, log, memory, precision, remat):
     what = 'highres ' + name
     counts = counters()
     require(rc == 0, '%s: cli.main returned %r' % (what, rc))
-    require_all_launched(counts, what)
+    require_all_launched(counts, what, (precision,))
     require_paths(what, precision)
     records = log.records[start:]
     chunks = [(r.args[2], r.created) for r in records if r.msg == CHUNK_LOG]
@@ -2249,7 +2507,7 @@ def phase_parity(torch):
         require(lad.start(), 'ladder parity engine did not restart')
         lad.run_steps(3)
         traces[device] = (steps, [t.data for t in lad.traces])
-    require_all_launched(counters(), 'parity')
+    require_all_launched(counters(), 'parity', ('float32',))
     worst = [0.0, 0.0]
     for which in (0, 1):
         want_rows, got_rows = traces['cpu'][which], traces['cuda'][which]
@@ -2267,7 +2525,84 @@ def phase_parity(torch):
     say('parity', '2-rung float32 L-BFGS ladder 24x32 -> 34x45, 3 steps a '
         'rung: worst trace rel err %.3g (rtol %g)' % (worst[1],
                                                       PARITY_RTOL))
+    for fold in (False, True):
+        feed_eval_parity(torch, params, weights, scalars,
+                         (content, style_img, inp), fold)
     weights_round_trip()
+
+
+def feed_eval_parity(torch, params, weights, scalars, images, fold,
+                     device='cuda'):
+    """The CUDA bf16 objective (the loss feed: its bf16 style phases and
+    sumsq) at each evaluation of a CPU bf16 engine's FEED_PARITY_STEPS
+    L-BFGS steps on images, from that evaluation's iterate and first-eval
+    norms (video_evaluate), so that no difference carries from one to the
+    next: every trace key within FEED_PARITY_RTOL, but the total
+    gradient's RMS, `grad`, against the scale of its terms (GRAD_TERMS,
+    as video_eval_parity holds it). fold: both engines fold the style
+    scale (objective.STYLE_FOLD_MIN_PIXELS at 0 for the run). The CUDA
+    evaluations launch the feed's kernels and no float32 style kernel.
+    device: the engine held against the CPU one (the CPU tests run both
+    on the CPU). Returns the worst (rel err, key, evaluation)."""
+    from style_transfer2_tpu_torch.engine import StyleTransfer, objective
+    content, style_img, inp = images
+    floor = objective.STYLE_FOLD_MIN_PIXELS
+    objective.STYLE_FOLD_MIN_PIXELS = 0 if fold else floor
+    try:
+        engines = {}
+        for name, dev in (('cpu', 'cpu'), ('held', device)):
+            st = StyleTransfer(params, 'bfloat16', device=dev)
+            st.set_weights(weights, scalars)
+            st.set_content(content)
+            st.set_style(style_img)
+            st.set_input(inp)
+            require(st.start(), 'feed parity engine did not start')
+            engines[name] = st
+        cpu = engines['cpu']
+        evals = []
+        real = cpu._graphs.run
+
+        def run(key, body, args, *rest):
+            norms = ({k: float(v) for k, v in args['norms_vals'].items()},
+                     {k: bool(v) for k, v in args['norms_set'].items()})
+            new, row = real(key, body, args, *rest)
+            evals.append((key.spec, new['state']['x'].clone(),
+                          row.tolist(), norms))
+            return new, row
+
+        cpu._graphs.run = run
+        cpu.run_steps(FEED_PARITY_STEPS)
+        reset_counters()
+        worst = (0.0, '', -1)
+        for i, (spec, x, row, norms) in enumerate(evals):
+            got, _ = video_evaluate(engines['held'], spec, x, norms)
+            keys = list(spec.trace_keys)
+            errs = trace_rel_errs(keys, got, row)
+            scale = max(row[keys.index(t)] for t in GRAD_TERMS if t in keys)
+            at = keys.index('grad')
+            errs['grad'] = abs(got[at] - row[at]) / scale
+            key = max(errs, key=errs.get)
+            require(errs[key] <= FEED_PARITY_RTOL, 'feed parity%s: '
+                    'evaluation %d: %s off by %.4g' % (
+                        ' (folded)' if fold else '', i, key, errs[key]))
+            if errs[key] > worst[0]:
+                worst = (errs[key], key, i)
+        counts = counters()
+        for name in FEED_KERNELS:
+            require(counts[name] > 0, 'feed parity: %s never launched'
+                    % name)
+        require(counts['fused_style_branch'] == 0, 'feed parity: the '
+                'float32 style branch launched')
+    finally:
+        objective.STYLE_FOLD_MIN_PIXELS = floor
+    say('parity', 'bf16 loss feed%s at 48x64: the CUDA objective at each '
+        'of a CPU bf16 run\'s %d evaluations (%d L-BFGS steps), worst trace '
+        'rel err %.3g (%s, evaluation %d; grad over its terms\' scale) '
+        'within rtol %g; launches %s' % (
+            ' folded' if fold else '', len(evals), FEED_PARITY_STEPS,
+            worst[0], worst[1], worst[2], FEED_PARITY_RTOL,
+            {k: counts[k] for k in FEED_KERNELS}))
+    return worst
 
 
 def torchvision_state_dict(params):
@@ -2452,7 +2787,9 @@ async def serve_session(torch, which, log, drive, keys):
         await runner.cleanup()
     torch.cuda.synchronize()
     counts = counters()
-    require_all_launched(counts, 'serve ' + which)
+    # Session (b)'s bfloat16 ladder ends in a float32 polish.
+    require_all_launched(counts, 'serve ' + which,
+                         {keys.get('precision', 'float32'), 'float32'})
     require_paths('serve ' + which, keys.get('precision', 'float32'))
     say('serve', '%s: %d graph replays, peak device memory %.0f MiB over '
         'the start' % (which, REPLAYS['serve ' + which],
@@ -2732,7 +3069,7 @@ def phase_batch(torch, log, rates, smi):
         peak_all = torch.cuda.max_memory_allocated()
         peak = peak_all - base
         require(rc == 0, 'batch %s: cli.main returned %r' % (precision, rc))
-        require_all_launched(counts, 'batch ' + precision)
+        require_all_launched(counts, 'batch ' + precision, (precision,))
         require_planned(torch, 'batch ' + precision, [(precision, full_hw)],
                         LANES)
         for name, n in counts.items():
@@ -3267,7 +3604,8 @@ async def pool_tier(torch, which, precision, **keys):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     counts = counters()
-    require_all_launched(counts, 'pool ' + which)
+    # The bfloat16 tier's polish runs in the float32 bucket.
+    require_all_launched(counts, 'pool ' + which, {precision, 'float32'})
     require_paths('pool ' + which, precision)
     require_planned(torch, 'pool ' + which, result['buckets'], POOL_LANES)
     result.update(launches=counts, paths=path_counts(),
@@ -3414,7 +3752,7 @@ def video_run(torch, log, frames, size, precision, temporal):
     st = stylizer.st
     require(st.device.type == VIDEO_DEVICE, '%s: engine on %s'
             % (what, st.device))
-    require_all_launched(counts, what)
+    require_all_launched(counts, what, (precision,))
     if VIDEO_DEVICE == 'cuda':
         require_paths(what, precision)
     # The style; each frame's content; the first frame's random start and
@@ -4340,21 +4678,31 @@ def shard_runs(torch, smi, log):
                                                   placement, hw)
         require(isinstance(st._input, Sharded) and st._input.axis == 1,
                 'shard %s: the iterate is not H-sharded' % precision)
-        for name, n in counts.items():
-            require(n > 0 or name == 'fused_style_branch', 'shard %s: '
-                    'kernel %s never launched' % (precision, name))
         n_style = len(st.spec().style_layers)
         n_sharded = len(sharded_style_layers(st.spec(), hw[0] // SHARD_N))
         evals = len(got)
-        for name in SHARD_KERNELS:
-            require(counts[name] == SHARD_N * n_sharded * evals,
-                    'shard %s: %s launched %d times, not once a shard (%d) '
-                    'a sharded style layer (%d) an evaluation (%d)' % (
-                        precision, name, counts[name], SHARD_N, n_sharded,
-                        evals))
-        require(counts['fused_style_branch'] == (n_style - n_sharded)
-                * evals, 'shard %s: the fused branch launched %d times'
-                % (precision, counts['fused_style_branch']))
+        # float32: each sharded style layer's two float32 phases once a
+        # shard, the fused branch once for each gathered one; bfloat16:
+        # the feed's two bf16 phases once a shard of a sharded layer and
+        # once for a gathered one, and no float32 style kernel.
+        f32 = precision == 'float32'
+        want = {'style_gram': SHARD_N * n_sharded * evals if f32 else 0,
+                'fused_style_branch': (n_style - n_sharded) * evals
+                if f32 else 0,
+                'style_gram_bf16': 0 if f32 else (
+                    SHARD_N * n_sharded + n_style - n_sharded) * evals}
+        want['style_grad'] = want['style_gram']
+        want['style_grad_bf16'] = want['style_gram_bf16']
+        for name, n in counts.items():
+            if name in want:
+                require(n == want[name], 'shard %s: %s launched %d times, '
+                        'not %d (%d shards, %d of %d style layers sharded, '
+                        '%d evaluations)' % (precision, name, n, want[name],
+                                             SHARD_N, n_sharded, n_style,
+                                             evals))
+            elif name in PRECISION_KERNELS[precision]:
+                require(n > 0, 'shard %s: kernel %s never launched'
+                        % (precision, name))
         if SHARD_DEVICE == 'cuda':
             for key in shard_planned(torch, precision, hw, SHARD_N):
                 require(conv.path_launches.get(key, 0) > 0, 'shard %s: no '
@@ -4661,6 +5009,10 @@ def shard_kernels(torch, rows, pending, parts, worst):
             rows.append(row)
             parts[row['kernel']].append((row, ''))
             worst[row['kernel']] = max(worst[row['kernel']], row['abs_err'])
+    # The bf16 feed's phases and sumsq at the shard's taps (held and
+    # timed; not profiled).
+    rows += check_feed(torch, rng, hw, 'shard', [], worst, n=SHARD_N,
+                       timing=(5, 1))
     write_kernels_json(rows)
 
 
@@ -4744,7 +5096,10 @@ def main():
         'launches over the main, ladder, highres, batch, serve, pool, '
         'video and shard runs (style_gram, style_grad: the shard run\'s '
         'two style phases, summed over the four taps of one 768x1024 '
-        'shard); '
+        'shard; style_gram_bf16, style_grad_bf16, sumsq: the bf16 loss '
+        'feed\'s kernels, which every bfloat16 run launches, summed over '
+        'the 512px step\'s four style taps, sumsq over its five calls, '
+        'library: cuBLAS bf16 GEMM); '
         '512px it/s float32 '
         '%.3f, bfloat16 %.3f; step graph replays by run: %s' % (
             rates['float32'], rates['bfloat16'],

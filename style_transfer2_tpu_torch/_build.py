@@ -1,9 +1,9 @@
 """Builds the CUDA kernels in csrc/ and binds them with ctypes.
 
-The sources (csrc/conv3x3.cu, conv3x3_wgmma.cu, style.cu, image.cu) are
-compiled at first use, on the machine with the card, by nvcc into one
-shared library with a plain C interface: one nvcc per source, all started
-together, then one link:
+The sources (csrc/conv3x3.cu, conv3x3_wgmma.cu, style.cu, reduce.cu,
+image.cu) are compiled at first use, on the machine with the card, by nvcc
+into one shared library with a plain C interface: one nvcc per source, all
+started together, then one link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu  (each)
@@ -46,6 +46,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # Entry point -> argument types (every entry returns a cudaError_t as int).
 _SIGNATURES = {
     'st2_conv3x3_fwd': [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -56,6 +57,9 @@ _SIGNATURES = {
                          _P],
     'st2_style_gram': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     'st2_style_grad': [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    'st2_style_gram_bf16': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    'st2_style_grad_bf16': [_P, _P, _P, _I, _I, _I, _P],
+    'st2_sumsq': [_P, _P, _P, _L, _L, _I, _I, _I, _P],
     'st2_preprocess': [_P, _P, _P, _P],
     'st2_deprocess': [_P, _P, _P, _P],
 }

@@ -57,7 +57,35 @@
 // shared memory and reads four k at a time along each row (a broadcast
 // within the warp), so X is never transposed. Plain FP32 FMA, never TF32.
 // PERF.md gives the share of that bound it reaches at each tap.
+//
+// bfloat16 taps (the JAX package's bf16 loss feed, engine/objective.py:
+// the Gram and the gradient product as two einsums over the bf16 tap, the
+// Gram accumulated in float32 and the gradient emitted in bf16) take two
+// kernels of their own, one a phase, on the tensor cores:
+//   (a') gram_partials_bf16_kernel: the split-M Gram of (a) over the same
+//        upper-triangle tiles and chunks, X bf16, each 64 x 64 tile of X^T
+//        X accumulated in float32 by mma.sync m16n8k16, into the same
+//        float32 partials, which (b) reduces as it always did;
+//   (c') style_grad_bf16_kernel: X (M x C, bf16) times D (C x C, bf16:
+//        the wrapper rounds the float32 G_diff, folded or not, to bf16
+//        first, as the JAX feed's gram_diff.astype(bf16) does), float32
+//        accumulation, one rounding of each output to bf16. No scale: the
+//        feed folds every factor into D or into one scalar multiply.
+// What bounds them: at the 512px taps the two products are about 2.4
+// GFLOP, 2.4 us at the tensor cores' 989 TFLOP/s, against about 12 us of
+// memory traffic (X read twice over the phases, the bf16 gradient written
+// once), so memory, then the partials' and the launches' overhead. The
+// design is the simplest tensor-core form: 4 warps a block, each a 32 x 32
+// quarter of the 64 x 64 output tile, operands staged 32 rows deep by
+// 16-byte cp.async into a two-stage ring, rows padded by 16 bytes so that
+// ldmatrix's eight row reads hit distinct banks. X stays as it is in
+// memory (rows of C contiguous channels): the Gram's A operand (X^T) and
+// B operand (X) are both read by ldmatrix.trans from the staged rows, the
+// gradient's A (X) by ldmatrix and its B (D's rows) by ldmatrix.trans.
+// C must be a multiple of 8 (every bf16 tap of VGG-19 is one of 64);
+// the ragged M edge and a C that is not a multiple of 64 are masked.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstddef>
 #include <cstdint>
@@ -379,19 +407,12 @@ style_grad_kernel(const float* __restrict__ x,
   }
 }
 
-// The two halves of the branch, launched on `st`: (a) and (b), the Gram
-// difference (or, with no target, the Gram itself), and (c), the gradient
-// product. Each returns the first nonzero cudaGetLastError() of its
-// launches.
-int launch_gram(const float* x, const float* gram_style, float* partials,
-                float* gdiff, int m, int c, int chunk, int n_chunks,
-                int lanes, float inv_size, cudaStream_t st) {
+// (b) over the float32 partials of (a) or (a'), launched on `st`.
+int reduce_gram(const float* partials, const float* gram_style, float* gdiff,
+                int c, int n_chunks, int lanes, float inv_size,
+                cudaStream_t st) {
   const int nt = (c + T - 1) / T;
   const int n_tiles = nt * (nt + 1) / 2;
-  gram_partials_kernel<<<dim3(n_tiles, n_chunks, lanes), THREADS, 0, st>>>(
-      x, partials, m, c, nt, chunk);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
   int ways = 1;
   while (ways < 32 && ways * 64 <= n_chunks) ways *= 2;
   const dim3 grid(n_tiles * T * T * ways / RED_THREADS, lanes);
@@ -404,6 +425,23 @@ int launch_gram(const float* x, const float* gram_style, float* partials,
         partials, gram_style, gdiff, c, nt, n_tiles, n_chunks, ways,
         inv_size);
   return (int)cudaGetLastError();
+}
+
+// The two halves of the branch, launched on `st`: (a) and (b), the Gram
+// difference (or, with no target, the Gram itself), and (c), the gradient
+// product. Each returns the first nonzero cudaGetLastError() of its
+// launches.
+int launch_gram(const float* x, const float* gram_style, float* partials,
+                float* gdiff, int m, int c, int chunk, int n_chunks,
+                int lanes, float inv_size, cudaStream_t st) {
+  const int nt = (c + T - 1) / T;
+  const int n_tiles = nt * (nt + 1) / 2;
+  gram_partials_kernel<<<dim3(n_tiles, n_chunks, lanes), THREADS, 0, st>>>(
+      x, partials, m, c, nt, chunk);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  return reduce_gram(partials, gram_style, gdiff, c, n_chunks, lanes,
+                     inv_size, st);
 }
 
 int launch_grad(const float* x, const float* gdiff, float* sgrad, int m,
@@ -476,4 +514,314 @@ extern "C" int st2_style_grad(const float* x, const float* gdiff,
     return -1;
   return launch_grad(x, gdiff, sgrad, m, c, grad_rows, lanes, grad_scale,
                      (cudaStream_t)stream);
+}
+
+// ------------------------------------------------------------- bfloat16
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+constexpr int BF_THREADS = 128;     // 4 warps, a 32 x 32 quarter each
+constexpr int BK = 32;              // rows (Gram) or k (gradient) a stage
+constexpr int LD64 = T + 8;         // smem elements of a 64-wide row (144 B)
+constexpr int LD32 = BK + 8;        // smem elements of a 32-wide row (80 B)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// d += a (16x16, row) * b (16x8, col); bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (a') partials[s, t] = sum over rows m of chunk s of X[m, i-tile]^T
+// X[m, j-tile], X bf16, float32 sums; the partials' layout is (a)'s, so
+// (b) reduces them. Grid: (n_tiles, n_chunks, lanes), BF_THREADS threads.
+// Per 16-row step warp (wi, wj) loads its two 16 x 16 A fragments (X^T:
+// channels i as rows) and its four 16 x 8 B fragments (X: rows m as k),
+// both by ldmatrix.trans from the staged rows, and issues 8 MMAs.
+__global__ void __launch_bounds__(BF_THREADS)
+gram_partials_bf16_kernel(const bf16* __restrict__ x,
+                          float* __restrict__ partials, int m, int c, int nt,
+                          int chunk) {
+  __shared__ __align__(16) bf16 s_a[STAGES][BK][LD64];
+  __shared__ __align__(16) bf16 s_b[STAGES][BK][LD64];
+  int ti, tj;
+  tile_of(blockIdx.x, nt, ti, tj);
+  const bool diag = ti == tj;
+  const int i0 = ti * T;
+  const int j0 = tj * T;
+  const int m_begin = blockIdx.z * m + blockIdx.y * chunk;
+  const int m_end = min(m_begin + chunk, (int)(blockIdx.z + 1) * m);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int wi = (warp / 2) * 32;   // the warp's rows (channels i)
+  const int wj = (warp % 2) * 32;   // and columns (channels j) of the tile
+
+  // One stage: BK rows x 8 pieces of 8 channels of each operand; a
+  // diagonal tile's two operands are the same columns, staged once.
+  auto stage = [&](int st, int r0) {
+#pragma unroll
+    for (int it = 0; it < BK * (T / 8) / BF_THREADS; ++it) {
+      const int e = tid + it * BF_THREADS;
+      const int kk = e / (T / 8);
+      const int q = e % (T / 8);
+      const int row = r0 + kk;
+      const bool in_row = row < m_end;
+      const bf16* src = x + (size_t)(in_row ? row : m_begin) * c;
+      const int ca = i0 + 8 * q;
+      cp_async16(&s_a[st][kk][8 * q], src + (ca < c ? ca : 0),
+                 in_row && ca < c);
+      if (!diag) {
+        const int cb = j0 + 8 * q;
+        cp_async16(&s_b[st][kk][8 * q], src + (cb < c ? cb : 0),
+                   in_row && cb < c);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+
+  // ldmatrix row addresses: lane l reads staged row (l % 8) + 8 * (l / 16)
+  // at column 8 * ((l / 8) % 2) for A, which orders the four 8 x 8
+  // matrices as the A fragment's (i 0-7, m 0-7), (i 8-15, m 0-7), (i 0-7,
+  // m 8-15), (i 8-15, m 8-15); row l % 16 at column 8 * (l / 16) for B,
+  // the two k halves of two 8-wide n tiles.
+  const int a_row = lane % 8 + 8 * (lane / 16);
+  const int a_col = 8 * ((lane / 8) % 2);
+  const int b_row = lane % 16;
+  const int b_col = 8 * (lane / 16);
+
+  const int n_k = (m_end - m_begin + BK - 1) / BK;
+  stage(0, m_begin);
+  for (int kt = 0; kt < n_k; ++kt) {
+    if (kt + 1 < n_k) {
+      stage((kt + 1) % STAGES, m_begin + (kt + 1) * BK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int st = kt % STAGES;
+    const bf16(*sb)[LD64] = diag ? s_a[st] : s_b[st];
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldmatrix_x4_trans(a[mi], smem_addr(
+            &s_a[st][ks * 16 + a_row][wi + mi * 16 + a_col]));
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq) {
+        uint32_t bq[4];
+        ldmatrix_x4_trans(bq, smem_addr(
+            &sb[ks * 16 + b_row][wj + nq * 16 + b_col]));
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(acc[mi][2 * nq], a[mi], bq[0], bq[1]);
+          mma_bf16(acc[mi][2 * nq + 1], a[mi], bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // Accumulator (row g or g + 8, columns 2t, 2t + 1) into the tile.
+  float* dst = partials + (((size_t)blockIdx.z * gridDim.y + blockIdx.y) *
+                               gridDim.x + blockIdx.x) * T * T;
+  const int g = lane / 4;
+  const int t = lane % 4;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wi + mi * 16 + g + 8 * half;
+        const int col = wj + nj * 8 + 2 * t;
+        *reinterpret_cast<float2*>(dst + r * T + col) =
+            make_float2(acc[mi][nj][2 * half], acc[mi][nj][2 * half + 1]);
+      }
+}
+
+// (c') sgrad[m, j] = bf16(sum_k X[m, k] D[k, j]), float32 sums. Grid:
+// (ceil(M / 64), ceil(C / 64), lanes), BF_THREADS threads; lane z owns
+// rows z*m .. z*m + m - 1 of x and sgrad and z*c .. z*c + c - 1 of d.
+__global__ void __launch_bounds__(BF_THREADS)
+style_grad_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d,
+                       bf16* __restrict__ sgrad, int m, int c) {
+  __shared__ __align__(16) bf16 s_x[STAGES][T][LD32];    // X rows, BK deep
+  __shared__ __align__(16) bf16 s_d[STAGES][BK][LD64];   // D rows
+  const int r0 = blockIdx.z * m + blockIdx.x * T;
+  const int r_end = (blockIdx.z + 1) * m;
+  const int j0 = blockIdx.y * T;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int wr = (warp / 2) * 32;
+  const int wc = (warp % 2) * 32;
+
+  auto stage = [&](int st, int k0) {
+#pragma unroll
+    for (int it = 0; it < T * (BK / 8) / BF_THREADS; ++it) {
+      const int e = tid + it * BF_THREADS;
+      const int row = e / (BK / 8);
+      const int q = e % (BK / 8);
+      const int gr = r0 + row;
+      const int gk = k0 + 8 * q;
+      const bool ok = gr < r_end && gk < c;
+      cp_async16(&s_x[st][row][8 * q], x + (ok ? (size_t)gr * c + gk : 0),
+                 ok);
+    }
+#pragma unroll
+    for (int it = 0; it < BK * (T / 8) / BF_THREADS; ++it) {
+      const int e = tid + it * BF_THREADS;
+      const int kk = e / (T / 8);
+      const int q = e % (T / 8);
+      const int gk = k0 + kk;
+      const int gj = j0 + 8 * q;
+      const bool ok = gk < c && gj < c;
+      cp_async16(&s_d[st][kk][8 * q],
+                 d + (ok ? (size_t)(blockIdx.z * c + gk) * c + gj : 0), ok);
+    }
+    cp_async_commit();
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+
+  // A (X): rows lane % 16 at column 8 * (lane / 16), the fragment's four
+  // 8 x 8 quarters in order; B (D): k rows lane % 16 at column 8 * (lane /
+  // 16), transposed into two 16 x 8 column fragments.
+  const int l_row = lane % 16;
+  const int l_col = 8 * (lane / 16);
+
+  const int n_k = (c + BK - 1) / BK;
+  stage(0, 0);
+  for (int kt = 0; kt < n_k; ++kt) {
+    if (kt + 1 < n_k) {
+      stage((kt + 1) % STAGES, (kt + 1) * BK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int st = kt % STAGES;
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldmatrix_x4(a[mi], smem_addr(
+            &s_x[st][wr + mi * 16 + l_row][ks * 16 + l_col]));
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq) {
+        uint32_t bq[4];
+        ldmatrix_x4_trans(bq, smem_addr(
+            &s_d[st][ks * 16 + l_row][wc + nq * 16 + l_col]));
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(acc[mi][2 * nq], a[mi], bq[0], bq[1]);
+          mma_bf16(acc[mi][2 * nq + 1], a[mi], bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const int g = lane / 4;
+  const int t = lane % 4;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int gr = r0 + wr + mi * 16 + g + 8 * half;
+      if (gr >= r_end) continue;
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        const int col = j0 + wc + nj * 8 + 2 * t;
+        if (col >= c) continue;
+        *reinterpret_cast<__nv_bfloat162*>(sgrad + (size_t)gr * c + col) =
+            __floats2bfloat162_rn(acc[mi][nj][2 * half],
+                                  acc[mi][nj][2 * half + 1]);
+      }
+    }
+}
+
+bool bad_bf16_args(const void* x, const void* d, int m, int c, int lanes) {
+  return c % 8 != 0 || ((uintptr_t)x | (uintptr_t)d) % 16 != 0 ||
+         lanes < 1 || lanes > 65535 ||
+         (int64_t)lanes * (m > c ? m : c) > INT32_MAX;
+}
+
+}  // namespace
+
+// The bf16 Gram phase: gdiff = X^T X * inv_size - gram_style, or with a
+// null gram_style the Gram itself, float32, for x (lanes, m, c) bf16 with
+// c a multiple of 8 and x 16-byte aligned; partials, chunk and n_chunks as
+// st2_style_branch's. (a') then (b): the reduction, its fixed order and
+// its epilogue are the float32 branch's.
+extern "C" int st2_style_gram_bf16(const void* x, const float* gram_style,
+                                   float* partials, float* gdiff, int m,
+                                   int c, int chunk, int n_chunks, int lanes,
+                                   float inv_size, void* stream) {
+  if (bad_bf16_args(x, gdiff, m, c, lanes)) return -1;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nt = (c + T - 1) / T;
+  const int n_tiles = nt * (nt + 1) / 2;
+  gram_partials_bf16_kernel<<<dim3(n_tiles, n_chunks, lanes), BF_THREADS, 0,
+                              st>>>((const bf16*)x, partials, m, c, nt,
+                                    chunk);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  return reduce_gram(partials, gram_style, gdiff, c, n_chunks, lanes,
+                     inv_size, st);
+}
+
+// The bf16 gradient phase: sgrad = X D, x (lanes, m, c) and d (lanes, c,
+// c) bf16, sgrad (lanes, m, c) bf16; c a multiple of 8, x and d 16-byte
+// aligned.
+extern "C" int st2_style_grad_bf16(const void* x, const void* d, void* sgrad,
+                                   int m, int c, int lanes, void* stream) {
+  if (bad_bf16_args(x, d, m, c, lanes) || (uintptr_t)sgrad % 4 != 0)
+    return -1;
+  const dim3 grid((m + T - 1) / T, (c + T - 1) / T, lanes);
+  style_grad_bf16_kernel<<<grid, BF_THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const bf16*)d, (bf16*)sgrad, m, c);
+  return (int)cudaGetLastError();
 }

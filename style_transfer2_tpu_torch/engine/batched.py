@@ -47,7 +47,8 @@ from ..parallel.batch import (build_masked_batched_prime_fn,
                               unstack_lane)
 from ..utils import Trace
 from .graphs import CudaGraphs, StepGraphs
-from .objective import ObjectiveSpec, scalars_to_arrays, weights_to_arrays
+from .objective import (ObjectiveSpec, content_store_dtype,
+                        scalars_to_arrays, weights_to_arrays)
 from .steps import precision_config, precision_scope
 from .transfer import resolve_device
 
@@ -111,8 +112,12 @@ class BatchedStyleTransfer:
                                device=self.device)
         with precision_scope(precision):
             feats = self.model(zero_img, self.spec.content_layers)
+        # Content features in content_store_dtype (bf16 in bfloat16 mode:
+        # the loss feed's `feat - content` stays bf16).
+        self._content_dtype = content_store_dtype(self.compute_dtype)
         lane_inputs = {
-            'content_feats': {l: torch.zeros_like(feats[l])
+            'content_feats': {l: torch.zeros_like(feats[l],
+                                                  dtype=self._content_dtype)
                               for l in self.spec.content_layers},
             'grams': {l: torch.zeros((vgg19.layer_channels(l),) * 2,
                                      dtype=torch.float32, device=self.device)
@@ -236,7 +241,7 @@ class BatchedStyleTransfer:
                 set_.update((k, ns[k]) for k in keys if k in ns)
             _lane_set({k: self.inputs[k] for k in (
                 'content_feats', 'grams', 'norms_vals', 'norms_set')}, lane, {
-                'content_feats': {l: feats[l]
+                'content_feats': {l: feats[l].to(self._content_dtype)
                                   for l in self.spec.content_layers},
                 'grams': {l: gram_matrix(style_feats[l])
                           for l in self.spec.style_layers},

@@ -84,7 +84,8 @@ engine is a new engine with its own graphs.
 
 Launch accounting. A replay does not call the kernels' Python wrappers,
 so each graph records the launches its capture made (ops/conv.py
-path_launches, ops/style.py launches, ops/image.py's counters), takes them
+path_launches and the flat counters of ops/style.py, ops/reduce.py and
+ops/image.py, _COUNTERS), takes them
 back off the counters (a capture runs nothing), and credits them again on
 every replay. `replays` and `captures` count what every engine did
 (chip_smoke.py reads them).
@@ -92,6 +93,7 @@ every replay. `replays` and `captures` count what every engine did
 
 import collections
 import contextlib
+import importlib
 import sys
 import time
 
@@ -176,36 +178,43 @@ def _describe(leaf):
         leaf.dtype, tuple(leaf.shape), leaf.device)
 
 
+# The wrappers' flat launch counters: key -> (module of ops, attribute).
+# The convs' counters are conv.path_launches, by (direction, path).
+_COUNTERS = {
+    ('style',): ('style', 'launches'),
+    ('style_gram',): ('style', 'gram_launches'),
+    ('style_grad',): ('style', 'grad_launches'),
+    ('style_gram_bf16',): ('style', 'gram_bf16_launches'),
+    ('style_grad_bf16',): ('style', 'grad_bf16_launches'),
+    ('sumsq',): ('reduce', 'launches'),
+    ('preprocess',): ('image', 'preprocess_launches'),
+    ('deprocess',): ('image', 'deprocess_launches'),
+}
+
+
+def _ops(name):
+    return importlib.import_module('..ops.' + name, __package__)
+
+
 def _launch_counts():
     """Every kernel wrapper's launch counter, flat."""
-    from ..ops import conv, image, style
-    counts = {('conv',) + key: n for key, n in conv.path_launches.items()}
-    counts[('style',)] = style.launches
-    counts[('style_gram',)] = style.gram_launches
-    counts[('style_grad',)] = style.grad_launches
-    counts[('preprocess',)] = image.preprocess_launches
-    counts[('deprocess',)] = image.deprocess_launches
+    counts = {('conv',) + key: n
+              for key, n in _ops('conv').path_launches.items()}
+    for key, (module, attr) in _COUNTERS.items():
+        counts[key] = getattr(_ops(module), attr)
     return counts
 
 
 def _credit(delta, sign=1):
     """Adds sign * delta to the wrappers' launch counters."""
-    from ..ops import conv, image, style
+    paths = _ops('conv').path_launches
     for key, n in delta.items():
         n *= sign
         if key[0] == 'conv':
-            conv.path_launches[key[1:]] = conv.path_launches.get(key[1:],
-                                                                 0) + n
-        elif key[0] == 'style':
-            style.launches += n
-        elif key[0] == 'style_gram':
-            style.gram_launches += n
-        elif key[0] == 'style_grad':
-            style.grad_launches += n
-        elif key[0] == 'preprocess':
-            image.preprocess_launches += n
+            paths[key[1:]] = paths.get(key[1:], 0) + n
         else:
-            image.deprocess_launches += n
+            module, attr = _COUNTERS[key]
+            setattr(_ops(module), attr, getattr(_ops(module), attr) + n)
 
 
 def _index(device):

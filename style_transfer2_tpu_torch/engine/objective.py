@@ -25,10 +25,29 @@ all lanes in one call, every weight, scalar and norm a (B,) value and
 every reduction per lane, so that nothing mixes two lanes. It has no
 temporal term, as the JAX batched engine has none.
 
-This ports the JAX package's float32-feed branches. In bfloat16 mode the
-trunk runs in bf16 and its taps come back as float32, so every loss here is
-float32 math in both modes. The JAX package's bf16 loss-feed variants
-(BF16_FEED, BF16_TAPS, STYLE_EINSUM, STYLE_FOLD) are not ported.
+float32 and float32_fast run the JAX package's float32-feed branches:
+float32 taps, float32 cotangents, the fused style branch. bfloat16 runs its
+bf16 loss feed, as the JAX package ships it (BF16_FEED with STYLE_EINSUM
+and STYLE_FOLD = 'auto', style_transfer2_tpu/engine/objective.py), with no
+switch back (_feed_layer):
+  * the conv and pool taps stay bf16 (models/vgg19.py features_and_vjp)
+    and the engines store content features in bf16 (content_store_dtype),
+    so `feat - content` stays bf16;
+  * every sum of squares is float32 over the bf16 values (ops/reduce.py
+    sumsq), and the loss and both RMS traces of a branch follow from it by
+    scalar algebra;
+  * each cotangent is built in the tap's dtype, each scale rounded to it
+    before it multiplies the tap (JAX's scale.astype(feat.dtype): torch
+    would multiply a float32 0-d scale into a bf16 tensor in float and
+    round once);
+  * the style branch is its two phases over the bf16 tap (ops/style.py
+    style_gram, float32 sums; style_product, a bf16 result); from
+    STYLE_FOLD_MIN_PIXELS pixels an image the scale is folded into the
+    (c, c) Gram difference before the product, and rms(s_raw) comes from
+    the Gram: sumsq(s_raw) / size = sum((gd @ gd) * gram).
+The 'data' tap is x itself, float32, in every mode: there the feed's
+branches run in float32 (its content feature is stored bf16 and cast back,
+as in the JAX engine).
 """
 
 from dataclasses import dataclass
@@ -38,12 +57,111 @@ import torch
 
 from ..models import vgg19
 from ..ops.losses import p_norm, p_norm_lanes, tv_norm, tv_norm_lanes
-from ..ops.style import fused_style_branch
+from ..ops.reduce import sumsq
+from ..ops.style import fused_style_branch, style_gram, style_product
+from ..utils import tf32
 
 # Weights with |w| <= this are treated as absent (reference worker.py:234,250).
 WEIGHT_EPS = 1e-15
 LOSS_NAMES = ('content', 'style', 'deepdream')
 SCALAR_LOSS_NAMES = ('tv', 'tv_power', 'p', 'p_power')
+# The bf16 feed folds the style scale into the Gram difference on grids of
+# at least this many pixels an image (the JAX package's STYLE_FOLD 'auto'
+# floor; read at each call).
+STYLE_FOLD_MIN_PIXELS = 500_000
+
+
+def content_store_dtype(compute_dtype):
+    """The dtype the engines store content features in: the compute dtype
+    in bfloat16 (the feed's `feat - content` stays bf16), float32
+    otherwise."""
+    return torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
+
+
+def _style_fold(x):
+    """Whether the bf16 feed folds the style scale at iterate x: its grid
+    (an image's; the whole image of a Sharded x) has at least
+    STYLE_FOLD_MIN_PIXELS pixels."""
+    return x.shape[-3] * x.shape[-2] >= STYLE_FOLD_MIN_PIXELS
+
+
+def _feed_layer(layer, branch, feat, w, content, gram_style, norm_of,
+                trace, loss, fold, lanes):
+    """The bf16 loss feed of one tapped layer (module docstring; JAX
+    objective.py's bf16_feed branches): appends each term's loss and
+    gradient RMS to trace and returns (loss with the layer's terms added,
+    the layer's cotangent in feat's dtype). With lanes, feat is (B, h, w,
+    c) and every weight, norm and sum (B,)."""
+    _, has_c, has_s, has_d = branch
+    dt = feat.dtype
+    size = float(feat[0].numel()) if lanes else float(feat.numel())
+
+    def col(v):
+        """A scale as a multiplier of the tap (_col of lanes)."""
+        return _col(v) if lanes else v
+
+    def weight(i):
+        return w[:, i] if lanes else w[i]
+
+    diff = None
+
+    def add(term):
+        return term if diff is None else diff + term
+
+    if has_c:
+        cw = weight(0)
+        c_diff = feat - content.to(dt)
+        sq = sumsq(c_diff, lanes)
+        cn = norm_of(layer + ':c', (2.0 / size) * torch.sqrt(sq / size))
+        c_loss = cw * (sq / size) / cn
+        trace.append(c_loss)
+        loss = loss + c_loss
+        scale = cw * (2.0 / size) / cn
+        trace.append(torch.abs(scale) * torch.sqrt(sq / size))
+        diff = add(col(scale.to(dt)) * c_diff)
+
+    if has_s:
+        sw = weight(1)
+        n = feat.shape[-1]
+        gram = style_gram(feat, size, lanes)
+        gram_diff = gram - gram_style
+        k = 2.0 / (float(n * n) * size)
+        dims = (1, 2) if lanes else None
+        mean_sq = torch.mean(torch.square(gram_diff), dim=dims)
+        if fold:
+            # rms(s_raw) from the Gram, the (c, c) product in full float32
+            # (JAX: precision 'highest').
+            with tf32(False):
+                gd2 = gram_diff @ gram_diff
+            rms_raw = torch.sqrt(torch.clamp(
+                torch.sum(gd2 * gram, dim=dims), min=0.0))
+        else:
+            s_raw = style_product(feat, gram_diff)
+            rms_raw = torch.sqrt(sumsq(s_raw, lanes) / size)
+        sn = norm_of(layer + ':s', k * rms_raw)
+        s_loss = sw * mean_sq / sn
+        trace.append(s_loss)
+        loss = loss + s_loss
+        scale = sw * k / sn
+        trace.append(torch.abs(scale) * rms_raw)
+        if fold:
+            d = (scale[:, None, None] if lanes else scale) * gram_diff
+            diff = add(style_product(feat, d))
+        else:
+            diff = add(col(scale.to(dt)) * s_raw)
+
+    if has_d:
+        dw = weight(2)
+        rms_feat = torch.sqrt(sumsq(feat, lanes) / size)
+        dn = norm_of(layer + ':d', (2.0 / size) * rms_feat)
+        d_loss = -dw * torch.square(rms_feat) / dn
+        trace.append(d_loss)
+        loss = loss + d_loss
+        scale = dw * (-2.0 / size) / dn
+        trace.append(torch.abs(scale) * rms_feat)
+        diff = add(col(scale.to(dt)) * feat)
+
+    return loss, diff
 
 
 def _rms(x):
@@ -176,6 +294,8 @@ def make_objective(spec):
     def objective(model, x, content_feats, grams, layer_weights, scalars,
                   norms_vals, norms_set, temporal_target=None):
         feats, vjp = model.features_and_vjp(x, spec.layers)
+        feed = model.compute_dtype == torch.bfloat16
+        fold = feed and _style_fold(x)
         loss = torch.zeros((), dtype=torch.float32, device=x.device)
         trace = []
         diffs = {}
@@ -191,8 +311,15 @@ def make_objective(spec):
             new_set[key] = is_set
             return value
 
-        for layer, has_c, has_s, has_d in spec.branches:
+        for branch in spec.branches:
+            layer, has_c, has_s, has_d = branch
             feat = feats[layer]
+            if feed:
+                loss, diffs[layer] = _feed_layer(
+                    layer, branch, feat, layer_weights[layer],
+                    content_feats.get(layer), grams.get(layer), norm_of,
+                    trace, loss, fold, False)
+                continue
             size = float(feat.numel())
             w = layer_weights[layer]
             diff = torch.zeros_like(feat, dtype=torch.float32)
@@ -286,6 +413,8 @@ def make_lane_objective(spec):
     def objective(model, x, content_feats, grams, layer_weights, scalars,
                   norms_vals, norms_set):
         feats, vjp = model.features_and_vjp(x, spec.layers)
+        feed = model.compute_dtype == torch.bfloat16
+        fold = feed and _style_fold(x)
         n_lanes = x.shape[0]
         loss = torch.zeros(n_lanes, dtype=torch.float32, device=x.device)
         trace = []
@@ -301,8 +430,15 @@ def make_lane_objective(spec):
             new_set[key] = is_set
             return value
 
-        for layer, has_c, has_s, has_d in spec.branches:
+        for branch in spec.branches:
+            layer, has_c, has_s, has_d = branch
             feat = feats[layer]
+            if feed:
+                loss, diffs[layer] = _feed_layer(
+                    layer, branch, feat, layer_weights[layer],
+                    content_feats.get(layer), grams.get(layer), norm_of,
+                    trace, loss, fold, True)
+                continue
             size = float(feat[0].numel())
             w = layer_weights[layer]
             diff = torch.zeros_like(feat, dtype=torch.float32)

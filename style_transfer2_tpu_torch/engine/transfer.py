@@ -47,6 +47,7 @@ from .objective import (
     LOSS_NAMES,
     SCALAR_LOSS_NAMES,
     ObjectiveSpec,
+    content_store_dtype,
     scalars_to_arrays,
     weights_to_arrays,
 )
@@ -331,12 +332,16 @@ class StyleTransfer:
 
     def _content_features(self, layers=None):
         """Content features for the given blobs (default: the objective's
-        content layers), float32."""
+        content layers), stored in content_store_dtype: bf16 in bfloat16
+        mode, so that the loss feed's `feat - content` stays bf16 (one cast
+        here, not one a step), float32 otherwise."""
         if layers is None:
             layers = self.spec().content_layers
         if not layers:
             return {}
-        return dict(self.model(self.content, tuple(layers)))
+        dtype = content_store_dtype(self.compute_dtype)
+        return {l: f.to(dtype)
+                for l, f in self.model(self.content, tuple(layers)).items()}
 
     def set_style(self, image):
         """Sets the style image: runs the whole net and keeps the Gram of

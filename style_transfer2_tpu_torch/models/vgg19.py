@@ -30,10 +30,12 @@ again inside the backward, with the same kernels on the same inputs, so
 the taps and the gradient keep their bits. Each conv's autograd function
 already saves only its output (the next conv's input) and its backward
 weights, so 'conv' trades one saved activation for another and saves
-little here. Under 'block' in float32, where a tap is the conv's output
-itself, a tapped conv runs outside the checkpoints (it saves only that
-tap, which the caller keeps anyway; inside, the backward would recompute
-a second copy of it), so the forward leaves only the taps saved. No policy
+little here. Under 'block', where a tap is the conv's output itself (in
+features_and_vjp, whose taps are in the compute dtype; in float32
+everywhere), a tapped conv runs outside the checkpoints (it saves only
+that tap, which the caller keeps anyway; inside, the backward would
+recompute a second copy of it), so the forward leaves only the taps saved.
+No policy
 lowers the peak of a forward and its vjp with the style taps: it falls in
 conv1_2's backward, which under every policy holds the taps, the caller's
 cotangents, conv1_2's output and two gradients of its size.
@@ -206,7 +208,7 @@ def _segments(names, policy, own_taps=()):
 
 
 def extract_features(params, x, layers=None, compute_dtype=torch.float32,
-                     remat=False, params_on=None):
+                     remat=False, params_on=None, tap_dtype=torch.float32):
     """Runs the network forward and returns {blob: tap} for the requested
     blob names (default: all), stopping at the deepest one.
 
@@ -215,8 +217,10 @@ def extract_features(params, x, layers=None, compute_dtype=torch.float32,
     with 'wt', ops.conv.backward_weights(w), as VGG19Features keeps them;
     where a layer lacks 'wt' it is computed here, once per call. x: the
     preprocessed (1, H, W, 3) float32 input. The trunk runs in
-    compute_dtype; the taps come back as float32. remat: the policy of the
-    module docstring (remat_policy); it changes no value. x may be a
+    compute_dtype; the conv and pool taps come back as tap_dtype (float32
+    by default; the compute dtype gives each tap as the trunk's own
+    tensor), the 'data' tap as x. remat: the policy of the module
+    docstring (remat_policy); it changes no value. x may be a
     Sharded (module docstring); params_on(device) then gives the params on
     a shard's device (default: params, for shards on their device)."""
     policy = remat_policy(remat)
@@ -250,19 +254,19 @@ def extract_features(params, x, layers=None, compute_dtype=torch.float32,
         return one_conv(h, *weights(params[name]))
 
     def run(names, h):
-        """h through the blobs `names`: (h, the float32 taps among them)."""
+        """h through the blobs `names`: (h, the taps among them)."""
         taps = []
         for name in names:
             h = conv(h, name) if name.startswith('conv') else _pool(h)
             if name in wanted:
-                taps.append(h.float())
+                taps.append(h.to(tap_dtype))
         return (h,) + tuple(taps)
 
     feats = {}
     if 'data' in wanted:
         feats['data'] = x
     h = x.to(compute_dtype)
-    own_taps = (() if compute_dtype != torch.float32 else
+    own_taps = (() if tap_dtype != compute_dtype else
                 tuple(n for n in wanted if n.startswith('conv')))
     for names, checkpointed in _segments(BLOB_NAMES[1:deepest + 1], policy,
                                          own_taps):
@@ -323,7 +327,12 @@ class VGG19Features(nn.Module):
         the graph, and vjp(cotangents) = torch.autograd.grad of the taps
         with those cotangents injected, w.r.t. x — the moral equivalent of
         CaffeModel.backward's sectioned backward (worker.py:88-106). The
-        features are detached; the vjp may be called once. For a Sharded x
+        features are detached; the vjp may be called once. The conv and
+        pool taps are in the compute dtype (the JAX package's tap_dtype
+        under its bf16 loss feed: in bfloat16 the bf16 conv outputs
+        themselves, with bf16 cotangents), the 'data' tap float32 as x;
+        forward() keeps float32 taps (content features, style Grams), as
+        the JAX engine's model does. For a Sharded x
         the taps are Sharded down to the gathered level, each cotangent
         laid out as its tap, and the gradient is a Sharded laid out as x:
         one autograd pass over every shard's graph, which carries the halo
@@ -333,7 +342,7 @@ class VGG19Features(nn.Module):
         with torch.enable_grad():
             feats = extract_features(self.params, x, layers,
                                      self.compute_dtype, self.remat,
-                                     self.params_on)
+                                     self.params_on, self.compute_dtype)
 
         if isinstance(x, Sharded):
             def vjp(diffs):

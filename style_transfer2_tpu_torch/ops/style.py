@@ -30,24 +30,38 @@ shard's partial Gram X_s^T X_s / size (size the WHOLE map's c*h*w; phase
 shards on the first device, G_style subtracted once; then each shard's
 s_grad = X_s G_diff * 2/(C^2 size) against that G_diff broadcast back
 (phase 2: st2_style_grad). The plain versions run the same two phases.
+
+The bf16 loss feed (engine/objective.py; the JAX package's BF16_FEED with
+STYLE_EINSUM and STYLE_FOLD) takes the branch as its two phases over the
+tap in its own dtype, one map, lanes or a Sharded map alike:
+style_gram(feat, size), X^T X / size in float32, and style_product(feat,
+d), X D in the tap's dtype with D rounded to it first, float32 sums. A
+bfloat16 tap launches the tensor-core kernels of csrc/style.cu
+(st2_style_gram_bf16, whose partials the float32 branch's fixed-order
+reduction sums, and st2_style_grad_bf16); a float32 tap (the 'data' blob)
+the float32 phases above, the product with no scale. Their plain versions
+are style_gram_plain and style_product_plain.
 """
 
-import contextlib
 import functools
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
-from ..parallel.spatial import Sharded, broadcast, reduce_sum
+from ..parallel.spatial import Sharded, broadcast, on_device, reduce_sum
 from ..utils import aligned, sm_count
 
 # Launches of the kernel through fused_style_branch (chip_smoke.py resets
 # and reads this).
 launches = 0
-# Launches of the two phases of style_branch_sharded, one a shard each.
+# Launches of the float32 phases (style_branch_sharded, one a shard each;
+# style_gram and style_product on a float32 tap).
 gram_launches = 0
 grad_launches = 0
+# Launches of the bfloat16 phases (style_gram, style_product on a bf16 tap).
+gram_bf16_launches = 0
+grad_bf16_launches = 0
 
 _TILE = 64          # output tile edge of the Gram kernel
 _ROW_STEP = 16      # M-chunks are multiples of the kernel's staging depth
@@ -55,6 +69,9 @@ _ROW_STEP = 16      # M-chunks are multiples of the kernel's staging depth
 # gradient product's tile rows are sized so that a launch holds about this
 # many, the residency the kernels are compiled for (MIN_BLOCKS).
 _BLOCKS_PER_SM = 8
+# The bf16 Gram's blocks hold 128 threads and stage 32 rows at a time.
+_BF16_BLOCKS_PER_SM = 4
+_BF16_ROW_STEP = 32
 
 
 def fused_style_branch_plain(feat, gram_style):
@@ -84,16 +101,18 @@ def gram_tiles(c):
     return [(i, j) for i in range(nt) for j in range(i, nt)]
 
 
-def gram_plan(m, c, sms, lanes=1):
+def gram_plan(m, c, sms, lanes=1, per_sm=_BLOCKS_PER_SM,
+              row_step=_ROW_STEP):
     """(chunk, n_chunks) for the split-M Gram of `lanes` maps on a card
-    with `sms` SMs: about _BLOCKS_PER_SM blocks per SM over (tiles x chunks
-    x lanes), each chunk a multiple of 16 rows, the chunks covering rows
-    0..m-1 of each map in order."""
-    target = _BLOCKS_PER_SM * sms
+    with `sms` SMs: about per_sm blocks per SM over (tiles x chunks x
+    lanes), each chunk a multiple of row_step rows (the float32 kernel's
+    16 by default; the bf16 kernel's 4 blocks and 32 rows), the chunks
+    covering rows 0..m-1 of each map in order."""
+    target = per_sm * sms
     n_chunks = max(1, min(-(-target // (len(gram_tiles(c)) * lanes)),
-                          -(-m // _ROW_STEP)))
+                          -(-m // row_step)))
     chunk = -(-m // n_chunks)
-    chunk = -(-chunk // _ROW_STEP) * _ROW_STEP
+    chunk = -(-chunk // row_step) * row_step
     return chunk, -(-m // chunk)
 
 
@@ -117,6 +136,19 @@ def _plan(m, c, sms, lanes=1):
     n_partials = lanes * n_chunks * len(gram_tiles(cp)) * _TILE * _TILE
     return cp, chunk, n_chunks, n_partials, grad_tile_rows(m, cp, sms,
                                                            lanes)
+
+
+@functools.lru_cache(maxsize=256)
+def _bf16_plan(m, c, sms, lanes=1):
+    """(padded c, chunk, n_chunks, partials floats) of the bf16 Gram over
+    `lanes` maps. Its rows are copied in 16-byte pieces of 8 values, so a
+    C that is not a multiple of 8 (never a VGG tap) is padded with zero
+    columns."""
+    cp = -(-c // 8) * 8
+    chunk, n_chunks = gram_plan(m, cp, sms, lanes, _BF16_BLOCKS_PER_SM,
+                                _BF16_ROW_STEP)
+    return (cp, chunk, n_chunks,
+            lanes * n_chunks * len(gram_tiles(cp)) * _TILE * _TILE)
 
 
 def _launch(feat, gram_style):
@@ -173,9 +205,12 @@ def _check_current(feat):
                                                   torch.cuda.current_device()))
 
 
-def style_gram_plain(feat, size):
-    """Phase 1, plain: X^T X / size for a (1, h, w, c) shard, size the
-    whole map's element count."""
+def style_gram_plain(feat, size, lanes=False):
+    """Phase 1, plain: X^T X / size in float32 for a (1, h, w, c) map or
+    shard, size the whole map's element count; with lanes=True (B, c, c)
+    for (B, h, w, c) maps, lane by lane."""
+    if lanes:
+        return torch.stack([style_gram_plain(f[None], size) for f in feat])
     c = feat.shape[-1]
     flat = feat.reshape(-1, c).float()
     return flat.T @ flat / size
@@ -189,40 +224,93 @@ def style_grad_plain(feat, gram_diff, size):
     return s_grad.reshape(1, h, w, c)
 
 
+def style_product_plain(feat, d):
+    """The bf16 feed's gradient product, plain: X D for a (1, h, w, c) map
+    and a (c, c) D, or lane by lane for (B, h, w, c) maps and (B, c, c),
+    with D rounded to the map's dtype first, the products and sums in
+    float32 and one rounding of the result to the map's dtype."""
+    if d.dim() == 3:
+        return torch.cat([style_product_plain(f[None], di)
+                          for f, di in zip(feat, d)])
+    c = feat.shape[-1]
+    flat = feat.reshape(-1, c).float()
+    out = flat @ d.to(feat.dtype).float()
+    return out.to(feat.dtype).reshape(feat.shape)
+
+
+def _operands(feat, what, lanes=False, unit=4):
+    """(x padded to a channel multiple of `unit` and aligned, c, lanes) of
+    a (1, h, w, c) map, or with lanes of (B, h, w, c) maps, on the current
+    device."""
+    if feat.dim() != 4 or (not lanes and feat.shape[0] != 1):
+        raise ValueError('%s: expected a (1, h, w, c) map%s, got %s' % (
+            what, ' or (B, h, w, c) lanes' if lanes else '',
+            tuple(feat.shape)))
+    _check_current(feat)
+    c = feat.shape[-1]
+    cp = -(-c // unit) * unit
+    x = feat if cp == c else F.pad(feat, (0, cp - c))
+    return aligned(x), c, feat.shape[0]
+
+
 def _shard_operands(feat, what):
     """(x padded to a channel multiple of 4 and aligned, c, padded c, the
     launch plan) of a (1, h, w, c) float32 shard on the current device."""
-    if feat.dim() != 4 or feat.shape[0] != 1:
-        raise ValueError('%s: expected a (1, h, w, c) shard, got %s'
-                         % (what, tuple(feat.shape)))
     if feat.dtype != torch.float32:
         raise TypeError('%s: the kernel takes float32' % what)
-    _check_current(feat)
-    _, h, w, c = feat.shape
-    plan = _plan(h * w, c, sm_count(feat.device))
-    x = feat if plan[0] == c else F.pad(feat, (0, plan[0] - c))
-    return aligned(x), c, plan
+    x, c, _ = _operands(feat, what)
+    _, h, w, _ = feat.shape
+    return x, c, _plan(h * w, c, sm_count(feat.device))
 
 
-def style_gram(feat, size):
-    """Phase 1: X^T X / size for a (1, h, w, c) float32 shard, size the
-    whole map's c*h*w, as (c, c) on the shard's device. The kernels on a
-    CUDA shard (st2_style_gram, no target), the plain version on a CPU
-    one."""
-    global gram_launches
+def style_gram(feat, size, lanes=False):
+    """Phase 1: X^T X / size in float32 for a (1, h, w, c) map, size the
+    whole map's c*h*w, as (c, c) on its device; with lanes=True (B, c, c)
+    for (B, h, w, c) maps. A bfloat16 map on the card launches the bf16
+    Gram (st2_style_gram_bf16), a float32 one the float32 Gram
+    (st2_style_gram), both with no target; a CPU map takes the plain
+    version. A Sharded map: each shard's partial Gram under its own
+    device, summed in shard order on the first device."""
+    global gram_launches, gram_bf16_launches
+    if isinstance(feat, Sharded):
+        if lanes:
+            raise ValueError('style_gram: a Sharded map has no lane axis')
+        parts = []
+        for s in feat.shards:
+            with on_device(s):
+                parts.append(style_gram(s, size))
+        return reduce_sum(parts, feat.device)
     if not feat.is_cuda:
-        return style_gram_plain(feat, size)
-    x, c, (cp, chunk, n_chunks, n_partials, _) = _shard_operands(
-        feat, 'style_gram')
-    partials = x.new_empty(n_partials)
-    gram = x.new_empty(cp, cp)
-    err = _build.lib().st2_style_gram(
-        x.data_ptr(), None, partials.data_ptr(), gram.data_ptr(),
-        x.shape[1] * x.shape[2], cp, chunk, n_chunks, 1, 1.0 / float(size),
-        _build.stream(x))
-    _build.check(err, 'st2_style_gram')
-    gram_launches += 1
-    return gram if cp == c else gram[:c, :c].contiguous()
+        if feat.device.type == 'cpu':
+            return style_gram_plain(feat, size, lanes)
+        raise RuntimeError('style_gram: no kernel for device %s'
+                           % feat.device)
+    h, w = feat.shape[1:3]
+    m = h * w
+    sms = sm_count(feat.device)
+    if feat.dtype == torch.bfloat16:
+        x, c, b = _operands(feat, 'style_gram', lanes, 8)
+        cp, chunk, n_chunks, n_partials = _bf16_plan(m, c, sms, b)
+        entry, name = _build.lib().st2_style_gram_bf16, 'st2_style_gram_bf16'
+    elif feat.dtype == torch.float32:
+        x, c, b = _operands(feat, 'style_gram', lanes)
+        cp, chunk, n_chunks, n_partials, _ = _plan(m, c, sms, b)
+        entry, name = _build.lib().st2_style_gram, 'st2_style_gram'
+    else:
+        raise TypeError('style_gram: the kernels take bfloat16 or float32, '
+                        'got %s' % feat.dtype)
+    partials = torch.empty(n_partials, dtype=torch.float32,
+                           device=feat.device)
+    gram = torch.empty((b, cp, cp) if lanes else (cp, cp),
+                       dtype=torch.float32, device=feat.device)
+    err = entry(x.data_ptr(), None, partials.data_ptr(), gram.data_ptr(), m,
+                cp, chunk, n_chunks, b, 1.0 / float(size), _build.stream(x))
+    _build.check(err, name)
+    if feat.dtype == torch.bfloat16:
+        gram_bf16_launches += 1
+    else:
+        gram_launches += 1
+    return gram if cp == c else gram[..., :c, :c].contiguous()
 
 
 def style_grad(feat, gram_diff, size):
@@ -245,6 +333,61 @@ def style_grad(feat, gram_diff, size):
     return sgrad if cp == c else sgrad[..., :c].contiguous()
 
 
+def style_product(feat, d):
+    """The bf16 feed's gradient product: X D in the map's dtype for a
+    (1, h, w, c) map and a (c, c) float32 D on its device, or for
+    (B, h, w, c) maps and (B, c, c). D is rounded to the map's dtype
+    first. A bfloat16 map on the card launches st2_style_grad_bf16 (float32
+    sums, one rounding to bf16), a float32 one st2_style_grad with no
+    scale; a CPU map takes the plain version. A Sharded map: D rounded once
+    on the first device, broadcast, and each shard's product under its own
+    device, Sharded as the map."""
+    global grad_launches, grad_bf16_launches
+    if isinstance(feat, Sharded):
+        out = []
+        for s, ds in zip(feat.shards,
+                         broadcast(d.to(feat.dtype), feat.devices)):
+            with on_device(s):
+                out.append(style_product(s, ds))
+        return Sharded(out, feat.axis)
+    if not feat.is_cuda:
+        if feat.device.type == 'cpu':
+            return style_product_plain(feat, d)
+        raise RuntimeError('style_product: no kernel for device %s'
+                           % feat.device)
+    lanes = d.dim() == 3
+    bf16 = feat.dtype == torch.bfloat16
+    if not bf16 and feat.dtype != torch.float32:
+        raise TypeError('style_product: the kernels take bfloat16 or '
+                        'float32, got %s' % feat.dtype)
+    x, c, b = _operands(feat, 'style_product', lanes, 8 if bf16 else 4)
+    want = (b, c, c) if lanes else (c, c)
+    if tuple(d.shape) != want or d.device != feat.device:
+        raise ValueError('style_product: d must be %s on the map\'s device'
+                         % (want,))
+    cp = x.shape[-1]
+    gd = d.to(feat.dtype)
+    if cp != c:
+        gd = F.pad(gd, (0, cp - c, 0, cp - c))
+    gd = aligned(gd)
+    _, h, w, _ = x.shape
+    out = x.new_empty(b, h, w, cp)
+    if bf16:
+        err = _build.lib().st2_style_grad_bf16(
+            x.data_ptr(), gd.data_ptr(), out.data_ptr(), h * w, cp, b,
+            _build.stream(x))
+        _build.check(err, 'st2_style_grad_bf16')
+        grad_bf16_launches += 1
+    else:
+        rows = _plan(h * w, c, sm_count(feat.device), b)[4]
+        err = _build.lib().st2_style_grad(
+            x.data_ptr(), gd.data_ptr(), out.data_ptr(), h * w, cp, rows, b,
+            1.0, _build.stream(x))
+        _build.check(err, 'st2_style_grad')
+        grad_launches += 1
+    return out if cp == c else out[..., :c].contiguous()
+
+
 def style_branch_sharded(feat, gram_style):
     """(s_grad, gram_diff) of fused_style_branch for a Sharded (1, h, w, c)
     float32 map (parallel/spatial.py): phase 1 on each shard (under its
@@ -255,20 +398,14 @@ def style_branch_sharded(feat, gram_style):
     size = feat.numel()
     grams = []
     for s in feat.shards:
-        with _on(s):
+        with on_device(s):
             grams.append(style_gram(s, size))
     gram_diff = reduce_sum(grams, feat.device) - gram_style
     out = []
     for s, gd in zip(feat.shards, broadcast(gram_diff, feat.devices)):
-        with _on(s):
+        with on_device(s):
             out.append(style_grad(s, gd, size))
     return Sharded(out, feat.axis), gram_diff
-
-
-def _on(t):
-    """torch.cuda.device(t.device) for a CUDA t, else a no-op context."""
-    return (torch.cuda.device(t.device) if t.is_cuda
-            else contextlib.nullcontext())
 
 
 def fused_style_branch(feat, gram_style):

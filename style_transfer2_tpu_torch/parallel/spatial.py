@@ -47,6 +47,7 @@ would pool unevenly is gathered onto the first device, and the rest of the
 trunk runs there (models/vgg19.py).
 """
 
+import contextlib
 import logging
 
 import numpy as np
@@ -286,6 +287,13 @@ def reduce_sum(parts, device):
     for part in parts[1:]:
         total = total + part.to(device)
     return total
+
+
+def on_device(t):
+    """torch.cuda.device(t.device) for a CUDA t, else a no-op context: a
+    shard's kernels launch under its own device."""
+    return (torch.cuda.device(t.device) if t.is_cuda
+            else contextlib.nullcontext())
 
 
 def broadcast(t, devices):

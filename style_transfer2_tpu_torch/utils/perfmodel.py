@@ -41,8 +41,10 @@ The card (the H100 constants below): which unit runs each piece sets its
 peak. The trunk's convs run the port's own kernels: in float32 and
 float32_fast the SIMT FMA kernels of csrc/conv3x3.cu (TF32 reaches only
 cuBLAS and cuDNN calls off the trunk), 67 TFLOP/s; in bfloat16 the tensor
-cores (wgmma, mma.sync), 989. The style branch (csrc/style.cu) is float32
-SIMT in every precision: the taps come back as float32. SIMT has no tile;
+cores (wgmma, mma.sync), 989. The style branch (csrc/style.cu) follows the
+taps: float32 SIMT in float32 and float32_fast, and in bfloat16, whose
+loss feed keeps the taps bf16, the bf16 phases' mma.sync kernels on the
+tensor cores (989), the taps counted at 2 bytes a value. SIMT has no tile;
 on the tensor cores the tile term (conv_unit) is the share of each MMA the
 kernel keeps useful, from the padding its staging imposes. t_compute is
 tile-aware; mfu_at is raw (FLOPs over the precision's peak), as in the
@@ -81,7 +83,8 @@ LINK_LATENCY = 5e-6
 
 DTYPE_BYTES = {'float32': 4, 'float32_fast': 4, 'bfloat16': 2}
 
-# The peak of the unit that runs each precision's convs.
+# The peak of the unit that runs each precision's convs, and its style
+# branch (the bf16 feed's phases on the tensor cores).
 _CONV_PEAK = {'float32': F32_FLOPS, 'float32_fast': F32_FLOPS,
               'bfloat16': BF16_FLOPS}
 
@@ -230,14 +233,15 @@ def _step(hw, precision, remat, content_layers, style_layers,
             if remat == 'block':
                 hbm += 2 * (act // 4)      # block boundary save + reload
 
-    # Gram + style-gradient matmuls on the taps' grids: float32 SIMT.
+    # Gram + style-gradient matmuls on the taps' grids: float32 SIMT, or in
+    # bfloat16 the feed's tensor-core phases.
     grids = _tap_grids(hw)
     for layer in style_layers:
         hh, ww = grids[layer]
         c = layer_channels(layer)
         gram_flops = 2 * 2.0 * hh * ww * c * c   # gram + grad matmuls
         flops += gram_flops
-        seconds += gram_flops / F32_FLOPS
+        seconds += gram_flops / _CONV_PEAK[precision]
         hbm += 2 * (hh * ww * c * b) + 2 * c * c * b
 
     # The step state: iterate in and out, the L-BFGS history (n_corr 10).
@@ -271,8 +275,8 @@ def model_step(hw, precision='bfloat16', remat=False,
 #     a forward, over the n - 1 boundaries, and in the backward the
 #     gradients of those rows go back to the shard they came from: 2 (n -
 #     1) rows of (W, Cin) again. Under 'block' remat the forward, halo
-#     included, runs again inside the backward, except at a float32 conv
-#     whose output is a tap (a part of its own, not checkpointed:
+#     included, runs again inside the backward, except at a conv whose
+#     output is a tap (a part of its own, not checkpointed:
 #     models/vgg19.py _segments); 'conv' remat checkpoints the conv alone,
 #     after its halo. The JAX model counted, per device, 2 rows of Cin a
 #     forward and 2 rows of Cout of cotangent a backward.
@@ -363,7 +367,7 @@ def model_step_sharded(hw, n_shards, precision='bfloat16', remat='block',
         for name, _, ww, c_in, c_out in _grid_walk(hw):
             if name not in sharded:
                 continue
-            own_part = precision != 'bfloat16' and name in taps
+            own_part = name in taps
             halo_fwd = 2 if remat == 'block' and not own_part else 1
             row = ww * c_in * b
             halo += (halo_fwd + 1) * 2 * (n - 1) * row
@@ -415,19 +419,29 @@ def conv_cost(n, h, w, cin, cout, direction, precision):
     return flops, size * (px * (2 * cout + cin) + 9 * cin * cout)
 
 
-def style_cost(m, c, lanes=1, phase=None):
+def style_cost(m, c, lanes=1, phase=None, precision='float32'):
     """(FLOPs, bytes) of the style branch at a (M, C) float32 map, each
     lane: the symmetric Gram (its upper triangle with the diagonal, M*C*(C
     + 1)) and the gradient product (2*M*C^2); X and G_style read, G_diff
     and s_grad written, once. phase 'gram' or 'grad': one of the two
-    phases of the sharded branch (ops/style.py style_gram: X read, the
-    Gram written; style_grad: X and G_diff read, s_grad written)."""
+    phases (ops/style.py style_gram: X read, the float32 Gram written;
+    style_grad, style_product: X and D read, the product written), whose
+    map, D and product are in `precision`'s dtype (bfloat16: the feed's
+    phases, 2 bytes a value)."""
+    b = DTYPE_BYTES[precision]
     if phase == 'gram':
-        return lanes * m * c * (c + 1), lanes * 4 * (m * c + c * c)
+        return lanes * m * c * (c + 1), lanes * (b * m * c + 4 * c * c)
     if phase == 'grad':
-        return lanes * 2 * m * c * c, lanes * 4 * (2 * m * c + c * c)
+        return lanes * 2 * m * c * c, lanes * b * (2 * m * c + c * c)
     return (lanes * (m * c * (c + 1) + 2 * m * c * c),
             lanes * 4 * (2 * m * c + 2 * c * c))
+
+
+def sumsq_cost(n, precision='bfloat16'):
+    """(FLOPs, bytes) of ops/reduce.py sumsq over n values of `precision`'s
+    dtype: a float32 multiply and add a value (SIMT: bound them at
+    'float32'), the values read once and one float32 written."""
+    return 2 * n, DTYPE_BYTES[precision] * n + 4
 
 
 def image_cost(px, src_itemsize, kind):

@@ -526,7 +526,8 @@ def test_bf16_unaligned_view_takes_the_tile_path(cuda, monkeypatch,
 def test_serve_driver_runs_on_card(cuda, precision):
     """The serving driver at 64px on the card, a single step and then
     pipelined chunks: its engine is on CUDA, the iterates are finite and
-    every kernel was launched."""
+    every kernel was launched (the style branch: the fused float32 kernel,
+    or in bfloat16 the loss feed's bf16 phases)."""
     import asyncio
     from pathlib import Path
 
@@ -544,7 +545,8 @@ def test_serve_driver_runs_on_card(cuda, precision):
         np.uint8) for _ in range(3))
 
     def launches():
-        return (conv.launches('fwd'), conv.launches('bwd'), style.launches,
+        return (conv.launches('fwd'), conv.launches('bwd'),
+                style.launches + style.gram_bf16_launches,
                 image.preprocess_launches, image.deprocess_launches)
 
     before = launches()
@@ -1249,9 +1251,11 @@ def test_sharded_engine_on_card_matches_unsharded(cuda, precision, rtol):
     engine, both graphed: 48x64, 4 L-BFGS steps, every trace key of the
     prime within rtol (float32: of every step); the sharded step is
     captured once and replayed, and the launches counted (replays
-    credited) are both style phases on the three style layers above the
-    gathered level (12 rows a shard: pool3 gathers), the fused branch
-    on conv4_1, once an evaluation."""
+    credited) are, in float32, both style phases on the three style
+    layers above the gathered level (12 rows a shard: pool3 gathers), the
+    fused branch on conv4_1, once an evaluation; in bfloat16 the loss
+    feed's bf16 Gram once a shard on those three and once on conv4_1, and
+    no float32 style kernel."""
     from style_transfer2_tpu_torch.engine import StyleTransfer
     from style_transfer2_tpu_torch.models import random_params
     from style_transfer2_tpu_torch.parallel import (Mesh, Sharded,
@@ -1272,13 +1276,17 @@ def test_sharded_engine_on_card_matches_unsharded(cuda, precision, rtol):
         st.set_style(images[1])
         st.set_input(images[2])
         assert st.start()
-        before = (style.gram_launches, style.launches)
+        before = (style.gram_launches, style.launches,
+                  style.gram_bf16_launches)
         st.run_steps(4)
         if placement is not None:
             assert isinstance(st._input, Sharded)
             assert len(st._graphs) == 1
-            assert (style.gram_launches - before[0],
-                    style.launches - before[1]) == (4 * 3 * 5, 5)
+            got = (style.gram_launches - before[0],
+                   style.launches - before[1],
+                   style.gram_bf16_launches - before[2])
+            assert got == ((4 * 3 * 5, 5, 0) if precision == 'float32'
+                           else (0, 0, (4 * 3 + 1) * 5))
         runs.append([t.data for t in st.traces])
     rows = range(5) if precision == 'float32' else [0]
     for i in rows:
@@ -1287,3 +1295,100 @@ def test_sharded_engine_on_card_matches_unsharded(cuda, precision, rtol):
                 continue
             got = runs[1][i][key]
             assert abs(got - want) <= rtol * abs(want), (i, key, got, want)
+
+
+# -- the bf16 loss feed's kernels (ops/style.py style_gram, style_product on
+# a bf16 tap; ops/reduce.py sumsq) ---------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(1, 97, 53, 64), (1, 45, 37, 128),
+                                   (1, 23, 29, 256), (1, 11, 13, 512),
+                                   (3, 17, 19, 64), (2, 9, 7, 72),
+                                   (1, 5, 6, 60)])
+def test_feed_style_phases_match_plain_and_repeat(cuda, shape):
+    """The bf16 Gram and product at ragged M, at a C that is no multiple
+    of the 64-wide tile (72) or of the 8-value copy (60, padded), one map
+    and lanes: the Gram within 1e-4 of the plain version's largest entry,
+    the product within one bf16 ulp of the plain version's (2^-7 of the
+    largest value: the two sum in float32 in different orders, then round
+    once) and its bits in at least 99% of the values; two calls give the
+    same bits, and no float32 kernel launches."""
+    rng = np.random.RandomState(shape[-1] + shape[0])
+    lanes = shape[0] > 1
+    feat = torch.relu(torch.from_numpy(np.float32(rng.randn(*shape)))).to(
+        cuda, torch.bfloat16)
+    size = 4 * shape[1] * shape[2] * shape[3]      # a quarter of a map
+    c = shape[-1]
+    d = torch.from_numpy(np.float32(rng.randn(*((shape[0],) if lanes
+                                                else ()), c, c))).to(cuda)
+    before = (style.gram_launches, style.grad_launches,
+              style.gram_bf16_launches, style.grad_bf16_launches)
+    g = style.style_gram(feat, size, lanes)
+    s = style.style_product(feat, d)
+    assert (style.gram_launches, style.grad_launches) == before[:2]
+    assert (style.gram_bf16_launches, style.grad_bf16_launches) == (
+        before[2] + 1, before[3] + 1)
+    assert g.dtype == torch.float32 and s.dtype == torch.bfloat16
+    assert torch.equal(g, style.style_gram(feat, size, lanes))
+    assert torch.equal(s, style.style_product(feat, d))
+    g_ref = style.style_gram_plain(feat, size, lanes)
+    s_ref = style.style_product_plain(feat, d)
+    assert g.shape == g_ref.shape and s.shape == s_ref.shape == feat.shape
+    assert float((g - g_ref).abs().max()) <= 1e-4 * float(g_ref.abs().max())
+    assert float((s.float() - s_ref.float()).abs().max()) <= 2 ** -7 * float(
+        s_ref.float().abs().max())
+    assert float((s == s_ref).float().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,lanes', [
+    ((1, 97, 53, 64), False), ((1, 384, 512, 64), False),
+    ((4, 48, 64, 512), True), ((3, 5, 7, 3), True), ((1, 1, 1, 5), False)])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_sumsq_matches_float64_and_repeats(cuda, shape, lanes, dtype):
+    """sumsq of a bf16 or float32 tensor, whole or per lane, at lengths no
+    multiple of the 8-value load: within 1e-5 of float64 on the same
+    values, the same bits on a second call, one launch a call."""
+    rng = np.random.RandomState(shape[-1])
+    t = torch.from_numpy(np.float32(rng.randn(*shape))).to(cuda, dtype)
+    from style_transfer2_tpu_torch.ops import reduce
+    before = reduce.launches
+    got = reduce.sumsq(t, lanes)
+    assert reduce.launches == before + 1
+    assert torch.equal(got, reduce.sumsq(t, lanes))
+    dims = tuple(range(1, len(shape))) if lanes else None
+    sq = t.double().square()
+    want = sq.sum(dim=dims) if lanes else sq.sum()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float((got.double() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+@pytest.mark.cuda
+def test_sumsq_takes_an_unaligned_view(cuda):
+    """A view one element into a larger bf16 tensor is copied aligned
+    (utils.aligned) and summed as the contiguous tensor."""
+    from style_transfer2_tpu_torch.ops import reduce
+    t = torch.randn(4097, device=cuda).to(torch.bfloat16)
+    view = t[1:]
+    assert view.data_ptr() % 16 != 0
+    assert torch.equal(reduce.sumsq(view), reduce.sumsq(view.clone()))
+
+
+@pytest.mark.cuda
+def test_feed_wrappers_never_take_the_plain_path_on_cuda(cuda, monkeypatch):
+    """On CUDA tensors the feed's wrappers launch their kernels: the plain
+    versions, made to raise, are never called."""
+    from style_transfer2_tpu_torch.ops import reduce
+
+    def refuse(*args, **kwargs):
+        raise AssertionError('plain version called on CUDA')
+
+    for module, name in ((style, 'style_gram_plain'),
+                         (style, 'style_product_plain'),
+                         (reduce, 'sumsq_plain')):
+        monkeypatch.setattr(module, name, refuse)
+    feat = torch.rand(1, 16, 16, 64, device=cuda).to(torch.bfloat16)
+    style.style_gram(feat, feat.numel())
+    style.style_product(feat, torch.rand(64, 64, device=cuda))
+    reduce.sumsq(feat)

@@ -123,9 +123,10 @@ def test_tile_term_follows_the_planners(k, n, direction, hw):
 
 def test_bf16_step_by_hand_at_512px():
     """The 384x512 bf16 step at initial_weights.yaml's taps: conv1_1's
-    forward at 3/32 of the tensor cores' peak, its dx and the style
-    branch at the SIMT peak, every other conv at the tensor cores' full
-    peak. Compute-bound, where the untiled model is nearly balanced."""
+    forward at 3/32 of the tensor cores' peak, its dx at the SIMT peak,
+    the style branch (the bf16 feed's phases) and every other conv at the
+    tensor cores' full peak. Compute-bound, where the untiled model is
+    nearly balanced."""
     hw = (384, 512)
     got = perfmodel.model_step(hw, 'bfloat16', content_layers=INITIAL[0],
                                style_layers=INITIAL[1])
@@ -139,7 +140,7 @@ def test_bf16_step_by_hand_at_512px():
             seconds += 2 * f / 989e12
     for m, c in _grams(hw, INITIAL[1]):
         flops += 4.0 * m * c * c
-        seconds += 4.0 * m * c * c / 67e12
+        seconds += 4.0 * m * c * c / 989e12
     np.testing.assert_allclose(got.flops, flops, rtol=1e-12)
     np.testing.assert_allclose(got.t_compute, seconds, rtol=1e-12)
     assert got.bound == 'compute'
@@ -149,6 +150,40 @@ def test_bf16_step_by_hand_at_512px():
     assert got.working_bytes == 384 * 512 * 128 * 2 + 9 * 64 * 64 * 2
     assert got.fits_l2
     assert not perfmodel.model_step(hw, 'float32').fits_l2
+
+
+@pytest.mark.parametrize('hw', [(384, 512), (2880, 3840)])
+def test_bf16_style_route_and_tap_bytes(hw):
+    """The bf16 feed moves the style branch to the tensor cores: a bf16
+    step's style seconds are its Gram FLOPs at 989 TFLOP/s (float32's at
+    67, unchanged), its counts the JAX model's in both; the bf16 phases'
+    costs count the map, D and the product at 2 bytes a value (the Gram
+    float32), and sumsq reads 2 bytes a bf16 value."""
+    style_flops = sum(4.0 * m * c * c for m, c in _grams(hw, INITIAL[1]))
+    steps = {p: perfmodel.model_step(hw, p, content_layers=INITIAL[0],
+                                     style_layers=INITIAL[1])
+             for p in ('float32', 'bfloat16')}
+    no_style = {p: perfmodel.model_step(hw, p, content_layers=INITIAL[0],
+                                        style_layers=())
+                for p in steps}
+    for p, peak in (('float32', 67e12), ('bfloat16', 989e12)):
+        np.testing.assert_allclose(
+            steps[p].t_compute - no_style[p].t_compute, style_flops / peak,
+            rtol=1e-9)
+        jax_model = jax_perfmodel.model_step(
+            hw, p, content_layers=INITIAL[0], style_layers=INITIAL[1])
+        assert steps[p].flops == jax_model.flops
+        assert steps[p].hbm_bytes == jax_model.hbm_bytes
+    for m, c in _grams(hw, INITIAL[1]):
+        f32 = [perfmodel.style_cost(m, c, phase=ph) for ph in ('gram',
+                                                                'grad')]
+        bf16 = [perfmodel.style_cost(m, c, phase=ph, precision='bfloat16')
+                for ph in ('gram', 'grad')]
+        assert [f for f, _ in bf16] == [f for f, _ in f32]
+        assert bf16[0][1] == 2 * m * c + 4 * c * c
+        assert bf16[1][1] == 2 * (2 * m * c + c * c)
+        assert perfmodel.sumsq_cost(m * c) == (2 * m * c, 2 * m * c + 4)
+    assert perfmodel.sumsq_cost(10, 'float32') == (20, 44)
 
 
 def test_mfu_and_share_of_floor_by_hand():

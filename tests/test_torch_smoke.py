@@ -116,10 +116,33 @@ def test_require_all_launched_needs_graph_replays(monkeypatch):
     ones = dict.fromkeys(chip_smoke.KERNELS, 1)
     monkeypatch.setattr(chip_smoke, 'replays', lambda: 0)
     with pytest.raises(RuntimeError, match='no step graph replayed'):
-        chip_smoke.require_all_launched(ones, 'main float32')
+        chip_smoke.require_all_launched(ones, 'main float32', ('float32',))
     monkeypatch.setattr(chip_smoke, 'replays', lambda: 19)
-    chip_smoke.require_all_launched(ones, 'main float32')
+    chip_smoke.require_all_launched(ones, 'main float32', ('float32',))
     assert chip_smoke.REPLAYS['main float32'] == 19
+
+
+@pytest.mark.parametrize('precisions,missing,fails', [
+    (('float32',), 'sumsq', False), (('float32',), 'fused_style_branch',
+                                     True),
+    (('bfloat16',), 'fused_style_branch', False),
+    (('bfloat16',), 'sumsq', True), (('bfloat16',), 'style_grad_bf16', True),
+    (('bfloat16', 'float32'), 'fused_style_branch', True),
+    (('bfloat16', 'float32'), 'style_gram_bf16', True)])
+def test_require_all_launched_follows_the_precision(monkeypatch, precisions,
+                                                   missing, fails):
+    """A float32 run needs the fused style branch and not the bf16 feed's
+    kernels, a bfloat16 run the feed's (its bf16 style phases and sumsq)
+    and not the fused branch, a bfloat16 run with a float32 polish
+    both."""
+    monkeypatch.setattr(chip_smoke, 'replays', lambda: 1)
+    counts = dict(dict.fromkeys(chip_smoke.KERNELS, 1), **{missing: 0})
+    if fails:
+        with pytest.raises(RuntimeError, match='%s never launched'
+                           % missing):
+            chip_smoke.require_all_launched(counts, 'run', precisions)
+    else:
+        chip_smoke.require_all_launched(counts, 'run', precisions)
 
 
 def _highres_on_the_cpu(monkeypatch, tmp_path):
@@ -597,15 +620,28 @@ def test_shard_phase_runs_on_the_cpu(monkeypatch, tmp_path):
                         ('GRAPH_HOST_CHUNK', 1), ('GRAPH_ROUNDS', 1)):
         monkeypatch.setattr(chip_smoke, name, value)
     monkeypatch.setattr(chip_smoke, 'shard_nodes', lambda *a: None)
-    # The plain versions count no launches: the counts the float32 run
-    # needs. Of initial_weights.yaml's 4 style layers, conv1_1 and conv2_1
-    # stay sharded at 6 rows a shard (pool2 gathers): 4 shards x 2 layers
-    # x 5 evaluations (the prime and 4 steps) a phase, the fused branch 2
-    # x 5.
+    # The plain versions count no launches: the counts each precision's
+    # run needs. Of initial_weights.yaml's 4 style layers, conv1_1 and
+    # conv2_1 stay sharded at 6 rows a shard (pool2 gathers): in float32 4
+    # shards x 2 layers x 5 evaluations (the prime and 4 steps) a phase,
+    # the fused branch 2 x 5; in bfloat16 the feed's bf16 phases (4 x 2 +
+    # 2) x 5 and no float32 style kernel.
     counts = dict(dict.fromkeys(chip_smoke.KERNELS, 1), style_gram=40,
-                  style_grad=40, fused_style_branch=10)
-    monkeypatch.setattr(chip_smoke, 'shard_launch_counts',
-                        lambda: dict(counts))
+                  style_grad=40, fused_style_branch=10, style_gram_bf16=0,
+                  style_grad_bf16=0, sumsq=0)
+    bf16_counts = dict(counts, style_gram=0, style_grad=0,
+                       fused_style_branch=0, style_gram_bf16=50,
+                       style_grad_bf16=50, sumsq=1)
+    engines = []
+    real_engine = chip_smoke.shard_engine
+
+    def shard_engine(inputs, precision, *args, **kwargs):
+        engines.append(precision)
+        return real_engine(inputs, precision, *args, **kwargs)
+
+    monkeypatch.setattr(chip_smoke, 'shard_engine', shard_engine)
+    monkeypatch.setattr(chip_smoke, 'shard_launch_counts', lambda: dict(
+        bf16_counts if engines[-1] == 'bfloat16' else counts))
     fake = types.SimpleNamespace(
         device=torch.device, cuda=types.SimpleNamespace(
             synchronize=lambda: None, memory_allocated=lambda: 0,
@@ -660,3 +696,31 @@ def test_shard_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     assert result['checkpoint']['resumed_equal']
     assert result['batch']['worst_rel_err'] <= chip_smoke.PARITY_RTOL
     assert result['cli'] == {'mesh_1': 'ok'}
+
+
+@pytest.mark.usefixtures('one_thread')
+@pytest.mark.parametrize('fold', [False, True])
+def test_feed_eval_parity_runs_on_the_cpu(monkeypatch, fold):
+    """The parity phase's bf16 feed check end to end on the CPU, both
+    engines there (so every evaluation agrees exactly), unfolded and
+    folded, with the card-only launch counts stubbed; the fold floor is
+    restored after."""
+    from style_transfer2_tpu_torch.engine import objective
+    from style_transfer2_tpu_torch.models import random_params
+    counts = dict(dict.fromkeys(chip_smoke.KERNELS, 1),
+                  fused_style_branch=0)
+    monkeypatch.setattr(chip_smoke, 'counters', lambda: dict(counts))
+    rng = np.random.RandomState(0)
+    images = tuple(rng.randint(0, 256, (24, 32, 3)).astype(np.uint8)
+                   for _ in range(3))
+    weights = {'content': {'conv4_2': 0.08},
+               'style': {n: 1.0 for n in ('conv1_1', 'conv2_1')}}
+    scalars = {'p': 50.0, 'p_power': 6.0, 'tv': 5.0, 'tv_power': 2.0}
+    worst = chip_smoke.feed_eval_parity(torch, random_params(0), weights,
+                                        scalars, images, fold, 'cpu')
+    assert worst[0] == 0.0
+    assert objective.STYLE_FOLD_MIN_PIXELS == 500_000
+    counts['fused_style_branch'] = 1
+    with pytest.raises(RuntimeError, match='float32 style branch'):
+        chip_smoke.feed_eval_parity(torch, random_params(0), weights,
+                                    scalars, images, fold, 'cpu')
