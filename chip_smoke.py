@@ -346,14 +346,17 @@ FEED_KERNELS = ('style_gram_bf16', 'style_grad_bf16', 'sumsq')
 PRECISION_KERNELS = {
     'float32': tuple(k for k in KERNELS if k not in FEED_KERNELS),
     'bfloat16': tuple(k for k in KERNELS if k != 'fused_style_branch')}
-# Each kernel's sources (the first holds its entry point) and the TPU
-# kernel it replaces. The convs' bfloat16 wgmma paths and their split sum
-# run in conv3x3_wgmma.cu, everything else of the convs in conv3x3.cu.
+# Each kernel's sources (the first holds its entry point; wgmma.cuh holds
+# the Hopper helpers both wgmma files include) and the TPU kernel it
+# replaces. The convs' bfloat16 wgmma paths and their split sum run in
+# conv3x3_wgmma.cu, everything else of the convs in conv3x3.cu.
 # sumsq replaces no Pallas kernel: it is the JAX feed's f32_sumsq, which
 # XLA fused.
 _CONV_SOURCES = ('style_transfer2_tpu_torch/csrc/conv3x3.cu',
-                 'style_transfer2_tpu_torch/csrc/conv3x3_wgmma.cu')
-_STYLE_SOURCES = ('style_transfer2_tpu_torch/csrc/style.cu',)
+                 'style_transfer2_tpu_torch/csrc/conv3x3_wgmma.cu',
+                 'style_transfer2_tpu_torch/csrc/wgmma.cuh')
+_STYLE_SOURCES = ('style_transfer2_tpu_torch/csrc/style.cu',
+                  'style_transfer2_tpu_torch/csrc/wgmma.cuh')
 _STYLE_KERNEL = 'style_transfer2_tpu/ops/pallas/style_kernel.py:35'
 SOURCES = {
     'conv3x3_bias_relu_fwd': (_CONV_SOURCES,
@@ -614,6 +617,34 @@ def median_ms(fn, torch, reps=15, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def replay_ms(fn, torch, calls=10, replays=5):
+    """The device's milliseconds per call of fn(): `calls` calls captured
+    into one CUDA graph on a side stream (after a warm-up there), the
+    graph replayed `replays` times between two CUDA events. No host work
+    falls between the launches, so this is the kernels' own time and the
+    gaps between them; a call's outputs are freed inside the capture, so
+    the graph's pool holds about one call's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def profile_session(fn, torch, calls):
@@ -1118,9 +1149,10 @@ def check_feed_style(torch, rng, tap, where, pending, lanes=1, n=1,
     same bf16 values (FEED_GRAM_TOL, FEED_PRODUCT_TOL) and against its
     plain version, bitwise repeatable, timed beside its plain version and
     cuBLAS's bf16 GEMM (torch.mm, or torch.bmm over lanes: the library
-    yardstick, bf16 out). The product takes the Gram difference the Gram
-    phase gave against a target drawn like the map. Returns the two
-    rows."""
+    yardstick, bf16 out), launch-inclusive (ms) and replayed from a CUDA
+    graph (replay_ms: the device's own time). The product takes the Gram
+    difference the Gram phase gave against a target drawn like the map.
+    Prints and returns the two rows."""
     from style_transfer2_tpu_torch.ops import style
     from style_transfer2_tpu_torch.utils import perfmodel
     h, w, c = tap
@@ -1184,6 +1216,7 @@ def check_feed_style(torch, rng, tap, where, pending, lanes=1, n=1,
 
         def grad_lib():
             return torch.mm(flat2, d_bf16)
+    calls = 3 if timing == HIGHRES_TIMING else 10
     for name, phase, kernel, plain_fn, lib, err, r, p_rel in (
             ('style_gram_bf16', 'gram',
              lambda: style.style_gram(feat, size, many),
@@ -1197,6 +1230,8 @@ def check_feed_style(torch, rng, tap, where, pending, lanes=1, n=1,
         row = {'kernel': name, 'dtype': 'bfloat16', 'where': where,
                'shape': list(tap), 'lanes': lanes, 'ms': timed(kernel),
                'plain_ms': timed(plain_fn), 'library_ms': timed(lib),
+               'replay_ms': replay_ms(kernel, torch, calls),
+               'library_replay_ms': replay_ms(lib, torch, calls),
                'bound_ms': t_b, 'bound_by': t_by, 'abs_err': err,
                'f64_rel_err': r, 'plain_f64_rel_err': p_rel}
         if phase == 'grad':
@@ -1204,17 +1239,15 @@ def check_feed_style(torch, rng, tap, where, pending, lanes=1, n=1,
         pending.append((row, '', kernel))
         pending.append((row, 'library_', lib))
         rows.append(row)
-    say('kernels', 'style bf16 %-8s %-16s x%d: gram %.3f ms (plain %.3f, '
-        'cuBLAS bf16 %.3f; %.0f%% of bound %.3f) f64 err %.2g (plain %.2g); '
-        'product %.3f ms (plain %.3f, cuBLAS bf16 %.3f; %.0f%% of bound '
-        '%.3f) f64 err %.2g (plain %.2g), %.4f of its values the plain '
-        'version\'s bits; bitwise repeatable' % (
-            where, tap, lanes, rows[0]['ms'], rows[0]['plain_ms'],
-            rows[0]['library_ms'], 100 * rows[0]['bound_ms'] / rows[0]['ms'],
-            rows[0]['bound_ms'], g_rel, plain[0], rows[1]['ms'],
-            rows[1]['plain_ms'], rows[1]['library_ms'],
-            100 * rows[1]['bound_ms'] / rows[1]['ms'], rows[1]['bound_ms'],
-            s_rel, plain[1], same))
+        say('kernels', 'style bf16 %-9s %-16s x%d %s: %.4f ms, device %.4f '
+            'ms (%.0f%% of its %s bound %.4f); cuBLAS bf16 %.4f ms, device '
+            '%.4f; plain %.4f ms; f64 err %.2g (plain %.2g)%s; bitwise '
+            'repeatable' % (
+                where, tap, lanes, phase, row['ms'], row['replay_ms'],
+                100 * t_b / row['replay_ms'], t_by, t_b, row['library_ms'],
+                row['library_replay_ms'], row['plain_ms'], r, p_rel,
+                ', %.4f of its values the plain version\'s bits' % same
+                if phase == 'grad' else ''))
     return rows
 
 
@@ -1286,11 +1319,17 @@ def check_feed(torch, rng, hw, where, pending, worst, parts=None, lanes=1,
             parts[row['kernel']].append((row, ''))
     for name in FEED_KERNELS:
         mine = [r for r in rows if r['kernel'] == name]
-        say('kernels', '%s %s x%d summed over its %d calls: %.3f ms (plain '
-            '%.3f; bound %.3f)' % (name, where, lanes, len(mine),
-                                   sum(r['ms'] for r in mine),
-                                   sum(r['plain_ms'] for r in mine),
-                                   sum(r['bound_ms'] for r in mine)))
+        device = ''
+        if 'replay_ms' in mine[0]:
+            device = ', device %.4f (cuBLAS bf16 %.4f, device %.4f)' % (
+                sum(r['replay_ms'] for r in mine),
+                sum(r['library_ms'] for r in mine),
+                sum(r['library_replay_ms'] for r in mine))
+        say('kernels', '%s %s x%d summed over its %d calls: %.4f ms%s '
+            '(plain %.3f; bound %.4f)' % (name, where, lanes, len(mine),
+                                          sum(r['ms'] for r in mine), device,
+                                          sum(r['plain_ms'] for r in mine),
+                                          sum(r['bound_ms'] for r in mine)))
     return rows
 
 

@@ -1,18 +1,20 @@
 """Builds the CUDA kernels in csrc/ and binds them with ctypes.
 
 The sources (csrc/conv3x3.cu, conv3x3_wgmma.cu, style.cu, reduce.cu,
-image.cu) are compiled at first use, on the machine with the card, by nvcc
-into one shared library with a plain C interface: one nvcc per source, all
-started together, then one link:
+image.cu; conv3x3_wgmma.cu and style.cu include csrc/wgmma.cuh) are
+compiled at first use, on the machine with the card, by nvcc into one
+shared library with a plain C interface: one nvcc per source, all started
+together, then one link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu  (each)
     nvcc -shared -o libst2kernels.so *.o
 
 The library goes to build/kernels/<hash>/ under the repository root (listed
-in .gitignore), keyed by a hash of the sources and the flags, so an edited
-kernel rebuilds and an unchanged one loads at once. nvcc's output, ptxas's
-register and shared-memory report included, is kept beside it as build.log.
+in .gitignore), keyed by a hash of the sources, the headers and the flags,
+so an edited kernel or header rebuilds and an unchanged one loads at
+once. nvcc's output, ptxas's register and shared-memory report included,
+is kept beside it as build.log.
 
 The wrappers launch through lib() and stream(), which cost a launch as
 little host time as they can: after the first build lib() hands out the
@@ -58,7 +60,7 @@ _SIGNATURES = {
     'st2_style_gram': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     'st2_style_grad': [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     'st2_style_gram_bf16': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    'st2_style_grad_bf16': [_P, _P, _P, _I, _I, _I, _P],
+    'st2_style_grad_bf16': [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     'st2_sumsq': [_P, _P, _P, _L, _L, _I, _I, _I, _P],
     'st2_preprocess': [_P, _P, _P, _P],
     'st2_deprocess': [_P, _P, _P, _P],
@@ -75,7 +77,14 @@ _lib = None
 
 
 def _sources():
+    """The sources nvcc compiles, one object each."""
     return sorted(CSRC.glob('*.cu'))
+
+
+def _hashed():
+    """What the build depends on: the sources and the headers they
+    include (csrc/*.cuh)."""
+    return sorted(CSRC.glob('*.cu')) + sorted(CSRC.glob('*.cuh'))
 
 
 def _nvcc():
@@ -93,7 +102,7 @@ def _nvcc():
 def build_dir():
     """The directory this version of the sources builds into."""
     digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _hashed():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_ROOT / digest.hexdigest()[:16]

@@ -17,7 +17,9 @@ called on the same inputs, each call on both sides back to back in turns
               torch's host path for the rest of the process.
   device_ms — summed by group: the conv forward and backward in float32
               and bfloat16 over the same steps, the style branch at those
-              iterates' taps, and preprocess (uint8) and deprocess over
+              iterates' taps, the bf16 feed's two style phases (style_gram,
+              style_product) at the 512px taps, one map and 4 lanes, and
+              at 2880x3840's, and preprocess (uint8) and deprocess over
               the 7 rungs of the 1024px ladder. Two profiler sessions that
               saw the most kernels must agree, as in chip_smoke.py; a
               group with a call not measured has no sum in that round.
@@ -78,6 +80,13 @@ def calls(ops, cases):
     for (where, tap), (feat, gram) in cases['style'].items():
         out[('style ' + where, str(tap))] = (
             lambda f=feat, s=gram: style._launch(f, s))
+    for (where, tap), (feat, d) in cases['feed'].items():
+        size = feat[0].numel()
+        lanes = feat.shape[0] > 1
+        out[('style bf16 gram ' + where, str(tap))] = (
+            lambda f=feat, n=size, b=lanes: style.style_gram(f, n, b))
+        out[('style bf16 grad ' + where, str(tap))] = (
+            lambda f=feat, d=d: style.style_product(f, d))
     for hw, (src, x) in cases['image'].items():
         out[('preprocess', str(hw))] = (
             lambda s=src: image._launch_preprocess(s))
@@ -92,7 +101,7 @@ def inputs(chip_smoke, dev, seed=0):
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.float32(a), device=dev).to(dtype)
 
-    cases = {'conv': {}, 'style': {}, 'image': {}}
+    cases = {'conv': {}, 'style': {}, 'feed': {}, 'image': {}}
     for name, dtype in DTYPES.items():
         for where, hw in STEPS.items():
             # Every conv of the step, a shape run three times three times.
@@ -111,6 +120,19 @@ def inputs(chip_smoke, dev, seed=0):
             flat = feat.reshape(-1, c)
             cases['style'][(where, (h, w, c))] = (
                 feat, flat.T @ flat / flat.numel())
+    # The bf16 feed's style phases at the 512px taps, one map and 4 lanes,
+    # and at 2880x3840's (drawn on the card: the host would take minutes).
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for where, hw, lanes in (('512', STEPS['512'], 1),
+                             ('512x4', STEPS['512'], chip_smoke.LANES),
+                             ('2880x3840', chip_smoke.HIGHRES_HW, 1)):
+        for h, w, c in chip_smoke.style_taps(*hw):
+            feat = torch.relu(torch.randn((lanes, h, w, c), generator=gen,
+                                          device=dev)).to(torch.bfloat16)
+            d = torch.randn((lanes, c, c) if lanes > 1 else (c, c),
+                            generator=gen, device=dev) * 1e-3
+            cases['feed'][(where, (h, w, c))] = (feat, d)
     for hw in chip_smoke.LADDER_1024:
         cases['image'][hw] = (
             torch.from_numpy(rng.randint(0, 256, hw + (3,)).astype(

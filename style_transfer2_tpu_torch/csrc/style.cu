@@ -61,34 +61,61 @@
 // bfloat16 taps (the JAX package's bf16 loss feed, engine/objective.py:
 // the Gram and the gradient product as two einsums over the bf16 tap, the
 // Gram accumulated in float32 and the gradient emitted in bf16) take two
-// kernels of their own, one a phase, on the tensor cores:
-//   (a') gram_partials_bf16_kernel: the split-M Gram of (a) over the same
-//        upper-triangle tiles and chunks, X bf16, each 64 x 64 tile of X^T
-//        X accumulated in float32 by mma.sync m16n8k16, into the same
-//        float32 partials, which (b) reduces as it always did;
-//   (c') style_grad_bf16_kernel: X (M x C, bf16) times D (C x C, bf16:
-//        the wrapper rounds the float32 G_diff, folded or not, to bf16
-//        first, as the JAX feed's gram_diff.astype(bf16) does), float32
-//        accumulation, one rounding of each output to bf16. No scale: the
-//        feed folds every factor into D or into one scalar multiply.
-// What bounds them: at the 512px taps the two products are about 2.4
-// GFLOP, 2.4 us at the tensor cores' 989 TFLOP/s, against about 12 us of
-// memory traffic (X read twice over the phases, the bf16 gradient written
-// once), so memory, then the partials' and the launches' overhead. The
-// design is the simplest tensor-core form: 4 warps a block, each a 32 x 32
-// quarter of the 64 x 64 output tile, operands staged 32 rows deep by
-// 16-byte cp.async into a two-stage ring, rows padded by 16 bytes so that
-// ldmatrix's eight row reads hit distinct banks. X stays as it is in
-// memory (rows of C contiguous channels): the Gram's A operand (X^T) and
-// B operand (X) are both read by ldmatrix.trans from the staged rows, the
-// gradient's A (X) by ldmatrix and its B (D's rows) by ldmatrix.trans.
-// C must be a multiple of 8 (every bf16 tap of VGG-19 is one of 64);
-// the ragged M edge and a C that is not a multiple of 64 are masked.
+// kernels of their own, one a phase, on Hopper's warpgroup tensor cores
+// (wgmma.mma_async from shared memory, csrc/wgmma.cuh):
+//   (a'') gram_bf16_kernel: the split-M Gram, X bf16, float32 sums, into
+//         the float32 partials that (b) reduces as it always did;
+//   (c'') style_grad_bf16_kernel: X (M x C, bf16) times D (C x C, float32
+//         rounded to bf16 as it is staged, as the JAX feed's
+//         gram_diff.astype(bf16) rounds; or D already bf16), float32
+//         accumulation, one rounding of each output to bf16. No scale: the
+//         feed folds every factor into D or into one scalar multiply.
+// What bounds them: bytes. At the 512px taps the Gram reads X (47 MB over
+// the four taps, 14 us at 3.35 TB/s) and the product reads X and writes
+// its bf16 product (28 us), against 2.4 GFLOP (2.4 us at 989 TFLOP/s);
+// only the product at C = 512 comes near the card's ridge (256 FLOP a
+// byte against about 295), so there the tensor cores' rate counts too.
+// The design, for this card's memory:
+//   * Persistent, one 256-thread block (two warpgroups) an SM. X arrives
+//     by the TMA engine: one thread keeps a ring of 4-8 stages filled two
+//     to six stages ahead of the MMAs, each stage boxes of 64 channels
+//     (128 bytes) by 64-256 rows that complete on the stage's mbarrier,
+//     zero-filled past M and C by the tensor map (encoded on the host at
+//     each call). A first version staged X by 16-byte cp.async from every
+//     thread: on an H100 it ran as fast without its MMAs as with them and
+//     2.4-9x faster without its copies, about 8 bytes a cycle an SM.
+//   * The boxes land in the 128-byte swizzle that wgmma reads: the Gram
+//     takes both operands MN-major from the same boxes (A = X^T, B = X);
+//     the product takes X K-major and D N-major from its panel.
+//   * The Gram: the channels fall in blocks of BN (64 where C <= 64, else
+//     128) and an item is the BN x BN block (I, J), I <= J, of G; each
+//     block of the grid walks one long chunk of rows of one item, the plan
+//     (ops/style.py _bf16_plan) sizing the chunks so that items x chunks x
+//     lanes fill the card once: at most an SM's worth of partial tiles a
+//     tile, against 512 chunks of 384 rows at 512px's conv1_1 in the
+//     mma.sync kernel this replaced. At BN = 128 warpgroup w owns the 64
+//     rows of i-block 2 I + w, so X's rows are read 4 times at C = 512
+//     (the 64 x 128 items of a first version read them 6.5 times); at BN =
+//     64 the two warpgroups take alternate k-steps, added once at the end
+//     (0's + 1's). A partial's bits depend on nothing but the chunk; (b)
+//     then sums the chunks in its fixed order.
+//   * The product: a block keeps one column panel of D (C x BN) resident
+//     and walks a contiguous range of the lanes' 128-row slabs, and the
+//     panels of a slab run at once on neighbouring blocks, so X comes from
+//     device memory once (at 2880x3840 the mma.sync kernel's grid re-read
+//     conv2_1's to conv4_1's X 2-8 times). A slab's product is rounded in
+//     shared memory and leaves in 16-byte stores of whole rows.
+// C must be a multiple of 8 (every bf16 tap of VGG-19 is one of 64), at
+// most 512 for the product (D's panel stays resident); the ragged M edge
+// and a C that is not a multiple of the blocks are masked. No atomics: two
+// calls give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstddef>
 #include <cstdint>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -520,272 +547,485 @@ extern "C" int st2_style_grad(const float* x, const float* gdiff,
 
 namespace {
 
+namespace hp = hopper;
 using bf16 = __nv_bfloat16;
-constexpr int BF_THREADS = 128;     // 4 warps, a 32 x 32 quarter each
-constexpr int BK = 32;              // rows (Gram) or k (gradient) a stage
-constexpr int LD64 = T + 8;         // smem elements of a 64-wide row (144 B)
-constexpr int LD32 = BK + 8;        // smem elements of a 32-wide row (80 B)
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
+constexpr int WG = 128;               // threads of a warpgroup
+constexpr int BF_THREADS = 2 * WG;    // two warpgroups a block
+constexpr int SMEM_MAX = 232448;      // a block's dynamic shared memory
+constexpr int BOX_W = 64;             // channels of a TMA box: 128 bytes
+constexpr int ALIGN = 1024;           // a 128-byte swizzle atom repeats
+
+// The tensor map of x (lanes, m, c) bf16 for boxes of 64 channels by
+// `rows` rows of one lane, swizzled by 128 bytes as wgmma reads them;
+// rows past m and channels past c arrive as zeros.
+int x_map(CUtensorMap* map, const void* x, int m, int c, int lanes,
+          int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)m,
+                              (cuuint64_t)lanes};
+  const cuuint64_t strides[2] = {(cuuint64_t)c * 2, (cuuint64_t)m * c * 2};
+  const cuuint32_t box[3] = {BOX_W, (cuuint32_t)rows, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return hp::encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                          const_cast<void*>(x), dims, strides, box, steps,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+// (a'') The Gram. Its channels fall in blocks of BN (64 where C <= 64,
+// else 128), and an item is the BN x BN block (I, J), I <= J, of G: at BN
+// = 128 warpgroup w computes the 64 rows of i-block 2 I + w over all the
+// item's rows of X; at BN = 64 (one item) the two warpgroups split each
+// stage's k-steps instead. A stage is ROWS rows of the item's channels as
+// TMA boxes of 64 channels (block I's, then block J's off the diagonal).
+// At C = 512 the rows of X are read 4 times over the 10 items, once at C
+// = 128.
+template <int BN>
+struct GramCfg {
+  static constexpr bool SPLIT_K = BN == 64;
+  static constexpr int ROWS = BN == 64 ? 256 : 64;    // a stage's rows
+  static constexpr int STAGES = 6;
+  static constexpr int BOX = ROWS * 128;              // bytes of a box
+  // k-steps of 16 rows a warpgroup takes from a stage.
+  static constexpr int KSTEPS = ROWS / 16 / (SPLIT_K ? 2 : 1);
+  static constexpr int FLUSH = 128 / KSTEPS;          // stages a run
+};
+
+__host__ __device__ __forceinline__ int gram_bn(int c) {
+  return c <= 64 ? 64 : 128;
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+// Boxes of the largest stage: blocks I's and J's where some item lies off
+// the diagonal (iff c > BN), else block I's.
+__host__ __device__ __forceinline__ int gram_boxes(int c) {
+  const int per_block = gram_bn(c) / BOX_W;
+  return c > gram_bn(c) ? 2 * per_block : per_block;
 }
 
-// d += a (16x16, row) * b (16x8, col); bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+int gram_items(int c) {
+  const int nb = (c + gram_bn(c) - 1) / gram_bn(c);
+  return nb * (nb + 1) / 2;
 }
 
-// (a') partials[s, t] = sum over rows m of chunk s of X[m, i-tile]^T
-// X[m, j-tile], X bf16, float32 sums; the partials' layout is (a)'s, so
-// (b) reduces them. Grid: (n_tiles, n_chunks, lanes), BF_THREADS threads.
-// Per 16-row step warp (wi, wj) loads its two 16 x 16 A fragments (X^T:
-// channels i as rows) and its four 16 x 8 B fragments (X: rows m as k),
-// both by ldmatrix.trans from the staged rows, and issues 8 MMAs.
-__global__ void __launch_bounds__(BF_THREADS)
-gram_partials_bf16_kernel(const bf16* __restrict__ x,
-                          float* __restrict__ partials, int m, int c, int nt,
-                          int chunk) {
-  __shared__ __align__(16) bf16 s_a[STAGES][BK][LD64];
-  __shared__ __align__(16) bf16 s_b[STAGES][BK][LD64];
-  int ti, tj;
-  tile_of(blockIdx.x, nt, ti, tj);
-  const bool diag = ti == tj;
-  const int i0 = ti * T;
-  const int j0 = tj * T;
-  const int m_begin = blockIdx.z * m + blockIdx.y * chunk;
-  const int m_end = min(m_begin + chunk, (int)(blockIdx.z + 1) * m);
+int gram_rows(int c) {
+  return gram_bn(c) == 64 ? GramCfg<64>::ROWS : GramCfg<128>::ROWS;
+}
+
+// Dynamic shared memory of the Gram kernel at c: the ring of the largest
+// stage and its mbarriers, or the two warpgroups' float32 sums after it,
+// whichever is larger, and room to align the ring to 1024 bytes.
+// ops/style.py _bf16_plan mirrors this.
+int gram_smem(int c) {
+  const int ring = GramCfg<64>::STAGES *
+                   (gram_boxes(c) * gram_rows(c) * 128 + 8);
+  const int sums = 2 * 64 * (gram_bn(c) + 8) * 4;
+  return (ring > sums ? ring : sums) + ALIGN;
+}
+
+// partials[z, s, t] for the 64 x 64 tiles t of item blockIdx.y that lie
+// on or above the diagonal: the sum over the rows of chunk s = blockIdx.x
+// of lane z = blockIdx.z of X[m, i-tile]^T X[m, j-tile], in the layout
+// (b) reduces. One thread keeps the ring's TMA loads STAGES - 2 stages
+// ahead, each stage's boxes completing on its mbarrier. Both operands are
+// read MN-major from the swizzled boxes: A (X^T, 64 channels i by 16 rows)
+// and B (X, 16 rows by BN channels j). Each warpgroup sums into float32
+// accumulators in runs of 2048 rows, each run added into its running
+// total; at BN = 64 the block adds the two warpgroups' totals (0's + 1's)
+// once at the end. One partial a block and tile, in a fixed order.
+template <int BN>
+__global__ void __launch_bounds__(BF_THREADS, 1)
+gram_bf16_kernel(const __grid_constant__ CUtensorMap map,
+                 float* __restrict__ partials, int m, int c, int chunk) {
+  using Cfg = GramCfg<BN>;
+  constexpr int AHEAD = Cfg::STAGES - 2;
+  constexpr int PER_BLOCK = BN / BOX_W;
+  extern __shared__ __align__(ALIGN) unsigned char smem[];
+  const uint32_t raw = hp::smem_u32(smem);
+  const uint32_t ring = (raw + ALIGN - 1) & ~(uint32_t)(ALIGN - 1);
+  const int nt = (c + 63) / 64;
+  const int nb = (c + BN - 1) / BN;
+  int bi = 0;                   // item blockIdx.y: (bi, bj), row-major
+  int t = blockIdx.y;
+  while (t >= nb - bi) {
+    t -= nb - bi;
+    ++bi;
+  }
+  const int bj = bi + t;
+  const bool diag = bi == bj;
+  const int boxes = diag ? PER_BLOCK : 2 * PER_BLOCK;
+  const int stage_bytes = boxes * Cfg::BOX;
+  const int z = blockIdx.z;
+  const int r_begin = blockIdx.x * chunk;
+  const int r_end = min(r_begin + chunk, m);
+  const int n_k = (r_end - r_begin + Cfg::ROWS - 1) / Cfg::ROWS;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int wi = (warp / 2) * 32;   // the warp's rows (channels i)
-  const int wj = (warp % 2) * 32;   // and columns (channels j) of the tile
+  const int wg = tid / WG;
+  const int a_box = Cfg::SPLIT_K ? 0 : wg;
+  const int b_box = diag ? 0 : PER_BLOCK;
+  const uint32_t bars = ring + Cfg::STAGES * gram_boxes(c) * Cfg::BOX;
+  if (tid == 0) {
+    for (int s = 0; s < Cfg::STAGES; ++s) hp::mbar_init(bars + 8 * s, 1);
+    hp::fence_mbar_init();
+  }
+  __syncthreads();
 
-  // One stage: BK rows x 8 pieces of 8 channels of each operand; a
-  // diagonal tile's two operands are the same columns, staged once.
+  // Stage st <- rows r0 .. r0 + ROWS - 1 of the item's channels (thread 0).
   auto stage = [&](int st, int r0) {
-#pragma unroll
-    for (int it = 0; it < BK * (T / 8) / BF_THREADS; ++it) {
-      const int e = tid + it * BF_THREADS;
-      const int kk = e / (T / 8);
-      const int q = e % (T / 8);
-      const int row = r0 + kk;
-      const bool in_row = row < m_end;
-      const bf16* src = x + (size_t)(in_row ? row : m_begin) * c;
-      const int ca = i0 + 8 * q;
-      cp_async16(&s_a[st][kk][8 * q], src + (ca < c ? ca : 0),
-                 in_row && ca < c);
-      if (!diag) {
-        const int cb = j0 + 8 * q;
-        cp_async16(&s_b[st][kk][8 * q], src + (cb < c ? cb : 0),
-                   in_row && cb < c);
-      }
-    }
-    cp_async_commit();
+    const uint32_t dst = ring + st * stage_bytes;
+    const uint32_t bar = bars + 8 * st;
+    hp::mbar_expect(bar, stage_bytes);
+    for (int b = 0; b < boxes; ++b)
+      hp::tma_load_3d(dst + b * Cfg::BOX, &map,
+                      (b < PER_BLOCK ? bi * BN : bj * BN - BN) + BOX_W * b,
+                      r0, z, bar);
   };
 
-  float acc[2][4][4];
+  // The tensor cores sum into acc for FLUSH stages at a time, each run
+  // then added into total in float32: a chunk of 2880x3840's conv1_1 is
+  // about 84 000 rows, and one running sum over all of them strayed 1.1e-4
+  // from float64 on an H100.
+  float acc[BN / 2], total[BN / 2];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int j = 0; j < BN / 2; ++j) total[j] = 0.f;
+  if (tid == 0)
+    for (int s = 0; s < AHEAD && s < n_k; ++s)
+      stage(s, r_begin + s * Cfg::ROWS);
+  int it = 0;
+  for (int run = 0; run < n_k; run += Cfg::FLUSH) {
+    const int run_end = min(run + Cfg::FLUSH, n_k);
+    for (; it < run_end; ++it) {
+      // The loads run AHEAD stages ahead of the MMAs, and one stage's
+      // MMAs stay in flight while the next stage's are issued: the stage
+      // a load overwrites was read by MMAs two stages back, which every
+      // thread has waited for before the barrier that precedes the load.
+      const int st = it % Cfg::STAGES;
+      hp::mbar_wait(bars + 8 * st, (it / Cfg::STAGES) & 1);
+      __syncthreads();
+      const uint32_t base = ring + st * stage_bytes;
+      hp::wgmma_fence();
 #pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
-
-  // ldmatrix row addresses: lane l reads staged row (l % 8) + 8 * (l / 16)
-  // at column 8 * ((l / 8) % 2) for A, which orders the four 8 x 8
-  // matrices as the A fragment's (i 0-7, m 0-7), (i 8-15, m 0-7), (i 0-7,
-  // m 8-15), (i 8-15, m 8-15); row l % 16 at column 8 * (l / 16) for B,
-  // the two k halves of two 8-wide n tiles.
-  const int a_row = lane % 8 + 8 * (lane / 16);
-  const int a_col = 8 * ((lane / 8) % 2);
-  const int b_row = lane % 16;
-  const int b_col = 8 * (lane / 16);
-
-  const int n_k = (m_end - m_begin + BK - 1) / BK;
-  stage(0, m_begin);
-  for (int kt = 0; kt < n_k; ++kt) {
-    if (kt + 1 < n_k) {
-      stage((kt + 1) % STAGES, m_begin + (kt + 1) * BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int st = kt % STAGES;
-    const bf16(*sb)[LD64] = diag ? s_a[st] : s_b[st];
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4_trans(a[mi], smem_addr(
-            &s_a[st][ks * 16 + a_row][wi + mi * 16 + a_col]));
-#pragma unroll
-      for (int nq = 0; nq < 2; ++nq) {
-        uint32_t bq[4];
-        ldmatrix_x4_trans(bq, smem_addr(
-            &sb[ks * 16 + b_row][wj + nq * 16 + b_col]));
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc[mi][2 * nq], a[mi], bq[0], bq[1]);
-          mma_bf16(acc[mi][2 * nq + 1], a[mi], bq[2], bq[3]);
-        }
+      for (int h = 0; h < Cfg::KSTEPS; ++h) {
+        // k-step ks: rows 16 ks .. 16 ks + 15, 2048 bytes into each box;
+        // 8-row groups 1024 bytes apart (SBO), boxes (64 channels) BOX
+        // apart (LBO). A run's first MMA starts acc afresh.
+        const int ks = Cfg::SPLIT_K ? 2 * h + wg : h;
+        const uint64_t da = hp::smem_desc_sw128(
+            base + a_box * Cfg::BOX + ks * 2048, Cfg::BOX, 1024);
+        const uint64_t db = hp::smem_desc_sw128(
+            base + b_box * Cfg::BOX + ks * 2048, Cfg::BOX, 1024);
+        hp::wgmma_ss<BN, 1>(acc, da, db, h > 0 || it > run);
       }
+      hp::wgmma_commit();
+      const int next = it + AHEAD;
+      if (tid == 0 && next < n_k) stage(next % Cfg::STAGES,
+                                        r_begin + next * Cfg::ROWS);
+      hp::wgmma_wait<1>();
     }
-    __syncthreads();
+    hp::wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) {
+      hp::fence_operand(acc[j]);
+      total[j] += acc[j];
+    }
   }
+  __syncthreads();              // every MMA and load is done: the ring is free
 
-  // Accumulator (row g or g + 8, columns 2t, 2t + 1) into the tile.
-  float* dst = partials + (((size_t)blockIdx.z * gridDim.y + blockIdx.y) *
-                               gridDim.x + blockIdx.x) * T * T;
-  const int g = lane / 4;
-  const int t = lane % 4;
+  // Accumulator j: row 16 wq + g (+ 8 where (j / 2) is odd), column
+  // 8 (j / 4) + 2 t (+ 1 for odd j); each warpgroup's into its own sums.
+  constexpr int P = BN + 8;     // floats a row of the sums
+  float* sums = reinterpret_cast<float*>(smem + (ring - raw));
+  const int wq = (tid % WG) / 32;
+  const int g = (tid % 32) / 4;
+  const int t4 = tid % 4;
+  float* mine = sums + wg * 64 * P;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int j = 0; j < BN / 2; j += 2) {
+    const int r = 16 * wq + g + 8 * ((j / 2) % 2);
+    const int col = 8 * (j / 4) + 2 * t4;
+    *reinterpret_cast<float2*>(mine + r * P + col) =
+        make_float2(total[j], total[j + 1]);
+  }
+  __syncthreads();
+  const int n_tiles = nt * (nt + 1) / 2;
+  // The item's 64 x 64 tiles (it, jt) on or above the diagonal: warpgroup
+  // w's rows (it = 2 bi + w) at BN = 128, the two warpgroups' sum at 64.
 #pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
+  for (int w = 0; w < (Cfg::SPLIT_K ? 1 : 2); ++w) {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = wi + mi * 16 + g + 8 * half;
-        const int col = wj + nj * 8 + 2 * t;
-        *reinterpret_cast<float2*>(dst + r * T + col) =
-            make_float2(acc[mi][nj][2 * half], acc[mi][nj][2 * half + 1]);
+    for (int h = 0; h < PER_BLOCK; ++h) {
+      const int ti = Cfg::SPLIT_K ? bi : PER_BLOCK * bi + w;
+      const int tj = PER_BLOCK * bj + h;
+      if (tj < ti || tj >= nt) continue;
+      const int tile = ti * nt - ti * (ti - 1) / 2 + (tj - ti);
+      float4* dst = reinterpret_cast<float4*>(
+          partials + (((size_t)z * gridDim.x + blockIdx.x) * n_tiles + tile)
+                         * T * T);
+      const float* src = sums + w * 64 * P + 64 * h;
+      for (int e = tid; e < T * T / 4; e += BF_THREADS) {
+        const int r = e / (T / 4);
+        const int q = e % (T / 4);
+        float4 v = *reinterpret_cast<const float4*>(src + r * P + 4 * q);
+        if (Cfg::SPLIT_K) {
+          const float4 b = *reinterpret_cast<const float4*>(
+              src + (64 + r) * P + 4 * q);
+          v = make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
+        }
+        dst[e] = v;
       }
+    }
+  }
 }
 
-// (c') sgrad[m, j] = bf16(sum_k X[m, k] D[k, j]), float32 sums. Grid:
-// (ceil(M / 64), ceil(C / 64), lanes), BF_THREADS threads; lane z owns
-// rows z*m .. z*m + m - 1 of x and sgrad and z*c .. z*c + c - 1 of d.
-__global__ void __launch_bounds__(BF_THREADS)
-style_grad_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d,
-                       bf16* __restrict__ sgrad, int m, int c) {
-  __shared__ __align__(16) bf16 s_x[STAGES][T][LD32];    // X rows, BK deep
-  __shared__ __align__(16) bf16 s_d[STAGES][BK][LD64];   // D rows
-  const int r0 = blockIdx.z * m + blockIdx.x * T;
-  const int r_end = (blockIdx.z + 1) * m;
-  const int j0 = blockIdx.y * T;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int wr = (warp / 2) * 32;
-  const int wc = (warp % 2) * 32;
+// (c'') The gradient product. A slab is P_ROWS rows of one lane's X (an
+// m64 tile a warpgroup); a slice is its next 64 channels, one TMA box.
+constexpr int P_ROWS = 128;
+constexpr int P_K = 64;
+constexpr int P_SLICE = P_ROWS * 128;     // bytes of a slice
+constexpr int D_BATCH = 8;                // D's pieces a thread loads at once
 
-  auto stage = [&](int st, int k0) {
-#pragma unroll
-    for (int it = 0; it < T * (BK / 8) / BF_THREADS; ++it) {
-      const int e = tid + it * BF_THREADS;
-      const int row = e / (BK / 8);
-      const int q = e % (BK / 8);
-      const int gr = r0 + row;
-      const int gk = k0 + 8 * q;
-      const bool ok = gr < r_end && gk < c;
-      cp_async16(&s_x[st][row][8 * q], x + (ok ? (size_t)gr * c + gk : 0),
-                 ok);
-    }
-#pragma unroll
-    for (int it = 0; it < BK * (T / 8) / BF_THREADS; ++it) {
-      const int e = tid + it * BF_THREADS;
-      const int kk = e / (T / 8);
-      const int q = e % (T / 8);
-      const int gk = k0 + kk;
-      const int gj = j0 + 8 * q;
-      const bool ok = gk < c && gj < c;
-      cp_async16(&s_d[st][kk][8 * q],
-                 d + (ok ? (size_t)(blockIdx.z * c + gk) * c + gj : 0), ok);
-    }
-    cp_async_commit();
+__host__ __device__ __forceinline__ int grad_bn(int c) {
+  return c <= 64 ? 64 : 128;
+}
+
+__host__ __device__ __forceinline__ int grad_kpad(int c) {
+  return (c + P_K - 1) / P_K * P_K;
+}
+
+// The ring's stages: as many as fit beside D's panel.
+__host__ __device__ __forceinline__ int grad_stages(int c) {
+  return grad_bn(c) == 64 ? 8 : grad_kpad(c) > 256 ? 4 : 6;
+}
+
+// Dynamic shared memory of the product at c: the ring, D's column panel
+// (kpad x BN bf16), the bf16 output tile, the ring's mbarriers, and room
+// to align the ring to 1024 bytes. ops/style.py _grad_bf16_plan mirrors
+// this.
+int grad_smem(int c) {
+  const int bn = grad_bn(c);
+  return grad_stages(c) * (P_SLICE + 8) + grad_kpad(c) * bn * 2 +
+         P_ROWS * bn * 2 + ALIGN;
+}
+
+// out[z, m, j] = bf16(sum_k X[z, m, k] D[z, k, j]), float32 sums. Grid:
+// `blocks` persistent blocks, a multiple of the panels = ceil(C / BN):
+// block b keeps column panel b % panels of D resident (staged once, and
+// again only where its slabs cross into another lane; rounded to bf16
+// while staged where d_f32) and walks its group's contiguous range of
+// the lanes' slabs (group b / panels), so the panels of a slab run at
+// once on neighbouring blocks and X comes from device memory once. One
+// thread keeps the ring's TMA loads STAGES - 2 slices ahead; A (X) is
+// read K-major from the swizzled box, B (D) N-major from the panel. A
+// slab's product is rounded into shared memory (16-byte pieces of a row
+// placed by row % 8, so that the warps' writes spread over the banks) and
+// leaves in 16-byte stores of whole rows.
+template <int BN, int STAGES>
+__global__ void __launch_bounds__(BF_THREADS, 1)
+style_grad_bf16_kernel(const __grid_constant__ CUtensorMap map,
+                       const void* __restrict__ d, bf16* __restrict__ out,
+                       int m, int c, int lanes, int d_f32) {
+  constexpr int AHEAD = STAGES - 2;
+  extern __shared__ __align__(ALIGN) unsigned char smem[];
+  const uint32_t raw = hp::smem_u32(smem);
+  const uint32_t ring = (raw + ALIGN - 1) & ~(uint32_t)(ALIGN - 1);
+  unsigned char* const base = smem + (ring - raw);
+  const int kpad = grad_kpad(c);
+  const int nks = kpad / P_K;
+  const int panels = (c + BN - 1) / BN;
+  const int panel = blockIdx.x % panels;
+  const int groups = gridDim.x / panels;
+  const int group = blockIdx.x / panels;
+  const int slabs = (m + P_ROWS - 1) / P_ROWS;          // a lane's
+  const long long total = (long long)lanes * slabs;
+  const int q_begin = (int)(total * group / groups);
+  const int q_end = (int)(total * (group + 1) / groups);
+  const int n_it = (q_end - q_begin) * nks;
+  const int j0 = panel * BN;
+  const int tid = threadIdx.x;
+  const int wg = tid / WG;
+  const uint32_t s_d = ring + STAGES * P_SLICE;
+  unsigned char* const s_dp = base + STAGES * P_SLICE;
+  unsigned char* const s_out = s_dp + kpad * BN * 2;
+  const uint32_t bars = s_d + kpad * BN * 2 + P_ROWS * BN * 2;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) hp::mbar_init(bars + 8 * s, 1);
+    hp::fence_mbar_init();
+  }
+  __syncthreads();
+
+  // Slice `it` of the block (thread 0): slab q_begin + it / nks, channels
+  // from (it % nks) P_K, into ring stage st.
+  auto stage = [&](int st, int it) {
+    const int q = q_begin + it / nks;
+    const uint32_t bar = bars + 8 * st;
+    hp::mbar_expect(bar, P_SLICE);
+    hp::tma_load_3d(ring + st * P_SLICE, &map, (it % nks) * P_K,
+                    (q % slabs) * P_ROWS, q / slabs, bar);
   };
 
-  float acc[2][4][4];
+  // Lane z's column panel of D as [k / 8][n / 8] core matrices of 8 k-rows
+  // by 8 channels (128 contiguous bytes; conv3x3_wgmma.cu's B layout),
+  // zero past C. Each thread loads D_BATCH pieces before it stores any,
+  // so that their reads are in flight together.
+  auto stage_d = [&](int z) {
+    constexpr int PIECES = BN / 8;        // 16-byte pieces of a panel row
+    const int n = kpad * PIECES;
+    auto at = [&](int e) {                // piece e's element, or -1
+      const int k = e / PIECES;
+      const int col = j0 + 8 * (e % PIECES);
+      return e < n && k < c && col < c ? ((long long)z * c + k) * c + col
+                                       : -1LL;
+    };
+    auto put = [&](int e, uint4 v) {
+      if (e < n)
+        *reinterpret_cast<uint4*>(s_dp + ((e / PIECES / 8) * PIECES +
+                                          e % PIECES) * 128 +
+                                  (e / PIECES % 8) * 16) = v;
+    };
+    for (int e0 = tid; e0 < n; e0 += D_BATCH * BF_THREADS) {
+      if (d_f32) {
+        float4 lo[D_BATCH], hi[D_BATCH];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
-
-  // A (X): rows lane % 16 at column 8 * (lane / 16), the fragment's four
-  // 8 x 8 quarters in order; B (D): k rows lane % 16 at column 8 * (lane /
-  // 16), transposed into two 16 x 8 column fragments.
-  const int l_row = lane % 16;
-  const int l_col = 8 * (lane / 16);
-
-  const int n_k = (c + BK - 1) / BK;
-  stage(0, 0);
-  for (int kt = 0; kt < n_k; ++kt) {
-    if (kt + 1 < n_k) {
-      stage((kt + 1) % STAGES, (kt + 1) * BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int st = kt % STAGES;
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4(a[mi], smem_addr(
-            &s_x[st][wr + mi * 16 + l_row][ks * 16 + l_col]));
-#pragma unroll
-      for (int nq = 0; nq < 2; ++nq) {
-        uint32_t bq[4];
-        ldmatrix_x4_trans(bq, smem_addr(
-            &s_d[st][ks * 16 + l_row][wc + nq * 16 + l_col]));
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc[mi][2 * nq], a[mi], bq[0], bq[1]);
-          mma_bf16(acc[mi][2 * nq + 1], a[mi], bq[2], bq[3]);
+        for (int u = 0; u < D_BATCH; ++u) {
+          const long long a = at(e0 + u * BF_THREADS);
+          const float4* src = reinterpret_cast<const float4*>(
+              static_cast<const float*>(d) + (a < 0 ? 0 : a));
+          lo[u] = a < 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : src[0];
+          hi[u] = a < 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : src[1];
         }
+#pragma unroll
+        for (int u = 0; u < D_BATCH; ++u) {
+          const __nv_bfloat162 p0 = __floats2bfloat162_rn(lo[u].x, lo[u].y);
+          const __nv_bfloat162 p1 = __floats2bfloat162_rn(lo[u].z, lo[u].w);
+          const __nv_bfloat162 p2 = __floats2bfloat162_rn(hi[u].x, hi[u].y);
+          const __nv_bfloat162 p3 = __floats2bfloat162_rn(hi[u].z, hi[u].w);
+          put(e0 + u * BF_THREADS,
+              make_uint4(*reinterpret_cast<const uint32_t*>(&p0),
+                         *reinterpret_cast<const uint32_t*>(&p1),
+                         *reinterpret_cast<const uint32_t*>(&p2),
+                         *reinterpret_cast<const uint32_t*>(&p3)));
+        }
+      } else {
+        uint4 v[D_BATCH];
+#pragma unroll
+        for (int u = 0; u < D_BATCH; ++u) {
+          const long long a = at(e0 + u * BF_THREADS);
+          v[u] = a < 0 ? make_uint4(0u, 0u, 0u, 0u)
+                       : *reinterpret_cast<const uint4*>(
+                             static_cast<const bf16*>(d) + a);
+        }
+#pragma unroll
+        for (int u = 0; u < D_BATCH; ++u) put(e0 + u * BF_THREADS, v[u]);
       }
+    }
+  };
+
+  float acc[BN / 2];
+  int lane_d = -1;                // the lane whose D panel is staged
+  int it = 0;
+  if (tid == 0)
+    for (int s = 0; s < AHEAD && s < n_it; ++s) stage(s, s);
+  for (int q = q_begin; q < q_end; ++q) {
+    const int z = q / slabs;
+    if (z != lane_d) {
+      // Every MMA of the last slab has been waited for (its epilogue), so
+      // D may be restaged; the fence hands the writes to wgmma.
+      stage_d(z);
+      lane_d = z;
+      hp::fence_proxy_async();
+    }
+    for (int ks = 0; ks < nks; ++ks, ++it) {
+      // The ring's order is the Gram's: loads AHEAD slices ahead, one
+      // slice's MMAs in flight while the next slice's are issued.
+      const int st = it % STAGES;
+      hp::mbar_wait(bars + 8 * st, (it / STAGES) & 1);
+      __syncthreads();
+      // A (X, K-major): this warpgroup's 64 rows of the box, 8-row groups
+      // 1024 bytes apart, k-steps 32 bytes apart inside the swizzle. B (D,
+      // N-major): core matrices 128 bytes apart along N, BN * 16 along K.
+      // The slab's first MMA starts its accumulators afresh.
+      const uint32_t a_base = ring + st * P_SLICE + wg * 64 * 128;
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < P_K / 16; ++kk) {
+        const uint64_t da = hp::smem_desc_sw128(a_base + 32 * kk, 16, 1024);
+        const uint64_t db = hp::smem_desc(
+            s_d + (ks * (P_K / 8) + 2 * kk) * (BN * 16), BN * 16, 128);
+        hp::wgmma_ss<BN, 0>(acc, da, db, (ks | kk) != 0);
+      }
+      hp::wgmma_commit();
+      const int next = it + AHEAD;
+      if (tid == 0 && next < n_it) stage(next % STAGES, next);
+      hp::wgmma_wait<1>();
+    }
+    hp::wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) hp::fence_operand(acc[j]);
+    // Accumulator j: row 16 wq + g (+ 8), column 8 (j / 4) + 2 t (+ 1):
+    // into 16-byte piece (j / 4) ^ (row % 8) of the row.
+    const int wq = (tid % WG) / 32;
+    const int g = (tid % 32) / 4;
+    const int t = tid % 4;
+#pragma unroll
+    for (int j = 0; j < BN / 2; j += 2) {
+      const int r = 64 * wg + 16 * wq + g + 8 * ((j / 2) % 2);
+      *reinterpret_cast<__nv_bfloat162*>(
+          s_out + r * (BN * 2) + ((j / 4) ^ (r % 8)) * 16 + 4 * t) =
+          __floats2bfloat162_rn(acc[j], acc[j + 1]);
     }
     __syncthreads();
-  }
-
-  const int g = lane / 4;
-  const int t = lane % 4;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int gr = r0 + wr + mi * 16 + g + 8 * half;
-      if (gr >= r_end) continue;
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const int col = j0 + wc + nj * 8 + 2 * t;
-        if (col >= c) continue;
-        *reinterpret_cast<__nv_bfloat162*>(sgrad + (size_t)gr * c + col) =
-            __floats2bfloat162_rn(acc[mi][nj][2 * half],
-                                  acc[mi][nj][2 * half + 1]);
-      }
+    const int r0 = (q % slabs) * P_ROWS;
+    for (int e = tid; e < P_ROWS * (BN / 8); e += BF_THREADS) {
+      const int r = e / (BN / 8);
+      const int cb = e % (BN / 8);
+      const int row = r0 + r;
+      const int col = j0 + 8 * cb;
+      if (row < m && col < c)
+        *reinterpret_cast<uint4*>(out + ((size_t)z * m + row) * c + col) =
+            *reinterpret_cast<const uint4*>(s_out + r * (BN * 2) +
+                                            (cb ^ (r % 8)) * 16);
     }
+  }
+}
+
+// Above 48 KB, dynamic shared memory must be allowed explicitly: once per
+// kernel, at its first launch (the eager call before any capture).
+template <typename K>
+cudaError_t allow_smem(K kernel) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              SMEM_MAX);
+}
+
+template <int BN>
+int launch_gram_bf16(const void* x, float* partials, int m, int c,
+                     int chunk, int n_chunks, int lanes, cudaStream_t st) {
+  static const cudaError_t attr = allow_smem(gram_bf16_kernel<BN>);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap map;
+  const int enc = x_map(&map, x, m, c, lanes, GramCfg<BN>::ROWS);
+  if (enc) return enc;
+  gram_bf16_kernel<BN><<<dim3(n_chunks, gram_items(c), lanes), BF_THREADS,
+                         gram_smem(c), st>>>(map, partials, m, c, chunk);
+  return (int)cudaGetLastError();
+}
+
+template <int BN, int STAGES>
+int launch_grad_bf16(const void* x, const void* d, bf16* out, int m, int c,
+                     int lanes, int blocks, int d_f32, cudaStream_t st) {
+  static const cudaError_t attr =
+      allow_smem(style_grad_bf16_kernel<BN, STAGES>);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap map;
+  const int enc = x_map(&map, x, m, c, lanes, P_ROWS);
+  if (enc) return enc;
+  style_grad_bf16_kernel<BN, STAGES><<<blocks, BF_THREADS, grad_smem(c),
+                                       st>>>(map, d, out, m, c, lanes,
+                                             d_f32);
+  return (int)cudaGetLastError();
 }
 
 bool bad_bf16_args(const void* x, const void* d, int m, int c, int lanes) {
   return c % 8 != 0 || ((uintptr_t)x | (uintptr_t)d) % 16 != 0 ||
-         lanes < 1 || lanes > 65535 ||
+         lanes < 1 || lanes > 65535 || m < 1 ||
          (int64_t)lanes * (m > c ? m : c) > INT32_MAX;
 }
 
@@ -793,35 +1033,49 @@ bool bad_bf16_args(const void* x, const void* d, int m, int c, int lanes) {
 
 // The bf16 Gram phase: gdiff = X^T X * inv_size - gram_style, or with a
 // null gram_style the Gram itself, float32, for x (lanes, m, c) bf16 with
-// c a multiple of 8 and x 16-byte aligned; partials, chunk and n_chunks as
-// st2_style_branch's. (a') then (b): the reduction, its fixed order and
-// its epilogue are the float32 branch's.
+// c a multiple of 8 and x 16-byte aligned; partials: (lanes, n_chunks,
+// n_tiles, 64, 64) float32 as st2_style_branch's; chunk a multiple of the
+// kernel's stage (256 rows where c <= 64, else 128), the n_chunks chunks
+// covering m (ops/style.py _bf16_plan). (a'') then (b): the reduction, its
+// fixed order and its epilogue are the float32 branch's.
 extern "C" int st2_style_gram_bf16(const void* x, const float* gram_style,
                                    float* partials, float* gdiff, int m,
                                    int c, int chunk, int n_chunks, int lanes,
                                    float inv_size, void* stream) {
-  if (bad_bf16_args(x, gdiff, m, c, lanes)) return -1;
+  if (bad_bf16_args(x, gdiff, m, c, lanes) || chunk < 1 ||
+      chunk % gram_rows(c) != 0 || n_chunks < 1 ||
+      (int64_t)chunk * n_chunks < m ||
+      (int64_t)chunk * (n_chunks - 1) >= m || gram_items(c) > 65535)
+    return -1;
   cudaStream_t st = (cudaStream_t)stream;
-  const int nt = (c + T - 1) / T;
-  const int n_tiles = nt * (nt + 1) / 2;
-  gram_partials_bf16_kernel<<<dim3(n_tiles, n_chunks, lanes), BF_THREADS, 0,
-                              st>>>((const bf16*)x, partials, m, c, nt,
-                                    chunk);
-  const int err = (int)cudaGetLastError();
+  const int err = gram_bn(c) == 64
+      ? launch_gram_bf16<64>(x, partials, m, c, chunk, n_chunks, lanes, st)
+      : launch_gram_bf16<128>(x, partials, m, c, chunk, n_chunks, lanes,
+                              st);
   if (err) return err;
   return reduce_gram(partials, gram_style, gdiff, c, n_chunks, lanes,
                      inv_size, st);
 }
 
-// The bf16 gradient phase: sgrad = X D, x (lanes, m, c) and d (lanes, c,
-// c) bf16, sgrad (lanes, m, c) bf16; c a multiple of 8, x and d 16-byte
-// aligned.
+// The bf16 gradient phase: sgrad = X D, x (lanes, m, c) bf16, d (lanes, c,
+// c) float32 (d_f32 1: rounded to bf16 as it is staged, as
+// d.to(torch.bfloat16) rounds) or bf16 (d_f32 0), sgrad (lanes, m, c)
+// bf16; c a multiple of 8 up to 512, every pointer 16-byte aligned;
+// blocks: the persistent grid, a multiple of ceil(c / BN) (ops/style.py
+// _grad_bf16_plan).
 extern "C" int st2_style_grad_bf16(const void* x, const void* d, void* sgrad,
-                                   int m, int c, int lanes, void* stream) {
-  if (bad_bf16_args(x, d, m, c, lanes) || (uintptr_t)sgrad % 4 != 0)
+                                   int m, int c, int lanes, int blocks,
+                                   int d_f32, void* stream) {
+  const int panels = (c + grad_bn(c) - 1) / grad_bn(c);
+  if (bad_bf16_args(x, d, m, c, lanes) || (uintptr_t)sgrad % 16 != 0 ||
+      c > 512 || blocks < panels || blocks % panels != 0)
     return -1;
-  const dim3 grid((m + T - 1) / T, (c + T - 1) / T, lanes);
-  style_grad_bf16_kernel<<<grid, BF_THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)d, (bf16*)sgrad, m, c);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  bf16* ob = (bf16*)sgrad;
+  if (grad_bn(c) == 64)
+    return launch_grad_bf16<64, 8>(x, d, ob, m, c, lanes, blocks, d_f32, st);
+  if (grad_stages(c) == 6)
+    return launch_grad_bf16<128, 6>(x, d, ob, m, c, lanes, blocks, d_f32,
+                                    st);
+  return launch_grad_bf16<128, 4>(x, d, ob, m, c, lanes, blocks, d_f32, st);
 }

@@ -69,9 +69,18 @@ _ROW_STEP = 16      # M-chunks are multiples of the kernel's staging depth
 # gradient product's tile rows are sized so that a launch holds about this
 # many, the residency the kernels are compiled for (MIN_BLOCKS).
 _BLOCKS_PER_SM = 8
-# The bf16 Gram's blocks hold 128 threads and stage 32 rows at a time.
-_BF16_BLOCKS_PER_SM = 4
-_BF16_ROW_STEP = 32
+# The bf16 kernels (csrc/style.cu gram_bf16_kernel, style_grad_bf16_kernel):
+# one persistent block of two warpgroups an SM, X arriving by TMA in
+# boxes of 64 channels, 128 bytes a row, into a ring aligned to 1024
+# bytes. The Gram's stage: 256 rows of one box where C <= 64, else 64 rows
+# of up to four (two 128-channel blocks), in a ring of 6; its chunks are
+# whole stages. The product's slice: 128 rows of one box, in a ring of 8
+# (C <= 64), 6 (C <= 256) or 4 beside D's resident panel, so C is at
+# most 512.
+_BF16_BLOCKS_PER_SM = 1
+_BF16_ALIGN = 1024
+_BF16_SLAB = 128
+_BF16_MAX_C = 512
 
 
 def fused_style_branch_plain(feat, gram_style):
@@ -101,18 +110,16 @@ def gram_tiles(c):
     return [(i, j) for i in range(nt) for j in range(i, nt)]
 
 
-def gram_plan(m, c, sms, lanes=1, per_sm=_BLOCKS_PER_SM,
-              row_step=_ROW_STEP):
+def gram_plan(m, c, sms, lanes=1):
     """(chunk, n_chunks) for the split-M Gram of `lanes` maps on a card
-    with `sms` SMs: about per_sm blocks per SM over (tiles x chunks x
-    lanes), each chunk a multiple of row_step rows (the float32 kernel's
-    16 by default; the bf16 kernel's 4 blocks and 32 rows), the chunks
-    covering rows 0..m-1 of each map in order."""
-    target = per_sm * sms
+    with `sms` SMs: about _BLOCKS_PER_SM blocks per SM over (tiles x
+    chunks x lanes), each chunk a multiple of the kernel's staging depth,
+    the chunks covering rows 0..m-1 of each map in order."""
+    target = _BLOCKS_PER_SM * sms
     n_chunks = max(1, min(-(-target // (len(gram_tiles(c)) * lanes)),
-                          -(-m // row_step)))
+                          -(-m // _ROW_STEP)))
     chunk = -(-m // n_chunks)
-    chunk = -(-chunk // row_step) * row_step
+    chunk = -(-chunk // _ROW_STEP) * _ROW_STEP
     return chunk, -(-m // chunk)
 
 
@@ -138,17 +145,81 @@ def _plan(m, c, sms, lanes=1):
                                                            lanes)
 
 
+def _bf16_bn(c):
+    """The bf16 kernels' block width: 64 where C <= 64, else 128."""
+    return 64 if c <= 64 else 128
+
+
+def gram_bf16_items(c):
+    """The bf16 Gram kernel's items (I, J) in launch order: the blocks of
+    G on or above the diagonal over channel blocks of _bf16_bn(c), row by
+    row. Each writes the 64 x 64 tiles of gram_tiles(c) it holds."""
+    nb = -(-c // _bf16_bn(c))
+    return [(i, j) for i in range(nb) for j in range(i, nb)]
+
+
+def _bf16_gram_stage(c):
+    """(rows, stages, boxes of the largest stage) of the bf16 Gram's ring
+    at c (csrc/style.cu GramCfg, gram_boxes): 256 rows of one box where
+    C <= 64, else 64 rows of block I's two boxes and, off the diagonal,
+    block J's."""
+    if c <= 64:
+        return 256, 6, 1
+    return 64, 6, 4 if c > 128 else 2
+
+
 @functools.lru_cache(maxsize=256)
 def _bf16_plan(m, c, sms, lanes=1):
-    """(padded c, chunk, n_chunks, partials floats) of the bf16 Gram over
-    `lanes` maps. Its rows are copied in 16-byte pieces of 8 values, so a
-    C that is not a multiple of 8 (never a VGG tap) is padded with zero
-    columns."""
+    """(padded c, chunk, n_chunks, partials floats, dynamic shared memory
+    bytes) of the bf16 Gram over `lanes` maps on a card with `sms` SMs: a
+    grid of (n_chunks, items, lanes) blocks, n_chunks as large as keeps
+    the grid within _BF16_BLOCKS_PER_SM blocks an SM (one wave), each
+    chunk whole stages of the kernel's ring, the chunks covering rows
+    0..m-1 of each map in order; every block writes the 64 x 64 float32
+    partial tiles of its item, which the reduction sums in chunk order.
+    Its rows are loaded in boxes of 64 channels, 16-byte aligned, so a C
+    that is not a multiple of 8 (never a VGG tap) is padded with zero
+    columns. The shared memory is csrc/style.cu gram_smem's: the ring
+    and its mbarriers, or the two warpgroups' float32 sums, and the
+    alignment."""
     cp = -(-c // 8) * 8
-    chunk, n_chunks = gram_plan(m, cp, sms, lanes, _BF16_BLOCKS_PER_SM,
-                                _BF16_ROW_STEP)
+    rows, stages, boxes = _bf16_gram_stage(cp)
+    per_chunk = len(gram_bf16_items(cp)) * lanes
+    n_chunks = max(1, min(_BF16_BLOCKS_PER_SM * sms // per_chunk,
+                          -(-m // rows)))
+    chunk = -(-m // n_chunks)
+    chunk = -(-chunk // rows) * rows
+    n_chunks = -(-m // chunk)
+    ring = stages * (boxes * rows * 128 + 8)
+    sums = 2 * 64 * (_bf16_bn(cp) + 8) * 4
     return (cp, chunk, n_chunks,
-            lanes * n_chunks * len(gram_tiles(cp)) * _TILE * _TILE)
+            lanes * n_chunks * len(gram_tiles(cp)) * _TILE * _TILE,
+            max(ring, sums) + _BF16_ALIGN)
+
+
+@functools.lru_cache(maxsize=256)
+def _grad_bf16_plan(m, c, sms, lanes=1):
+    """(padded c, blocks, dynamic shared memory bytes) of the bf16
+    gradient product over `lanes` maps on a card with `sms` SMs: one
+    persistent block an SM, at most one a (slab, panel) pair, a multiple
+    of the ceil(c / BN) column panels of D (each block keeps one panel
+    resident and walks a contiguous range of the lanes' 128-row slabs).
+    The shared memory is csrc/style.cu grad_smem's: the ring of 128-row
+    slices and its mbarriers, D's panel (c rounded up to 64 rows of BN
+    bf16), the bf16 output tile and the alignment."""
+    cp = -(-c // 8) * 8
+    if cp > _BF16_MAX_C:
+        raise ValueError('style_product: the bf16 kernel takes C up to %d, '
+                         'got %d' % (_BF16_MAX_C, c))
+    bn = _bf16_bn(cp)
+    panels = -(-cp // bn)
+    slabs = lanes * -(-m // _BF16_SLAB)
+    blocks = max(1, min(sms // panels, slabs)) * panels
+    kpad = -(-cp // 64) * 64
+    stages = 8 if bn == 64 else 4 if kpad > 256 else 6
+    smem = (stages * (_BF16_SLAB * 128 + 8) + kpad * bn * 2
+            + _BF16_SLAB * bn * 2 + _BF16_ALIGN)
+    return cp, blocks, smem
 
 
 def _launch(feat, gram_style):
@@ -290,7 +361,7 @@ def style_gram(feat, size, lanes=False):
     sms = sm_count(feat.device)
     if feat.dtype == torch.bfloat16:
         x, c, b = _operands(feat, 'style_gram', lanes, 8)
-        cp, chunk, n_chunks, n_partials = _bf16_plan(m, c, sms, b)
+        cp, chunk, n_chunks, n_partials, _ = _bf16_plan(m, c, sms, b)
         entry, name = _build.lib().st2_style_gram_bf16, 'st2_style_gram_bf16'
     elif feat.dtype == torch.float32:
         x, c, b = _operands(feat, 'style_gram', lanes)
@@ -366,19 +437,27 @@ def style_product(feat, d):
         raise ValueError('style_product: d must be %s on the map\'s device'
                          % (want,))
     cp = x.shape[-1]
-    gd = d.to(feat.dtype)
-    if cp != c:
-        gd = F.pad(gd, (0, cp - c, 0, cp - c))
-    gd = aligned(gd)
     _, h, w, _ = x.shape
     out = x.new_empty(b, h, w, cp)
     if bf16:
+        # D goes to the kernel as it is, bf16 (a Sharded map's, rounded on
+        # its first device) or float32, which the kernel rounds to bf16 as
+        # it stages it: no cast launch.
+        gd = d if d.dtype == torch.bfloat16 else d.float()
+        if cp != c:
+            gd = F.pad(gd, (0, cp - c, 0, cp - c))
+        gd = aligned(gd)
+        _, blocks, _ = _grad_bf16_plan(h * w, cp, sm_count(feat.device), b)
         err = _build.lib().st2_style_grad_bf16(
             x.data_ptr(), gd.data_ptr(), out.data_ptr(), h * w, cp, b,
-            _build.stream(x))
+            blocks, int(gd.dtype == torch.float32), _build.stream(x))
         _build.check(err, 'st2_style_grad_bf16')
         grad_bf16_launches += 1
     else:
+        gd = d.to(feat.dtype)
+        if cp != c:
+            gd = F.pad(gd, (0, cp - c, 0, cp - c))
+        gd = aligned(gd)
         rows = _plan(h * w, c, sm_count(feat.device), b)[4]
         err = _build.lib().st2_style_grad(
             x.data_ptr(), gd.data_ptr(), out.data_ptr(), h * w, cp, rows, b,

@@ -85,3 +85,22 @@ def test_lib_binds_once_under_the_lock(monkeypatch):
         loader) or 'handle')
     assert _build.lib() == 'handle' and _build.lib() == 'handle'
     assert calls == [_build.LOADER]
+
+
+def test_build_dir_follows_the_headers(tmp_path, monkeypatch):
+    """The build directory is keyed by the headers the sources include
+    (csrc/*.cuh) as well as by the sources: an edited header builds anew
+    instead of loading a stale library. nvcc still compiles only the
+    .cu files, one object each."""
+    for src in _build.CSRC.iterdir():
+        if src.suffix in ('.cu', '.cuh'):
+            (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, 'CSRC', tmp_path)
+    headers = sorted(tmp_path.glob('*.cuh'))
+    assert headers
+    before = _build.build_dir()
+    assert _build.build_dir() == before
+    headers[0].write_text(headers[0].read_text() + '\n// edited\n')
+    assert _build.build_dir() != before
+    assert [s.name for s in _build._sources()] == sorted(
+        s.name for s in tmp_path.glob('*.cu'))

@@ -1300,19 +1300,45 @@ def test_sharded_engine_on_card_matches_unsharded(cuda, precision, rtol):
 # -- the bf16 loss feed's kernels (ops/style.py style_gram, style_product on
 # a bf16 tap; ops/reduce.py sumsq) ---------------------------------------------
 
+# The bf16 feed's tolerances against float64 on the same bf16 values
+# (chip_smoke.py's FEED_GRAM_TOL, FEED_PRODUCT_TOL): the Gram sums exact
+# products in float32; the product rounds its float32 sums to bf16 once.
+FEED_GRAM_TOL = 1e-4
+FEED_PRODUCT_TOL = 2.0 ** -8 + 1e-5
+
+
+def _feed_f64_errs(feat, size, d, g, s):
+    """(the Gram's, the product's) largest error against float64 on the
+    same bf16 values and D rounded to bf16, relative to the reference's
+    largest magnitude."""
+    x64 = feat.double().reshape(feat.shape[0], -1, feat.shape[-1])
+    g64 = torch.bmm(x64.transpose(1, 2), x64) / size
+    d64 = d.to(torch.bfloat16).double().reshape(-1, *d.shape[-2:])
+    s64 = torch.bmm(x64, d64.expand(x64.shape[0], -1, -1))
+    g_err = (g.double().reshape(g64.shape) - g64).abs().max() / (
+        g64.abs().max())
+    s_err = (s.double().reshape(s64.shape) - s64).abs().max() / (
+        s64.abs().max())
+    return float(g_err), float(s_err)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('shape', [(1, 97, 53, 64), (1, 45, 37, 128),
                                    (1, 23, 29, 256), (1, 11, 13, 512),
                                    (3, 17, 19, 64), (2, 9, 7, 72),
-                                   (1, 5, 6, 60)])
+                                   (1, 5, 6, 60), (1, 150, 170, 256),
+                                   (1, 200, 200, 512), (4, 64, 50, 256)])
 def test_feed_style_phases_match_plain_and_repeat(cuda, shape):
     """The bf16 Gram and product at ragged M, at a C that is no multiple
     of the 64-wide tile (72) or of the 8-value copy (60, padded), one map
-    and lanes: the Gram within 1e-4 of the plain version's largest entry,
-    the product within one bf16 ulp of the plain version's (2^-7 of the
-    largest value: the two sum in float32 in different orders, then round
-    once) and its bits in at least 99% of the values; two calls give the
-    same bits, and no float32 kernel launches."""
+    and lanes, and at maps whose product blocks walk several slabs (each
+    panel of D resident, C = 256 and 512, four lanes crossing from one
+    lane's D to the next): the Gram within 1e-4 of the plain version's
+    largest entry and of float64, the product within one bf16 ulp of the
+    plain version's (2^-7 of the largest value: the two sum in float32 in
+    different orders, then round once), within one bf16 rounding of
+    float64, and its bits in at least 99% of the values; two calls give
+    the same bits, and no float32 kernel launches."""
     rng = np.random.RandomState(shape[-1] + shape[0])
     lanes = shape[0] > 1
     feat = torch.relu(torch.from_numpy(np.float32(rng.randn(*shape)))).to(
@@ -1338,6 +1364,82 @@ def test_feed_style_phases_match_plain_and_repeat(cuda, shape):
     assert float((s.float() - s_ref.float()).abs().max()) <= 2 ** -7 * float(
         s_ref.float().abs().max())
     assert float((s == s_ref).float().mean()) >= 0.99
+    g_err, s_err = _feed_f64_errs(feat, size, d, g, s)
+    assert g_err <= FEED_GRAM_TOL and s_err <= FEED_PRODUCT_TOL
+
+
+@pytest.mark.cuda
+def test_feed_style_phases_keep_a_nan_in_its_lane(cuda):
+    """Four lanes, a NaN in lane 2's map and another in lane 1's D: the
+    Gram and the product of those lanes hold NaNs, every other lane stays
+    finite and within tolerance of float64, and each lane's product is
+    the bits of that lane run alone (no sum crosses lanes)."""
+    rng = np.random.RandomState(11)
+    shape = (4, 40, 36, 256)
+    feat = torch.relu(torch.from_numpy(np.float32(rng.randn(*shape)))).to(
+        cuda, torch.bfloat16)
+    feat[2, 7, 5, 100] = float('nan')
+    d = torch.from_numpy(np.float32(rng.randn(4, 256, 256))).to(cuda)
+    d[1, 30, 200] = float('nan')
+    size = shape[1] * shape[2] * shape[3]
+    g = style.style_gram(feat, size, True)
+    s = style.style_product(feat, d)
+    for lane in range(4):
+        g_nan = bool(torch.isnan(g[lane]).any())
+        s_nan = bool(torch.isnan(s[lane].float()).any())
+        assert g_nan == (lane == 2) and s_nan == (lane in (1, 2)), lane
+        alone = style.style_product(feat[lane:lane + 1], d[lane])
+        assert torch.equal(s[lane:lane + 1].view(torch.int16),
+                           alone.view(torch.int16)), lane
+        if lane in (0, 3):
+            g_err, s_err = _feed_f64_errs(feat[lane:lane + 1], size,
+                                          d[lane], g[lane], s[lane])
+            assert g_err <= FEED_GRAM_TOL and s_err <= FEED_PRODUCT_TOL
+
+
+@pytest.mark.cuda
+def test_feed_product_rounds_d_as_torch_does(cuda):
+    """The product rounds a float32 D to bf16 as it stages it: its bits
+    are those of the same product of d.to(torch.bfloat16), ties to even
+    among the values."""
+    rng = np.random.RandomState(12)
+    feat = torch.relu(torch.from_numpy(np.float32(rng.randn(1, 33, 41,
+                                                            128)))).to(
+        cuda, torch.bfloat16)
+    d = np.float32(rng.randn(128, 128))
+    # Exact halfway cases between two bf16 values: 1 + 2^-8 + k 2^-7.
+    d[:8, :8] = np.float32(1 + 2.0 ** -8) + np.arange(64).reshape(8, 8) * (
+        np.float32(2.0 ** -7))
+    d = torch.from_numpy(d).to(cuda)
+    assert torch.equal(style.style_product(feat, d),
+                       style.style_product(feat, d.to(torch.bfloat16)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('c', [64, 512])
+def test_feed_style_phases_on_a_sharded_map(cuda, c):
+    """A bf16 map cut 4 ways on one card: style_gram sums the shards'
+    Grams in shard order (bit for bit each shard's own call added up),
+    within tolerance of the whole map's plain Gram; style_product rounds
+    D once and each shard's product is the bits of that shard's own
+    call."""
+    from style_transfer2_tpu_torch.parallel import Mesh, SpatialPlacement
+    rng = np.random.RandomState(c + 1)
+    feat = torch.relu(torch.from_numpy(np.float32(rng.randn(1, 44, 21, c)))
+                      ).to(cuda, torch.bfloat16)
+    d = torch.from_numpy(np.float32(rng.randn(c, c) * 1e-2)).to(cuda)
+    xs = SpatialPlacement(Mesh([cuda] * 4, ('space',))).image(feat)
+    size = feat.numel()
+    g = style.style_gram(xs, size)
+    parts = [style.style_gram(s, size) for s in xs.shards]
+    assert torch.equal(g, ((parts[0] + parts[1]) + parts[2]) + parts[3])
+    g_ref = style.style_gram_plain(feat, size)
+    assert float((g - g_ref).abs().max()) <= 1e-4 * float(g_ref.abs().max())
+    prod = style.style_product(xs, d)
+    for shard, got in zip(xs.shards, prod.shards):
+        assert torch.equal(got, style.style_product(shard, d))
+    g_err, s_err = _feed_f64_errs(feat, size, d, g, prod.gather())
+    assert g_err <= FEED_GRAM_TOL and s_err <= FEED_PRODUCT_TOL
 
 
 @pytest.mark.cuda

@@ -430,15 +430,20 @@ def test_style_phases_take_the_lane_axis_and_shards():
     (384 * 512, 64, 1), (96 * 128, 512, 1), (192 * 256, 128, 4),
     (17, 64, 1), (720 * 960, 64, 1)])
 def test_bf16_gram_plan(m, c, lanes):
-    """The bf16 Gram's split: chunks of a multiple of 32 rows covering each
-    map once, about 4 blocks of 128 threads an SM, the partials sized for
-    the float32 reduction's layout."""
-    cp, chunk, n_chunks, n_partials = style._bf16_plan(m, c, 132, lanes)
-    assert cp == c and chunk % 32 == 0
+    """The bf16 Gram's split: chunks of whole stages of the kernel's ring
+    (256 rows where C <= 64, else 64) covering each map once, the grid
+    (chunks x items x lanes) within one block an SM where one chunk an
+    item leaves room, the partials sized for the float32 reduction's
+    layout, the shared memory within an H100 block's 227 KB."""
+    cp, chunk, n_chunks, n_partials, smem = style._bf16_plan(m, c, 132,
+                                                             lanes)
+    assert cp == c and chunk % (256 if c <= 64 else 64) == 0
     assert chunk * n_chunks >= m > chunk * (n_chunks - 1)
+    items = len(style.gram_bf16_items(c))
+    assert n_chunks == 1 or n_chunks * items * lanes <= 132
     tiles = len(style.gram_tiles(c))
-    assert n_chunks <= max(1, -(-4 * 132 // (tiles * lanes)))
     assert n_partials == lanes * n_chunks * tiles * 64 * 64
+    assert smem <= 232448
     assert style._bf16_plan(m, 60, 132, lanes)[0] == 64
 
 
