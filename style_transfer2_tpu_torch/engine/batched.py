@@ -46,7 +46,8 @@ from ..parallel.batch import (build_masked_batched_prime_fn,
                               build_masked_batched_scan_fn, stack_lanes,
                               unstack_lane)
 from ..utils import Trace
-from .graphs import CudaGraphs, StepGraphs
+from ..utils.profiling import RECORDER
+from .graphs import CudaGraphs, StepGraphs, tally, tally_since
 from .objective import (ObjectiveSpec, content_store_dtype,
                         scalars_to_arrays, weights_to_arrays)
 from .steps import precision_config, precision_scope
@@ -215,6 +216,7 @@ class BatchedStyleTransfer:
         if lane is None:
             raise RuntimeError('no free lane (bucket of %d full)'
                                % self.max_lanes)
+        RECORDER.new_job()
         weights = weights if weights is not None else self.default_weights
         scalar_params = (scalar_params if scalar_params is not None
                          else self.default_scalars)
@@ -361,18 +363,25 @@ class BatchedStyleTransfer:
         returns at once: nothing is read back to the host, so a later
         dispatch queues behind this one on the device while the host
         collects an earlier handle. The trace rides the returned handle to
-        collect_steps_all. Returns None when no lane runs."""
+        collect_steps_all. Returns None when no lane runs. Recorded as the
+        span 'engine.begin', with the chunk's replays, warm-ups, captures
+        and replay host ns (graphs.tally)."""
         running = [lane for lane, busy in enumerate(self.active)
                    if busy and self.running[lane]]
         if not running:
             return None
         scan_fn = build_masked_batched_scan_fn(self.spec, self.optimizer_name,
                                                n_steps)
-        with precision_scope(self.precision):
-            self._prime_pending()
-            self.states, norms, traces = scan_fn(
-                self.model, self.states, self.inputs, self.step_sizes,
-                self._run_mask(), self._graphs)
+        with RECORDER.span('engine.begin', steps=n_steps,
+                           lanes=len(running)) as span:
+            before = tally()
+            primed = any(self._needs_prime[lane] for lane in running)
+            with precision_scope(self.precision):
+                self._prime_pending()
+                self.states, norms, traces = scan_fn(
+                    self.model, self.states, self.inputs, self.step_sizes,
+                    self._run_mask(), self._graphs)
+            span.attrs.update(primed=primed, **tally_since(before))
         self.inputs['norms_vals'], self.inputs['norms_set'] = norms
         t_end = {}
         for lane in running:
@@ -384,21 +393,25 @@ class BatchedStyleTransfer:
     def collect_steps_all(self, handle):
         """Waits for a begin_steps_all handle; returns {lane: [trace dict
         per step]} for the lanes that ran in that dispatch, the traces
-        brought to the host in one transfer."""
+        brought to the host in one transfer. Recorded as the span
+        'engine.collect', the transfer's wait inside it
+        ('engine.collect.wait')."""
         if handle is None:
             return {}
         k = handle['k']
-        columns = handle['traces'].cpu().tolist()   # [key][lane][step]
-        out = {}
-        for lane in handle['lanes']:
-            lane_traces = []
-            for j in range(k):
-                trace = Trace()
-                for key, col in zip(self.spec.trace_keys, columns):
-                    trace(key, col[lane][j])
-                trace('fevals', handle['t_end'][lane] - k + 1 + j)
-                lane_traces.append(trace.data)
-            out[lane] = lane_traces
+        with RECORDER.span('engine.collect', chunks=1):
+            with RECORDER.span('engine.collect.wait'):
+                columns = handle['traces'].cpu().tolist()  # [key][lane][step]
+            out = {}
+            for lane in handle['lanes']:
+                lane_traces = []
+                for j in range(k):
+                    trace = Trace()
+                    for key, col in zip(self.spec.trace_keys, columns):
+                        trace(key, col[lane][j])
+                    trace('fevals', handle['t_end'][lane] - k + 1 + j)
+                    lane_traces.append(trace.data)
+                out[lane] = lane_traces
         return out
 
     def step_all(self):

@@ -87,29 +87,46 @@ so each graph records the launches its capture made (ops/conv.py
 path_launches and the flat counters of ops/style.py, ops/reduce.py and
 ops/image.py, _COUNTERS), takes them
 back off the counters (a capture runs nothing), and credits them again on
-every replay. `replays` and `captures` count what every engine did
-(chip_smoke.py reads them).
+every replay, from a plan made at the capture: a few dict and attribute
+additions, no lookup by name. `replays` and `captures` count what every
+engine did (chip_smoke.py reads them).
+
+Recording (utils/profiling.py RECORDER). A warm-up, a capture and the
+release of the graphs' pool are spans ('graphs.warm', 'graphs.capture',
+'graphs.release'); warm-ups, captures and evictions (graphs dropped
+beyond MAX_GRAPHS) are counters ('graphs.warms', 'graphs.captures',
+'graphs.evictions'). A replay records no span: it adds its own host
+nanoseconds (flatten, copy-in, launch credit) to `replay_own_ns` and those
+of the launch call alone, where a full launch queue holds the host, to
+`replay_launch_ns`; the engines' 'engine.begin' spans take a chunk's share
+of each (tally).
 """
 
 import collections
 import contextlib
-import importlib
 import sys
 import time
 
 import torch
 
+from ..ops import conv, image, reduce, style
 from ..parallel.spatial import Sharded
+from ..utils.profiling import RECORDER
 
 # Least recently used graphs beyond this many are dropped (docstring).
 MAX_GRAPHS = 4
 
 replays = 0
+# Host ns of every replay: its own (flatten, copy-in, credit) and its
+# launch call's (module docstring).
+replay_own_ns = 0
+replay_launch_ns = 0
 # Captures that first gave the ordinary pool's cached blocks back
 # (CudaGraphs.make_room).
 emptied = 0
 # One entry a capture, newest last: {'kind', 'hw', 'lanes', 'dtype',
-# 'shards', 'seconds'} (chip_smoke.py reports capture seconds from it).
+# 'shards', 'seconds'}, the seconds those of its 'graphs.capture' span
+# (chip_smoke.py reports capture seconds from it).
 captures = collections.deque(maxlen=256)
 
 # What a graph is captured for: kind 'step' or 'prime', the ObjectiveSpec,
@@ -181,40 +198,62 @@ def _describe(leaf):
 # The wrappers' flat launch counters: key -> (module of ops, attribute).
 # The convs' counters are conv.path_launches, by (direction, path).
 _COUNTERS = {
-    ('style',): ('style', 'launches'),
-    ('style_gram',): ('style', 'gram_launches'),
-    ('style_grad',): ('style', 'grad_launches'),
-    ('style_gram_bf16',): ('style', 'gram_bf16_launches'),
-    ('style_grad_bf16',): ('style', 'grad_bf16_launches'),
-    ('sumsq',): ('reduce', 'launches'),
-    ('preprocess',): ('image', 'preprocess_launches'),
-    ('deprocess',): ('image', 'deprocess_launches'),
+    ('style',): (style, 'launches'),
+    ('style_gram',): (style, 'gram_launches'),
+    ('style_grad',): (style, 'grad_launches'),
+    ('style_gram_bf16',): (style, 'gram_bf16_launches'),
+    ('style_grad_bf16',): (style, 'grad_bf16_launches'),
+    ('sumsq',): (reduce, 'launches'),
+    ('preprocess',): (image, 'preprocess_launches'),
+    ('deprocess',): (image, 'deprocess_launches'),
 }
-
-
-def _ops(name):
-    return importlib.import_module('..ops.' + name, __package__)
 
 
 def _launch_counts():
     """Every kernel wrapper's launch counter, flat."""
-    counts = {('conv',) + key: n
-              for key, n in _ops('conv').path_launches.items()}
+    counts = {('conv',) + key: n for key, n in conv.path_launches.items()}
     for key, (module, attr) in _COUNTERS.items():
-        counts[key] = getattr(_ops(module), attr)
+        counts[key] = getattr(module, attr)
     return counts
+
+
+def _credit_plan(delta):
+    """delta (_launch_counts' keys) as what _apply adds: ([(conv path
+    key, n)], [(module, attribute, n)])."""
+    paths = [(key[1:], n) for key, n in delta.items() if key[0] == 'conv']
+    flat = [_COUNTERS[key] + (n,) for key, n in delta.items()
+            if key[0] != 'conv']
+    return paths, flat
+
+
+def _apply(plan, sign=1):
+    paths, flat = plan
+    launches = conv.path_launches
+    for key, n in paths:
+        launches[key] = launches.get(key, 0) + sign * n
+    for module, attr, n in flat:
+        setattr(module, attr, getattr(module, attr) + sign * n)
 
 
 def _credit(delta, sign=1):
     """Adds sign * delta to the wrappers' launch counters."""
-    paths = _ops('conv').path_launches
-    for key, n in delta.items():
-        n *= sign
-        if key[0] == 'conv':
-            paths[key[1:]] = paths.get(key[1:], 0) + n
-        else:
-            module, attr = _COUNTERS[key]
-            setattr(_ops(module), attr, getattr(_ops(module), attr) + n)
+    _apply(_credit_plan(delta), sign)
+
+
+def tally():
+    """(replays, warm-ups, captures, replays' own host ns, their launch
+    calls' host ns) so far: an engine.begin span records the difference
+    over its chunk."""
+    counters = RECORDER.counters
+    return (replays, counters.get('graphs.warms', 0),
+            counters.get('graphs.captures', 0), replay_own_ns,
+            replay_launch_ns)
+
+
+def tally_since(before):
+    """tally() less `before`, by name."""
+    return dict(zip(('replays', 'warms', 'captures', 'own_ns', 'launch_ns'),
+                    (b - a for a, b in zip(before, tally()))))
 
 
 def _index(device):
@@ -407,9 +446,10 @@ class _Graph:
         before = _launch_counts()
         self.graph = backend.capture(step)
         after = _launch_counts()
-        self.credit = {key: n - before.get(key, 0) for key, n in after.items()
-                       if n != before.get(key, 0)}
-        _credit(self.credit, -1)
+        self.credit = _credit_plan({key: n - before.get(key, 0)
+                                    for key, n in after.items()
+                                    if n != before.get(key, 0)})
+        _apply(self.credit, -1)
 
     def _copy_in(self, flat):
         for i, (_, leaf) in enumerate(flat):
@@ -437,15 +477,20 @@ class _Graph:
     def replay(self, args):
         """Copies args in, replays; returns (the written static subtrees,
         the static output row)."""
-        global replays
+        global replays, replay_own_ns, replay_launch_ns
+        t0 = time.perf_counter_ns()
         flat = _flatten(args)
         if [path for path, _ in flat] != self.paths:
             raise ValueError('step graph: the args do not have the captured '
                              'structure')
         self._copy_in(flat)
+        t1 = time.perf_counter_ns()
         self.graph.replay()
-        _credit(self.credit)
+        t2 = time.perf_counter_ns()
+        _apply(self.credit)
         replays += 1
+        replay_launch_ns += t2 - t1
+        replay_own_ns += t1 - t0 + time.perf_counter_ns() - t2
         return self.new, self.out
 
 
@@ -457,6 +502,7 @@ class StepGraphs:
         self.backend = backend
         self._graphs = collections.OrderedDict()
         self._warm = set()
+        RECORDER.watch_gc()
 
     def __len__(self):
         return len(self._graphs)
@@ -464,11 +510,12 @@ class StepGraphs:
     def clear(self):
         """Drops every graph, and with them their memory pool. A launch
         still in flight completes: CUDA frees its graph after it."""
-        held = bool(self._graphs)
+        held = len(self._graphs)
         self._graphs.clear()
         self._warm.clear()
         if held and self.backend is not None:
-            self.backend.reset()
+            with RECORDER.span('graphs.release', graphs=held):
+                self.backend.reset()
 
     def __del__(self):
         # An engine that goes drops its graphs before its backend, so that
@@ -488,19 +535,26 @@ class StepGraphs:
         if graph is not None:
             self._graphs.move_to_end(key)
             return graph.replay(args)
+        attrs = {'kind': key.kind, 'hw': key.hw, 'lanes': key.lanes,
+                 'dtype': str(key.dtype).replace('torch.', ''),
+                 'shards': 1 if key.layout is None else len(key.layout[1])}
         if key not in self._warm:
             # Kept after the capture too: a key evicted and met again
             # captures at once.
             self._warm.add(key)
-            return self.backend.warm(lambda: body(materialize(args, device)))
-        t0 = time.perf_counter()
-        graph = _Graph(self.backend, body, args, writes, out_shape, device)
-        captures.append({'kind': key.kind, 'hw': key.hw, 'lanes': key.lanes,
-                         'dtype': str(key.dtype).replace('torch.', ''),
-                         'shards': 1 if key.layout is None
-                         else len(key.layout[1]),
-                         'seconds': time.perf_counter() - t0})
+            RECORDER.count('graphs.warms')
+            with RECORDER.span('graphs.warm', **attrs):
+                return self.backend.warm(
+                    lambda: body(materialize(args, device)))
+        before = emptied
+        with RECORDER.span('graphs.capture', **attrs) as span:
+            graph = _Graph(self.backend, body, args, writes, out_shape,
+                           device)
+            span.attrs['emptied'] = emptied - before
+        RECORDER.count('graphs.captures')
+        captures.append(dict(attrs, seconds=(span.t1_ns - span.t0_ns) * 1e-9))
         self._graphs[key] = graph
         while len(self._graphs) > MAX_GRAPHS:
             self._graphs.popitem(last=False)
+            RECORDER.count('graphs.evictions')
         return graph.replay(args)

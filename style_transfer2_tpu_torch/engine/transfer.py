@@ -43,6 +43,7 @@ from ..ops.resample import resize_nhwc
 from ..optim import OPTIMIZERS, STEP_SIZES, lbfgs
 from ..parallel.spatial import gather, gather_tree
 from ..utils import Trace
+from ..utils.profiling import RECORDER
 from .objective import (
     LOSS_NAMES,
     SCALAR_LOSS_NAMES,
@@ -51,13 +52,16 @@ from .objective import (
     scalars_to_arrays,
     weights_to_arrays,
 )
-from .graphs import CudaGraphs, StepGraphs
+from .graphs import CudaGraphs, StepGraphs, tally, tally_since
 from .steps import build_scan_fn, precision_config, precision_scope
 
 
 def _to_host(parts):
-    """1-D device tensors as one host numpy array, in one copy."""
-    return (parts[0] if len(parts) == 1 else torch.cat(parts)).cpu().numpy()
+    """1-D device tensors as one host numpy array, in one copy, which
+    waits for the work that writes them (span 'engine.collect.wait')."""
+    flat = parts[0] if len(parts) == 1 else torch.cat(parts)
+    with RECORDER.span('engine.collect.wait'):
+        return flat.cpu().numpy()
 
 
 def resolve_device(device):
@@ -232,19 +236,23 @@ class StyleTransfer:
         and a history carried down from a larger grid, as a serving
         ladder's first rung is after the session's first grid, went to NaN
         within 30 steps on an H100. The old grid's graphs go: a ladder
-        never comes back to a rung."""
-        self._graphs.clear()
-        with precision_scope(self.precision):
-            state = OPTIMIZERS[self.optimizer_name].resample(
-                gather_tree(self.opt_state), size, new_x=gather(new_x))
-        if self.optimizer_name == 'lbfgs':
-            if (state['sk'].dtype != torch.float32
-                    and lbfgs.history_dtype_for(
-                        self.compute_dtype, state['x'].shape[1:3]) is None):
-                state = lbfgs.init(state['x'], state['sk'].shape[0])
-            self._needs_init = True
-        self.opt_state = state = self._place_state(state)
-        self._input = state['x']
+        never comes back to a rung. Recorded as the span
+        'engine.warm_start', the graphs' release inside it."""
+        with RECORDER.span('engine.warm_start') as span:
+            self._graphs.clear()
+            with precision_scope(self.precision):
+                state = OPTIMIZERS[self.optimizer_name].resample(
+                    gather_tree(self.opt_state), size, new_x=gather(new_x))
+            if self.optimizer_name == 'lbfgs':
+                if (state['sk'].dtype != torch.float32
+                        and lbfgs.history_dtype_for(
+                            self.compute_dtype,
+                            state['x'].shape[1:3]) is None):
+                    state = lbfgs.init(state['x'], state['sk'].shape[0])
+                self._needs_init = True
+            self.opt_state = state = self._place_state(state)
+            self._input = state['x']
+            span.attrs['hw'] = tuple(state['x'].shape[1:3])
 
     def resample_input(self, size):
         """Resizes the iterate to size and warm-starts the optimizer state
@@ -272,6 +280,7 @@ class StyleTransfer:
         self.objective_changed()
 
     def reset(self):
+        RECORDER.new_job()
         self.norm_vals = {}
         self.norm_set = {}
         self.t = 0
@@ -334,14 +343,17 @@ class StyleTransfer:
         """Content features for the given blobs (default: the objective's
         content layers), stored in content_store_dtype: bf16 in bfloat16
         mode, so that the loss feed's `feat - content` stays bf16 (one cast
-        here, not one a step), float32 otherwise."""
+        here, not one a step), float32 otherwise. Recorded as the span
+        'engine.content'."""
         if layers is None:
             layers = self.spec().content_layers
         if not layers:
             return {}
         dtype = content_store_dtype(self.compute_dtype)
-        return {l: f.to(dtype)
-                for l, f in self.model(self.content, tuple(layers)).items()}
+        with RECORDER.span('engine.content',
+                           hw=tuple(self.content.shape[1:3])):
+            return {l: f.to(dtype) for l, f in
+                    self.model(self.content, tuple(layers)).items()}
 
     def set_style(self, image):
         """Sets the style image: runs the whole net and keeps the Gram of
@@ -505,13 +517,18 @@ class StyleTransfer:
         begin_steps queues behind this one on the device while the host
         collects an earlier chunk. A stale L-BFGS cache primes at the head
         of the chunk. Returns a StepsDispatch; collect handles in dispatch
-        order."""
+        order. Recorded as the span 'engine.begin', with the chunk's
+        replays, warm-ups, captures and replay host ns (graphs.tally)."""
         if n_steps < 1:
             raise ValueError('begin_steps needs at least one step')
-        spec = self.spec()
-        with precision_scope(self.precision):
-            rows, prime_row = self._scan(spec, n_steps)
-            image = deprocess_on_device(gather(self._input))
+        with RECORDER.span('engine.begin', steps=n_steps) as span:
+            before = tally()
+            spec = self.spec()
+            with precision_scope(self.precision):
+                rows, prime_row = self._scan(spec, n_steps)
+                image = deprocess_on_device(gather(self._input))
+            span.attrs.update(primed=prime_row is not None,
+                              **tally_since(before))
         self.t += n_steps
         prime = None if prime_row is None else (spec, prime_row)
         return StepsDispatch(spec, rows, n_steps, self.t, image, prime)
@@ -530,7 +547,12 @@ class StyleTransfer:
         rows (prime traces included; the chunks' specs, and so their row
         widths, may differ) and one for all their images. Each prime trace
         is recorded just before its own chunk's steps. Returns [(image or
-        None, traces), ...]."""
+        None, traces), ...]. Recorded as the span 'engine.collect', the
+        copies' waits inside it (_to_host)."""
+        with RECORDER.span('engine.collect', chunks=len(dispatches)):
+            return self._collect_many(dispatches, fetch_image)
+
+    def _collect_many(self, dispatches, fetch_image):
         parts = []
         for dispatch in dispatches:
             if dispatch.prime is not None:
