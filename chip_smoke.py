@@ -39,8 +39,15 @@ exits non-zero:
                of the 512px and 768x1024 iterates and of 4 lanes of the
                512px one, each against float64 on the same bf16 values
                and against its plain version, bitwise repeatable, beside
-               cuBLAS's bf16 GEMM (check_feed); the image kernels
-               (preprocess from uint8
+               cuBLAS's bf16 GEMM (check_feed); the step glue's kernels
+               (check_pool, check_epilogue): the max pool's forward and
+               backward at the float32 512px step's three pools and at
+               every pool of the 1024px ladder's 7 rungs in bfloat16, odd
+               rungs included, bit for bit in values and gradients, beside
+               F.max_pool2d(ceil_mode=True) for the forward, and the tap
+               epilogue at the float32 512px step's five taps, its
+               cotangent bit for bit and its sums within EPILOGUE_TOL of
+               float64; the image kernels (preprocess from uint8
                and float32, deprocess) at every rung of the 1024px ladder,
                bit for bit. The conv forward and backward and the style
                branch must give the same bits on a second call. Each row
@@ -245,14 +252,17 @@ exits non-zero:
                slower for the rest of the process.
 
 Every run requires each kernel of its precision launched
-(PRECISION_KERNELS): a bfloat16 run the feed's bf16 style phases and
-sumsq, a float32 run the fused float32 style branch; the bf16 main run and
+(PRECISION_KERNELS): every run the pool's two, a bfloat16 run the feed's
+bf16 style phases and sumsq, a float32 run the fused float32 style branch
+and the tap epilogue (but a lanes run, LANE_FREE_KERNELS); the bf16 main
+run and
 the feed parity also that no float32 style kernel launched, and the shard
 phase the exact count of each style kernel.
 
 Every kernel's bound and every step's floor come from the port's roofline
 (style_transfer2_tpu_torch/utils/perfmodel.py: kernel_bound with
-conv_cost, style_cost and image_cost; model_step; model_step_sharded).
+conv_cost, style_cost, sumsq_cost, pool_cost, epilogue_cost and
+image_cost; model_step; model_step_sharded).
 Each step a phase measures is read against its floor: the graph phase's
 chunks (512px, one image and 4 lanes, both precisions, eager and
 graphed), each ladder rung and the polish, each highres run, and the
@@ -314,6 +324,9 @@ STYLE_TOL = 1e-4          # the float32 branch and phases
 FEED_GRAM_TOL = 1e-4
 FEED_PRODUCT_TOL = 2.0 ** -8 + 1e-5
 SUMSQ_TOL = 1e-5
+# The tap epilogue's sums against float64 on the same float32 terms
+# (relative; its cotangent is held bit for bit).
+EPILOGUE_TOL = 1e-6
 PARITY_RTOL = 5e-3        # tests/test_golden.py's trace tolerance
 # The bf16 feed's CUDA objective against the CPU one at the CPU run's
 # iterates: the two devices' bf16 convs round some taps apart, as the
@@ -338,20 +351,27 @@ STEP_FIELDS = ('ms', 'plain_ms', 'bound_ms', 'library_ms', 'device_ms',
 
 KERNELS = ('conv3x3_bias_relu_fwd', 'conv3x3_bias_relu_bwd',
            'fused_style_branch', 'style_gram_bf16', 'style_grad_bf16',
-           'sumsq', 'preprocess', 'deprocess')
+           'sumsq', 'pool_fwd', 'pool_bwd', 'tap_epilogue', 'preprocess',
+           'deprocess')
 # The bf16 loss feed's kernels (engine/objective.py): a bfloat16 run
-# launches them and not the fused float32 style branch; a float32 run the
-# reverse.
+# launches them and not the float32 feed's (the fused style branch and the
+# tap epilogue); a float32 run the reverse.
 FEED_KERNELS = ('style_gram_bf16', 'style_grad_bf16', 'sumsq')
+F32_FEED_KERNELS = ('fused_style_branch', 'tap_epilogue')
 PRECISION_KERNELS = {
     'float32': tuple(k for k in KERNELS if k not in FEED_KERNELS),
-    'bfloat16': tuple(k for k in KERNELS if k != 'fused_style_branch')}
+    'bfloat16': tuple(k for k in KERNELS if k not in F32_FEED_KERNELS)}
+# The batched engine's float32 feed keeps its PyTorch terms
+# (engine/objective.py make_lane_objective): a lanes run launches no tap
+# epilogue.
+LANE_FREE_KERNELS = ('tap_epilogue',)
 # Each kernel's sources (the first holds its entry point; wgmma.cuh holds
 # the Hopper helpers both wgmma files include) and the TPU kernel it
 # replaces. The convs' bfloat16 wgmma paths and their split sum run in
 # conv3x3_wgmma.cu, everything else of the convs in conv3x3.cu.
-# sumsq replaces no Pallas kernel: it is the JAX feed's f32_sumsq, which
-# XLA fused.
+# sumsq, the pool and the tap epilogue replace no Pallas kernel: they are
+# the JAX feed's f32_sumsq, the trunk's jnp.max pool and the float32
+# feed's per-tap terms, which XLA fused.
 _CONV_SOURCES = ('style_transfer2_tpu_torch/csrc/conv3x3.cu',
                  'style_transfer2_tpu_torch/csrc/conv3x3_wgmma.cu',
                  'style_transfer2_tpu_torch/csrc/wgmma.cuh')
@@ -368,6 +388,12 @@ SOURCES = {
     'style_grad_bf16': (_STYLE_SOURCES, _STYLE_KERNEL),
     'sumsq': (('style_transfer2_tpu_torch/csrc/reduce.cu',),
               'style_transfer2_tpu/engine/objective.py:239'),
+    'pool_fwd': (('style_transfer2_tpu_torch/csrc/pool.cu',),
+                 'style_transfer2_tpu/models/vgg19.py:182'),
+    'pool_bwd': (('style_transfer2_tpu_torch/csrc/pool.cu',),
+                 'style_transfer2_tpu/models/vgg19.py:182'),
+    'tap_epilogue': (('style_transfer2_tpu_torch/csrc/epilogue.cu',),
+                     'style_transfer2_tpu/engine/objective.py:269'),
     'preprocess': (('style_transfer2_tpu_torch/csrc/image.cu',),
                    'style_transfer2_tpu/ops/pallas/preprocess.py:34'),
     'deprocess': (('style_transfer2_tpu_torch/csrc/image.cu',),
@@ -749,21 +775,27 @@ def require_paths(what, precision):
 
 def counters():
     """Every kernel's launch count, by name."""
-    from style_transfer2_tpu_torch.ops import conv, image, reduce, style
+    from style_transfer2_tpu_torch.ops import (conv, epilogue, image, pool,
+                                               reduce, style)
     return {'conv3x3_bias_relu_fwd': conv.launches('fwd'),
             'conv3x3_bias_relu_bwd': conv.launches('bwd'),
             'fused_style_branch': style.launches,
             'style_gram_bf16': style.gram_bf16_launches,
             'style_grad_bf16': style.grad_bf16_launches,
             'sumsq': reduce.launches,
+            'pool_fwd': pool.fwd_launches,
+            'pool_bwd': pool.bwd_launches,
+            'tap_epilogue': epilogue.launches,
             'preprocess': image.preprocess_launches,
             'deprocess': image.deprocess_launches}
 
 
 def reset_counters():
     from style_transfer2_tpu_torch.engine import graphs
-    from style_transfer2_tpu_torch.ops import conv, image, reduce, style
+    from style_transfer2_tpu_torch.ops import (conv, epilogue, image, pool,
+                                               reduce, style)
     graphs.replays = 0
+    pool.fwd_launches = pool.bwd_launches = epilogue.launches = 0
     style.launches = style.gram_launches = style.grad_launches = 0
     style.gram_bf16_launches = style.grad_bf16_launches = 0
     reduce.launches = 0
@@ -1297,6 +1329,205 @@ def check_sumsq(torch, rng, shape, where, pending, lanes=False,
     return row
 
 
+def pool_inputs(hw):
+    """The (1, h, w, c) maps the trunk pools on the way to conv4_2 at an
+    hw iterate: conv1_2's, conv2_2's and conv3_4's (ceil pools)."""
+    h, w = hw
+    shapes = []
+    for c in (64, 128, 256):
+        shapes.append((1, h, w, c))
+        h, w = -(-h // 2), -(-w // 2)
+    return shapes
+
+
+def check_pool(torch, gen, shape, dtype_name, where, pending,
+               timing=(15, 3)):
+    """ops/pool.py's forward and backward at an (n, h, w, c) ReLU map of
+    dtype_name (its zeros tie in many windows) against the plain
+    torch.amax pool and its autograd, bit for bit in the pooled map and
+    the gradient. Times, launch-inclusive (CUDA events) and from graph
+    replays (the device's own): the forward with its mask beside the plain
+    forward and F.max_pool2d(ceil_mode=True) on the same map as
+    channels-last NCHW; the backward beside the plain version's autograd
+    backward (launch-inclusive only: autograd runs it on the forward's
+    stream, outside a side stream's capture); forward with backward of all
+    three from replays. Given pending, queues the forward, the backward
+    and the library forward for phase_costs. Returns the row."""
+    import torch.nn.functional as F
+
+    from style_transfer2_tpu_torch.ops import pool
+    from style_transfer2_tpu_torch.utils import perfmodel
+
+    def timed(fn):
+        return median_ms(fn, torch, *timing)
+
+    dt = getattr(torch, dtype_name)
+    n, h, w, c = shape
+    x = torch.relu(draw(torch, gen, shape)).to(dt)
+    g = draw(torch, gen, (n, (h + 1) // 2, (w + 1) // 2, c)).to(dt)
+    xk = x.clone().requires_grad_(True)
+    y = pool.max_pool_ceil(xk)
+    dx, = torch.autograd.grad(y, xk, g)
+    xp = x.clone().requires_grad_(True)
+    yp = pool.max_pool_ceil_plain(xp)
+    dxp, = torch.autograd.grad(yp, xp, g, retain_graph=True)
+    fwd_err, bwd_err = rel_err(y, yp)[0], rel_err(dx, dxp)[0]
+    require(torch.equal(y, yp), 'pool fwd %s %s: max abs err %.3g against '
+            'the plain version' % (dtype_name, shape, fwd_err))
+    require(torch.equal(dx, dxp), 'pool bwd %s %s: max abs err %.3g '
+            'against the plain version' % (dtype_name, shape, bwd_err))
+    _, mask = pool._forward(x, True)
+    xl = x.permute(0, 3, 1, 2)
+    gl = g.permute(0, 3, 1, 2)
+    # The replayed forward-and-backward calls take leaves of their own,
+    # first used on replay_ms's side stream: autograd keeps a leaf's
+    # stream from its first graph, and would make the default stream wait
+    # on the capturing one.
+    xr, xpr = (x.clone().requires_grad_(True) for _ in range(2))
+    xb = x.clone().permute(0, 3, 1, 2).requires_grad_(True)
+
+    def fwd():
+        return pool._forward(x, True)
+
+    def bwd():
+        return pool._backward(g, mask, (h, w))
+
+    def fwd_lib():
+        return F.max_pool2d(xl, 2, 2, ceil_mode=True)
+
+    def fwd_plain():
+        return pool.max_pool_ceil_plain(x)
+
+    both = {'': lambda: torch.autograd.grad(pool.max_pool_ceil(xr), xr, g),
+            'plain_': lambda: torch.autograd.grad(
+                pool.max_pool_ceil_plain(xpr), xpr, g),
+            'library_': lambda: torch.autograd.grad(
+                F.max_pool2d(xb, 2, 2, ceil_mode=True), xb, gl)}
+    b_ms, b_by = bound(*perfmodel.pool_cost(*shape, dtype_name))
+    row = {'kernel': 'pool', 'dtype': dtype_name, 'where': where,
+           'shape': list(shape),
+           'fwd_ms': timed(fwd), 'fwd_plain_ms': timed(fwd_plain),
+           'fwd_library_ms': timed(fwd_lib), 'bwd_ms': timed(bwd),
+           'bwd_plain_ms': timed(lambda: torch.autograd.grad(
+               yp, xp, g, retain_graph=True)),
+           'bwd_library_ms': None,
+           'fwd_replay_ms': replay_ms(fwd, torch),
+           'fwd_plain_replay_ms': replay_ms(fwd_plain, torch),
+           'fwd_library_replay_ms': replay_ms(fwd_lib, torch),
+           'bwd_replay_ms': replay_ms(bwd, torch),
+           'fwd_bound_ms': b_ms, 'bwd_bound_ms': b_ms, 'fwd_bound_by': b_by,
+           'bwd_bound_by': b_by, 'fwd_abs_err': fwd_err,
+           'bwd_abs_err': bwd_err}
+    for key, fn in both.items():
+        row['fwd_bwd_%sreplay_ms' % key] = replay_ms(fn, torch)
+    if pending is not None:
+        pending.extend([(row, 'fwd_', fwd), (row, 'bwd_', bwd),
+                        (row, 'fwd_library_', fwd_lib)])
+    say('kernels', 'pool %-8s %-9s %-20s fwd %.4f ms (plain %.4f; '
+        'F.max_pool2d %.4f), bwd %.4f (plain %.4f); replays: fwd %.4f '
+        '(plain %.4f; F.max_pool2d %.4f; %.0f%% of bound %.4f), bwd %.4f '
+        '(%.0f%% of bound), fwd+bwd %.4f (plain %.4f; F.max_pool2d %.4f); '
+        'bit for bit' % (
+            dtype_name, where, tuple(shape), row['fwd_ms'],
+            row['fwd_plain_ms'], row['fwd_library_ms'], row['bwd_ms'],
+            row['bwd_plain_ms'], row['fwd_replay_ms'],
+            row['fwd_plain_replay_ms'], row['fwd_library_replay_ms'],
+            100 * b_ms / row['fwd_replay_ms'], b_ms, row['bwd_replay_ms'],
+            100 * b_ms / row['bwd_replay_ms'], row['fwd_bwd_replay_ms'],
+            row['fwd_bwd_plain_replay_ms'],
+            row['fwd_bwd_library_replay_ms']))
+    return row
+
+
+def check_epilogue(torch, gen, shape, terms, where, pending,
+                   timing=(15, 3)):
+    """ops/epilogue.py's tap epilogue at a float32 (n, h, w, c) tap with
+    the terms named in `terms` ('c', 's', 'd') against its plain version:
+    the cotangent bit for bit, the same bits on a second call, and the
+    five sums within EPILOGUE_TOL of float64 over the same float32 terms
+    (the plain version's float32 reductions beside). Times launch-inclusive
+    and from graph replays, beside the plain version's (no one PyTorch call
+    computes the same: library_ms None). Given pending, queues the kernel
+    for phase_costs. Returns the row."""
+    from style_transfer2_tpu_torch.ops import epilogue
+    from style_transfer2_tpu_torch.utils import perfmodel
+
+    def timed(fn):
+        return median_ms(fn, torch, *timing)
+
+    def scalar(v):
+        return torch.tensor(v, device='cuda')
+
+    feat = torch.relu(draw(torch, gen, shape))
+    w = torch.tensor([0.08, 1.0, -0.3], device='cuda')
+    args = dict(content=None, c_norm=None, s_grad=None, s_scale=None,
+                d_norm=None)
+    if 'c' in terms:
+        args.update(content=torch.relu(draw(torch, gen, shape)),
+                    c_norm=scalar(3e-3))
+    if 's' in terms:
+        args.update(s_grad=draw(torch, gen, shape, 1e-4),
+                    s_scale=w[1] / scalar(7e-6))
+    if 'd' in terms:
+        args.update(d_norm=scalar(1.3e-2))
+    diff, sums = epilogue.tap_epilogue(feat, w, **args)
+    diff2, sums2 = epilogue.tap_epilogue(feat, w, **args)
+    want, want_sums = epilogue.tap_epilogue_plain(feat, w, **args)
+    err = rel_err(diff, want)[0]
+    require(torch.equal(diff, want), 'tap_epilogue %s %s: cotangent max '
+            'abs err %.3g against the plain version' % (terms, shape, err))
+    require(torch.equal(diff, diff2) and torch.equal(sums, sums2),
+            'tap_epilogue %s %s: two calls differ' % (terms, shape))
+    size = float(feat.numel())
+
+    def f64(t):
+        return float(t.double().square().sum())
+
+    exact = [0.0] * 5
+    if 'c' in terms:
+        c_diff = feat - args['content']
+        exact[0] = f64(c_diff)
+        exact[1] = f64(w[0] * ((2.0 / size) * c_diff) / args['c_norm'])
+    if 's' in terms:
+        exact[2] = f64(args['s_scale'] * args['s_grad'])
+    if 'd' in terms:
+        exact[3] = f64(feat)
+        exact[4] = f64(w[2] * ((-2.0 / size) * feat) / args['d_norm'])
+
+    def worst_rel(got):
+        got = got.double().tolist()
+        return max(abs(a - e) / abs(e) if e else abs(a)
+                   for a, e in zip(got, exact))
+
+    r, p_rel = worst_rel(sums), worst_rel(want_sums)
+    require(math.isfinite(r) and r <= EPILOGUE_TOL, 'tap_epilogue %s %s: '
+            'sums rel err %.3g against float64' % (terms, shape, r))
+
+    def kernel():
+        return epilogue.tap_epilogue(feat, w, **args)
+
+    def plain():
+        return epilogue.tap_epilogue_plain(feat, w, **args)
+
+    t_b, t_by = bound(*perfmodel.epilogue_cost(feat.numel(), terms))
+    row = {'kernel': 'tap_epilogue', 'dtype': 'float32', 'where': where,
+           'shape': list(shape), 'terms': terms, 'ms': timed(kernel),
+           'plain_ms': timed(plain), 'library_ms': None,
+           'replay_ms': replay_ms(kernel, torch),
+           'plain_replay_ms': replay_ms(plain, torch), 'bound_ms': t_b,
+           'bound_by': t_by, 'abs_err': err, 'f64_rel_err': r,
+           'plain_f64_rel_err': p_rel}
+    if pending is not None:
+        pending.append((row, '', kernel))
+    say('kernels', 'tap_epilogue %-3s %-6s %-20s %.4f ms (plain %.4f); '
+        'replays %.4f ms (plain %.4f; %.0f%% of bound %.4f); cotangent bit '
+        'for bit, sums f64 err %.2g (plain %.2g)' % (
+            terms, where, tuple(shape), row['ms'], row['plain_ms'],
+            row['replay_ms'], row['plain_replay_ms'],
+            100 * t_b / row['replay_ms'], t_b, r, p_rel))
+    return row
+
+
 def check_feed(torch, rng, hw, where, pending, worst, parts=None, lanes=1,
                n=1, timing=(15, 3)):
     """The feed's kernels at the style taps of an hw iterate (one shard of
@@ -1507,6 +1738,33 @@ def phase_kernels(torch):
                            pending if main else [], worst,
                            parts if main else None, lanes)
 
+    # The step glue's kernels on their own generator: the pool at the
+    # float32 512px step's three pools and at every pool of the 7 rungs of
+    # the 1024px ladder in bfloat16, the tap epilogue at the float32 512px
+    # step's five taps (conv1_1 to conv4_1 with style, conv4_2 with
+    # content). The 512px rows make the summary entries and are profiled.
+    glue_gen = torch.Generator(device='cuda').manual_seed(5 * LANES)
+    for dtype_name, grids in (('float32', [(384, 512)]),
+                              ('bfloat16', LADDER_1024)):
+        for hw in grids:
+            main = dtype_name == 'float32'
+            where = '512' if main else '%dx%d' % hw
+            for shape in pool_inputs(hw):
+                row = check_pool(torch, glue_gen, shape, dtype_name, where,
+                                 pending if main else None)
+                rows.append(row)
+                for d in ('fwd', 'bwd'):
+                    worst['pool_' + d] = max(worst['pool_' + d],
+                                             row[d + '_abs_err'])
+                    if main:
+                        parts['pool_' + d].append((row, d + '_'))
+    for shape, terms in ([((1,) + tap, 's') for tap in STYLE_TAPS['512']]
+                         + [((1, 48, 64, 512), 'c')]):
+        row = check_epilogue(torch, glue_gen, shape, terms, '512', pending)
+        rows.append(row)
+        worst['tap_epilogue'] = max(worst['tap_epilogue'], row['abs_err'])
+        parts['tap_epilogue'].append((row, ''))
+
     for hw in LADDER_1024:
         for row in check_image(torch, rng, hw, pending):
             rows.append(row)
@@ -1668,12 +1926,15 @@ def replays():
     return graphs.replays
 
 
-def require_all_launched(counts, what, precisions):
+def require_all_launched(counts, what, precisions, lanes=False):
     """Every kernel of the run's precisions launched (PRECISION_KERNELS:
     a bfloat16 run's style taps take the feed's bf16 phases, a float32
-    run's the fused branch), and the steps ran as graph replays
+    run's the fused branch and the tap epilogue; a lanes run none of
+    LANE_FREE_KERNELS), and the steps ran as graph replays
     (engine/graphs.py; the launch counts above include the replays')."""
     want = {k for p in precisions for k in PRECISION_KERNELS[p]}
+    if lanes:
+        want -= set(LANE_FREE_KERNELS)
     for name in sorted(want):
         require(counts[name] > 0, '%s: kernel %s never launched'
                 % (what, name))
@@ -3108,7 +3369,8 @@ def phase_batch(torch, log, rates, smi):
         peak_all = torch.cuda.max_memory_allocated()
         peak = peak_all - base
         require(rc == 0, 'batch %s: cli.main returned %r' % (precision, rc))
-        require_all_launched(counts, 'batch ' + precision, (precision,))
+        require_all_launched(counts, 'batch ' + precision, (precision,),
+                             lanes=True)
         require_planned(torch, 'batch ' + precision, [(precision, full_hw)],
                         LANES)
         for name, n in counts.items():
@@ -3644,7 +3906,8 @@ async def pool_tier(torch, which, precision, **keys):
     peak = torch.cuda.max_memory_allocated()
     counts = counters()
     # The bfloat16 tier's polish runs in the float32 bucket.
-    require_all_launched(counts, 'pool ' + which, {precision, 'float32'})
+    require_all_launched(counts, 'pool ' + which, {precision, 'float32'},
+                         lanes=True)
     require_paths('pool ' + which, precision)
     require_planned(torch, 'pool ' + which, result['buckets'], POOL_LANES)
     result.update(launches=counts, paths=path_counts(),
@@ -5138,7 +5401,11 @@ def main():
         'shard; style_gram_bf16, style_grad_bf16, sumsq: the bf16 loss '
         'feed\'s kernels, which every bfloat16 run launches, summed over '
         'the 512px step\'s four style taps, sumsq over its five calls, '
-        'library: cuBLAS bf16 GEMM); '
+        'library: cuBLAS bf16 GEMM); pool_fwd, pool_bwd: float32, summed '
+        'over the 512px step\'s three pools (library: '
+        'F.max_pool2d(ceil_mode=True) for the forward, none for the '
+        'backward); tap_epilogue: float32, summed over the 512px step\'s '
+        'five taps (no library call); '
         '512px it/s float32 '
         '%.3f, bfloat16 %.3f; step graph replays by run: %s' % (
             rates['float32'], rates['bfloat16'],

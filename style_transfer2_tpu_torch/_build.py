@@ -1,7 +1,8 @@
 """Builds the CUDA kernels in csrc/ and binds them with ctypes.
 
 The sources (csrc/conv3x3.cu, conv3x3_wgmma.cu, style.cu, reduce.cu,
-image.cu; conv3x3_wgmma.cu and style.cu include csrc/wgmma.cuh) are
+image.cu, pool.cu, epilogue.cu; conv3x3_wgmma.cu and style.cu include
+csrc/wgmma.cuh) are
 compiled at first use, on the machine with the card, by nvcc into one
 shared library with a plain C interface: one nvcc per source, all started
 together, then one link:
@@ -62,6 +63,10 @@ _SIGNATURES = {
     'st2_style_gram_bf16': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     'st2_style_grad_bf16': [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     'st2_sumsq': [_P, _P, _P, _L, _L, _I, _I, _I, _P],
+    'st2_pool_fwd': [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    'st2_pool_bwd': [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    'st2_tap_epilogue': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I,
+                         _I, _F, _F, _P],
     'st2_preprocess': [_P, _P, _P, _P],
     'st2_deprocess': [_P, _P, _P, _P],
 }

@@ -84,8 +84,8 @@ engine is a new engine with its own graphs.
 
 Launch accounting. A replay does not call the kernels' Python wrappers,
 so each graph records the launches its capture made (ops/conv.py
-path_launches and the flat counters of ops/style.py, ops/reduce.py and
-ops/image.py, _COUNTERS), takes them
+path_launches and the flat counters of ops/style.py, ops/reduce.py,
+ops/image.py, ops/pool.py and ops/epilogue.py, _COUNTERS), takes them
 back off the counters (a capture runs nothing), and credits them again on
 every replay, from a plan made at the capture: a few dict and attribute
 additions, no lookup by name. `replays` and `captures` count what every
@@ -109,7 +109,7 @@ import time
 
 import torch
 
-from ..ops import conv, image, reduce, style
+from ..ops import conv, epilogue, image, pool, reduce, style
 from ..parallel.spatial import Sharded
 from ..utils.profiling import RECORDER
 
@@ -204,6 +204,9 @@ _COUNTERS = {
     ('style_gram_bf16',): (style, 'gram_bf16_launches'),
     ('style_grad_bf16',): (style, 'grad_bf16_launches'),
     ('sumsq',): (reduce, 'launches'),
+    ('pool_fwd',): (pool, 'fwd_launches'),
+    ('pool_bwd',): (pool, 'bwd_launches'),
+    ('tap_epilogue',): (epilogue, 'launches'),
     ('preprocess',): (image, 'preprocess_launches'),
     ('deprocess',): (image, 'deprocess_launches'),
 }

@@ -26,7 +26,9 @@ every reduction per lane, so that nothing mixes two lanes. It has no
 temporal term, as the JAX batched engine has none.
 
 float32 and float32_fast run the JAX package's float32-feed branches:
-float32 taps, float32 cotangents, the fused style branch. bfloat16 runs its
+float32 taps, float32 cotangents, the fused style branch, each tap's
+cotangent and the sums behind its loss and trace from ops/epilogue.py
+tap_epilogue (one kernel a tap on the card, _f32_layer). bfloat16 runs its
 bf16 loss feed, as the JAX package ships it (BF16_FEED with STYLE_EINSUM
 and STYLE_FOLD = 'auto', style_transfer2_tpu/engine/objective.py), with no
 switch back (_feed_layer):
@@ -56,6 +58,7 @@ import numpy as np
 import torch
 
 from ..models import vgg19
+from ..ops.epilogue import tap_epilogue
 from ..ops.losses import p_norm, p_norm_lanes, tv_norm, tv_norm_lanes
 from ..ops.reduce import sumsq
 from ..ops.style import fused_style_branch, style_gram, style_product
@@ -161,6 +164,52 @@ def _feed_layer(layer, branch, feat, w, content, gram_style, norm_of,
         trace.append(torch.abs(scale) * rms_feat)
         diff = add(col(scale.to(dt)) * feat)
 
+    return loss, diff
+
+
+def _f32_layer(layer, branch, feat, w, content, gram_style, norm_of, trace,
+               loss, fresh_norms):
+    """The float32 feed of one tapped layer (the JAX package's float32
+    branches): appends each term's loss and gradient RMS to trace and
+    returns (loss with the layer's terms added, the layer's float32
+    cotangent). The cotangent and the sums behind the terms' losses and
+    RMS traces come from ops/epilogue.py tap_epilogue (the kernel on a CUDA
+    tap); a fresh norm, where wanted, is the RMS of the term's raw
+    gradient as PyTorch reduces it."""
+    _, has_c, has_s, has_d = branch
+    size = float(feat.numel())
+
+    def norm(kind, raw_grad):
+        return norm_of(layer + kind,
+                       _rms(raw_grad()) if fresh_norms else None)
+
+    cn = sn = dn = s_grad = s_scale = None
+    if has_c:
+        cn = norm(':c', lambda: (2.0 / size) * (feat - content))
+    if has_s:
+        s_grad, gram_diff = fused_style_branch(feat, gram_style)
+        sn = norm(':s', lambda: s_grad)
+        s_scale = w[1] / sn
+    if has_d:
+        dn = norm(':d', lambda: (-2.0 / size) * feat)
+    diff, sums = tap_epilogue(feat, w, content if has_c else None, cn,
+                              s_grad, s_scale, dn)
+
+    if has_c:
+        c_loss = w[0] * (sums[0] / size) / cn
+        trace.append(c_loss)
+        loss = loss + c_loss
+        trace.append(torch.sqrt(sums[1] / size))
+    if has_s:
+        s_loss = w[1] * torch.mean(torch.square(gram_diff)) / sn
+        trace.append(s_loss)
+        loss = loss + s_loss
+        trace.append(torch.sqrt(sums[2] / size))
+    if has_d:
+        d_loss = -w[2] * (sums[3] / size) / dn
+        trace.append(d_loss)
+        loss = loss + d_loss
+        trace.append(torch.sqrt(sums[4] / size))
     return loss, diff
 
 
@@ -285,14 +334,19 @@ def empty_norms(spec):
 
 def make_objective(spec):
     """Returns objective(model, x, content_feats, grams, layer_weights,
-    scalars, norms_vals, norms_set, temporal_target=None) -> (loss, grad,
-    (norms_vals', norms_set'), trace) where model is a VGG19Features, every
-    other input a tensor or dict of tensors on x's device (temporal_target
-    an x-shaped float32 tensor where spec.temporal), and trace a tuple of
-    0-d tensors in spec.trace_keys order."""
+    scalars, norms_vals, norms_set, temporal_target=None, fresh_norms=True)
+    -> (loss, grad, (norms_vals', norms_set'), trace) where model is a
+    VGG19Features, every other input a tensor or dict of tensors on x's
+    device (temporal_target an x-shaped float32 tensor where
+    spec.temporal), and trace a tuple of 0-d tensors in spec.trace_keys
+    order. fresh_norms=False promises that every norm of the spec is set
+    (an L-BFGS step, after the prime of its spec set them): the float32
+    feed then takes the stored norms without computing fresh ones, which
+    the set flags would discard."""
 
     def objective(model, x, content_feats, grams, layer_weights, scalars,
-                  norms_vals, norms_set, temporal_target=None):
+                  norms_vals, norms_set, temporal_target=None,
+                  fresh_norms=True):
         feats, vjp = model.features_and_vjp(x, spec.layers)
         feed = model.compute_dtype == torch.bfloat16
         fold = feed and _style_fold(x)
@@ -305,60 +359,27 @@ def make_objective(spec):
 
         def norm_of(key, fresh):
             """First-eval RMS caching: the stored norm if set, else the
-            fresh one; set either way (worker.py:253-254)."""
-            value = torch.where(norms_set[key], norms_vals[key], fresh)
+            fresh one; set either way (worker.py:253-254). fresh None: the
+            stored norm, which the caller knows is set."""
+            value = (norms_vals[key] if fresh is None else
+                     torch.where(norms_set[key], norms_vals[key], fresh))
             new_vals[key] = value
             new_set[key] = is_set
             return value
 
         for branch in spec.branches:
-            layer, has_c, has_s, has_d = branch
+            layer = branch[0]
             feat = feats[layer]
             if feed:
                 loss, diffs[layer] = _feed_layer(
                     layer, branch, feat, layer_weights[layer],
                     content_feats.get(layer), grams.get(layer), norm_of,
                     trace, loss, fold, False)
-                continue
-            size = float(feat.numel())
-            w = layer_weights[layer]
-            diff = torch.zeros_like(feat, dtype=torch.float32)
-
-            if has_c:
-                cw = w[0]
-                c_diff = feat - content_feats[layer]
-                c_grad = (2.0 / size) * c_diff
-                cn = norm_of(layer + ':c', _rms(c_grad))
-                c_loss = cw * torch.mean(torch.square(c_diff)) / cn
-                trace.append(c_loss)
-                loss = loss + c_loss
-                term = cw * c_grad / cn
-                trace.append(_rms(term))
-                diff = diff + term
-
-            if has_s:
-                sw = w[1]
-                s_grad, gram_diff = fused_style_branch(feat, grams[layer])
-                sn = norm_of(layer + ':s', _rms(s_grad))
-                s_loss = sw * torch.mean(torch.square(gram_diff)) / sn
-                trace.append(s_loss)
-                loss = loss + s_loss
-                term = (sw / sn) * s_grad
-                trace.append(_rms(term))
-                diff = diff + term
-
-            if has_d:
-                dw = w[2]
-                d_grad = (-2.0 / size) * feat
-                dn = norm_of(layer + ':d', _rms(d_grad))
-                d_loss = -dw * torch.mean(torch.square(feat)) / dn
-                trace.append(d_loss)
-                loss = loss + d_loss
-                term = dw * d_grad / dn
-                trace.append(_rms(term))
-                diff = diff + term
-
-            diffs[layer] = diff.to(feat.dtype)
+            else:
+                loss, diffs[layer] = _f32_layer(
+                    layer, branch, feat, layer_weights[layer],
+                    content_feats.get(layer), grams.get(layer), norm_of,
+                    trace, loss, fresh_norms)
 
         trace.append(loss)  # scd_loss
 

@@ -63,16 +63,19 @@ def build_step_core(spec, optimizer):
     scalars=..., norms_vals=..., norms_set=...[, temporal_target=...][,
     corrections=(c1, c2)]), step_size a float or a 0-d device tensor and
     corrections Adam's two bias corrections as 0-d device tensors (absent:
-    from the state's host counters). eval_core is None for Adam."""
+    from the state's host counters). eval_core is None for Adam. An L-BFGS
+    step_core takes the norms as set (make_objective's fresh_norms=False):
+    its eval_core, the prime, runs first on a stale cache and sets them;
+    an Adam step, which no prime precedes, computes fresh ones."""
     objective = make_objective(spec)
 
-    def make_opfunc(model, inputs):
+    def make_opfunc(model, inputs, fresh_norms=True):
         def opfunc(x):
             loss, grad, norms, trace = objective(
                 model, x, inputs['content_feats'], inputs['grams'],
                 inputs['layer_weights'], inputs['scalars'],
                 inputs['norms_vals'], inputs['norms_set'],
-                inputs.get('temporal_target'))
+                inputs.get('temporal_target'), fresh_norms)
             return loss, grad, (norms, trace)
         return opfunc
 
@@ -86,9 +89,12 @@ def build_step_core(spec, optimizer):
         return step_core, None
 
     if optimizer == 'lbfgs':
+        # A step follows a prime of its spec (the engines prime a stale
+        # cache first), which set every norm: no fresh ones to compute.
         def step_core(model, state, inputs, step_size):
             state_new, _, (norms, trace) = lbfgs.step(
-                state, make_opfunc(model, inputs), step_size)
+                state, make_opfunc(model, inputs, fresh_norms=False),
+                step_size)
             return state_new, norms, trace
 
         def eval_core(model, state, inputs):

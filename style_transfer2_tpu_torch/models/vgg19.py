@@ -7,10 +7,12 @@ The reference's Caffe network (worker.py:32-106) as a PyTorch module:
     pool1, ..., pool5.
   * A tap at "convX_Y" is the activation AFTER the ReLU; "poolN" is the pool
     output; "data" is the preprocessed input itself.
-  * Max pooling has Caffe's ceil-mode output size (out = ceil(H/2)): the
-    bottom/right edge is padded with -inf and the 2x2 windows are reduced
-    with torch.amax, whose backward splits the gradient evenly among ties,
-    like the JAX reference's jnp.max (F.max_pool2d would send it to one).
+  * Max pooling has Caffe's ceil-mode output size (out = ceil(H/2)), and
+    its backward splits the gradient evenly among ties, like the JAX
+    reference's jnp.max (F.max_pool2d would send it to one): ops/pool.py,
+    the hand-written kernels on the card, on the CPU the plain version (the
+    bottom/right edge padded with -inf, the 2x2 windows reduced with
+    torch.amax).
   * Preprocessing subtracts the RGB mean with NO channel reversal:
     preprocess and deprocess are ops.image's (the hand-written kernels on
     the card, the plain versions on the CPU), re-exported here.
@@ -60,14 +62,14 @@ import torch
 # step graphs with their memory pool) in a reference cycle until the
 # garbage collector runs; imported here, it holds no engine's frame.
 import torch._dynamo  # noqa: F401
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv import (backward_weights, conv3x3_bias_relu,
                         conv3x3_bias_relu_sharded)
 from ..ops.image import MEAN_RGB, deprocess, preprocess  # noqa: F401
-from ..parallel.spatial import Sharded
+from ..ops.pool import max_pool_ceil
+from ..parallel.spatial import Sharded, on_device
 
 # (name, out_channels) for each conv layer, in network order.
 CONV_SPECS = (
@@ -110,13 +112,9 @@ def layer_channels(name):
 
 
 def _max_pool_ceil(x):
-    """2x2 stride-2 max pool over NHWC with Caffe's ceil-mode output size."""
-    n, h, w, c = x.shape
-    pad_h, pad_w = h % 2, w % 2
-    if pad_h or pad_w:
-        x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h), value=float('-inf'))
-    h2, w2 = (h + pad_h) // 2, (w + pad_w) // 2
-    return torch.amax(x.reshape(n, h2, 2, w2, 2, c), dim=(2, 4))
+    """2x2 stride-2 max pool over NHWC with Caffe's ceil-mode output size
+    (ops/pool.py max_pool_ceil)."""
+    return max_pool_ceil(x)
 
 
 def remat_policy(remat):
@@ -172,12 +170,16 @@ def _checkpoint_part(fn, h):
 
 
 def _pool(h):
-    """_max_pool_ceil of a tensor, or of a Sharded shard by shard while its
-    shards' extent along the sharded dim is even (the local pools are then
-    the global one's); else of the gathered map."""
+    """_max_pool_ceil of a tensor, or of a Sharded shard by shard (each
+    under its own device) while its shards' extent along the sharded dim is
+    even (the local pools are then the global one's); else of the gathered
+    map."""
     if isinstance(h, Sharded):
         if h.shards[0].shape[h.axis] % 2 == 0:
-            return h.map(_max_pool_ceil)
+            def pool_shard(s):
+                with on_device(s):
+                    return _max_pool_ceil(s)
+            return h.map(pool_shard)
         h = h.gather()
     return _max_pool_ceil(h)
 

@@ -1,4 +1,5 @@
-"""Ops: the hand-written CUDA kernels' wrappers (conv, style, image) beside
+"""Ops: the hand-written CUDA kernels' wrappers (conv, style, image, reduce,
+pool, epilogue) beside
 their plain PyTorch versions, Gram matrices, the input-domain losses and
 resampling."""
 

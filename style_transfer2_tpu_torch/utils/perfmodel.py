@@ -444,6 +444,28 @@ def sumsq_cost(n, precision='bfloat16'):
     return 2 * n, DTYPE_BYTES[precision] * n + 4
 
 
+def pool_cost(n, h, w, c, precision='float32'):
+    """(FLOPs, bytes) of each of ops/pool.py's two kernels at an (n, h, w,
+    c) map of `precision`'s dtype: the forward reads the map and writes
+    the pooled map and a byte of tie mask a pooled value, the backward
+    reads the cotangent and the mask and writes the map's gradient. The
+    compares are counted as bytes only."""
+    b = DTYPE_BYTES[precision]
+    pooled = n * ((h + 1) // 2) * ((w + 1) // 2) * c
+    return 0, b * n * h * w * c + (b + 1) * pooled
+
+
+def epilogue_cost(n, terms):
+    """(FLOPs, bytes) of ops/epilogue.py's tap epilogue over n float32
+    values with the terms named in `terms` ('c', 's', 'd'): the tap read
+    where a content or deepdream term needs it, the content target and
+    s_grad where present, the cotangent written, 4 bytes each. Elementwise
+    work is counted as bytes only."""
+    arrays = 1 + bool(set(terms) & {'c', 'd'}) + ('c' in terms) + (
+        's' in terms)
+    return 0, 4 * n * arrays
+
+
 def image_cost(px, src_itemsize, kind):
     """(FLOPs, bytes) of an image kernel over px pixels: preprocess reads
     3 channels of src_itemsize bytes and writes 3 float32 (15 bytes a

@@ -1494,3 +1494,371 @@ def test_feed_wrappers_never_take_the_plain_path_on_cuda(cuda, monkeypatch):
     style.style_gram(feat, feat.numel())
     style.style_product(feat, torch.rand(64, 64, device=cuda))
     reduce.sumsq(feat)
+
+
+# The step glue's kernels (ops/pool.py, ops/epilogue.py): bit for bit their
+# plain versions, at every pool and tap shape the benchmark's cells run.
+
+def _glue_bits(t):
+    """t's bits, every NaN made one NaN (csrc/pool.cu keeps no payload)."""
+    t = torch.where(torch.isnan(t), torch.full_like(t, float('nan')), t)
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _pool_inputs(shape):
+    """The three pool inputs of a VGG trunk at the grid of shape's first
+    pool: (n, h, w, 64), then each pool's ceil-mode output with 128 and
+    256 channels."""
+    n, h, w, _ = shape
+    out = []
+    for c in (64, 128, 256):
+        out.append((n, h, w, c))
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return out
+
+
+POOL_SHAPES = (
+    [('float32', s) for s in _pool_inputs((1, 384, 512, 64))]
+    + [('bfloat16', s) for hw in LADDER_1024
+       for s in _pool_inputs((1,) + hw + (64,))]
+    + [(d, s) for d in ('float32', 'bfloat16')
+       for s in ((4, 7, 9, 64), (1, 5, 7, 12), (2, 5, 7, 3),
+                 (1, 48, 64, 512))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,shape', POOL_SHAPES)
+def test_pool_kernels_equal_plain_bitwise(cuda, dtype, shape):
+    """The pool's forward and backward against the plain torch.amax pool
+    and its autograd, bit for bit: ReLU zeros (four-way ties), odd
+    extents, 4 images, C off the 16-byte width, NaN and inf in the map and
+    the cotangent. Each wrapper call is one launch."""
+    from style_transfer2_tpu_torch.ops import pool
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.relu(torch.randn(shape, generator=gen, device=cuda)).to(dt)
+    n, h, w, c = shape
+    g = torch.randn((n, (h + 1) // 2, (w + 1) // 2, c), generator=gen,
+                    device=cuda).to(dt)
+    if h * w < 400:
+        x[0, 0, 0, 0], x[-1, -1, -1, -1] = float('nan'), float('-inf')
+        x[-1, 1, 1, 0] = float('inf')
+        g[0, -1, -1, 0], g[-1, 0, 0, -1] = float('inf'), float('nan')
+    before = (pool.fwd_launches, pool.bwd_launches)
+    xk = x.clone().requires_grad_(True)
+    y = pool.max_pool_ceil(xk)
+    dx, = torch.autograd.grad(y, xk, g)
+    assert (pool.fwd_launches, pool.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    xp = x.clone().requires_grad_(True)
+    yp = pool.max_pool_ceil_plain(xp)
+    dxp, = torch.autograd.grad(yp, xp, g)
+    assert torch.equal(_glue_bits(y.detach()), _glue_bits(yp.detach()))
+    assert torch.equal(_glue_bits(dx), _glue_bits(dxp))
+    with torch.no_grad():
+        assert torch.equal(_glue_bits(pool.max_pool_ceil(x)),
+                           _glue_bits(yp.detach()))
+
+
+@pytest.mark.cuda
+def test_pool_kernel_on_the_current_stream_and_under_checkpoint(cuda):
+    """The pool launches on the caller's current stream, and under
+    torch.utils.checkpoint (the remat policies) its mask is recomputed with
+    the forward: the same gradient."""
+    from torch.utils.checkpoint import checkpoint
+
+    from style_transfer2_tpu_torch.ops import pool
+    x = torch.relu(torch.randn(1, 96, 128, 64, device=cuda))
+    g = torch.randn(1, 48, 64, 64, device=cuda)
+    xk = x.clone().requires_grad_(True)
+    want, = torch.autograd.grad(pool.max_pool_ceil(xk), xk, g)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        xs = x.clone().requires_grad_(True)
+        got, = torch.autograd.grad(pool.max_pool_ceil(xs), xs, g)
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(got, want)
+    xc = x.clone().requires_grad_(True)
+    y = checkpoint(pool.max_pool_ceil, xc, use_reentrant=False,
+                   preserve_rng_state=False)
+    got, = torch.autograd.grad(y, xc, g)
+    assert torch.equal(got, want)
+
+
+# (layer shape, flags) of the float32 cell's taps: conv1_1 to conv4_1 with
+# style, conv4_2 with content, and every term on a ragged 'data' tap.
+EPILOGUE_CASES = (
+    [((1, 384, 512, 64), 's'), ((1, 192, 256, 128), 's'),
+     ((1, 96, 128, 256), 's'), ((1, 48, 64, 512), 's'),
+     ((1, 48, 64, 512), 'c'), ((1, 96, 128, 256), 'csd'),
+     ((1, 48, 64, 512), 'd'), ((1, 17, 19, 3), 'csd'),
+     ((1, 17, 19, 3), 'c')])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,terms', EPILOGUE_CASES)
+def test_tap_epilogue_equals_plain(cuda, shape, terms):
+    """The tap epilogue's cotangent against the plain version's, bit for
+    bit; its sums (float64 inside) within 1e-6 of the plain float32
+    reductions and within 2e-7 of float64's; the same bits twice."""
+    from style_transfer2_tpu_torch.ops import epilogue
+    gen = torch.Generator(device=cuda).manual_seed(len(terms) + shape[-1])
+    feat = torch.relu(torch.randn(shape, generator=gen, device=cuda))
+    content = torch.relu(torch.randn(shape, generator=gen, device=cuda))
+    s_grad = torch.randn(shape, generator=gen, device=cuda) * 1e-4
+    w = torch.tensor([0.08, 1.0, -0.3], device=cuda)
+    norm = lambda v: torch.tensor(v, device=cuda)   # noqa: E731
+    args = dict(content=content if 'c' in terms else None,
+                c_norm=norm(3e-3) if 'c' in terms else None,
+                s_grad=s_grad if 's' in terms else None,
+                s_scale=(w[1] / norm(7e-6)) if 's' in terms else None,
+                d_norm=norm(1.3e-2) if 'd' in terms else None)
+    before = epilogue.launches
+    diff, sums = epilogue.tap_epilogue(feat, w, **args)
+    again, sums_again = epilogue.tap_epilogue(feat, w, **args)
+    assert epilogue.launches == before + 2
+    want, want_sums = epilogue.tap_epilogue_plain(feat, w, **args)
+    assert torch.equal(_glue_bits(diff), _glue_bits(want))
+    assert torch.equal(diff, again) and torch.equal(sums, sums_again)
+    size = float(feat.numel())
+    exact = [0.0] * 5
+    f64 = lambda t: t.double().square().sum().item()   # noqa: E731
+    if 'c' in terms:
+        exact[0] = f64(feat - content)
+        exact[1] = f64(w[0] * ((2.0 / size) * (feat - content))
+                       / args['c_norm'])
+    if 's' in terms:
+        exact[2] = f64(args['s_scale'] * s_grad)
+    if 'd' in terms:
+        exact[3] = f64(feat)
+        exact[4] = f64(w[2] * ((-2.0 / size) * feat) / args['d_norm'])
+    np.testing.assert_allclose(sums.cpu().numpy(), want_sums.cpu().numpy(),
+                               rtol=1e-6)
+    np.testing.assert_allclose(sums.cpu().double().numpy(), exact,
+                               rtol=2e-7)
+
+
+@pytest.mark.cuda
+def test_glue_wrappers_never_take_the_plain_path_on_cuda(cuda, monkeypatch):
+    """On CUDA tensors the pool and the tap epilogue launch their kernels:
+    the plain versions, made to raise, are never called."""
+    from style_transfer2_tpu_torch.ops import epilogue, pool
+
+    def refuse(*args, **kwargs):
+        raise AssertionError('plain version called on CUDA')
+
+    monkeypatch.setattr(pool, 'max_pool_ceil_plain', refuse)
+    monkeypatch.setattr(epilogue, 'tap_epilogue_plain', refuse)
+    x = torch.rand(1, 16, 16, 64, device=cuda).requires_grad_(True)
+    torch.autograd.grad(pool.max_pool_ceil(x).sum(), x)
+    epilogue.tap_epilogue(x.detach(), torch.ones(3, device=cuda),
+                          s_grad=x.detach(),
+                          s_scale=torch.ones((), device=cuda))
+
+
+def _force_plain_glue(monkeypatch):
+    """The trunk's pool and the float32 feed's epilogue as their plain
+    versions on the card: the PyTorch kernels the port ran before."""
+    from style_transfer2_tpu_torch.engine import objective
+    from style_transfer2_tpu_torch.models import vgg19
+    from style_transfer2_tpu_torch.ops import epilogue, pool
+    monkeypatch.setattr(vgg19, '_max_pool_ceil', pool.max_pool_ceil_plain)
+    monkeypatch.setattr(objective, 'tap_epilogue',
+                        epilogue.tap_epilogue_plain)
+
+
+def _glue_f32_run(seed):
+    """200 graphed L-BFGS steps at 384x512 in float32 from a uniform
+    random start, in chunks of 60, two in flight: (the optimizer state,
+    the trace rows)."""
+    from style_transfer2_tpu_torch.engine import StyleTransfer
+    from style_transfer2_tpu_torch.models import random_params
+    rng = np.random.RandomState(seed)
+    content, style_img = (rng.randint(0, 256, (384, 512, 3)).astype(
+        np.uint8) for _ in range(2))
+    st = StyleTransfer(random_params(0), 'float32', device='cuda')
+    st.set_weights(GRAPH_WEIGHTS, GRAPH_SCALARS)
+    st.set_content(content)
+    st.set_style(style_img)
+    st.set_input(np.float32(rng.uniform(0, 255, (384, 512, 3))))
+    assert st.start()
+    traces = []
+    pending = [st.begin_steps(60)]
+    for n in (60, 60, 20):
+        pending.append(st.begin_steps(n))
+        traces += st.collect_steps(pending.pop(0), fetch_image=False)[1]
+    traces += st.collect_steps(pending.pop(0), fetch_image=False)[1]
+    state = {k: v.clone() if torch.is_tensor(v) else v
+             for k, v in st.opt_state.items()}
+    return state, [{k: v for k, v in t.data.items() if k != 'time'}
+                   for t in traces]
+
+
+def _glue_ladder_run(seed):
+    """One 7-rung bf16 image up the 1024px ladder, 200 L-BFGS iterations a
+    rung in chunks of 60 two deep: (the last rung's optimizer state, the
+    trace rows)."""
+    from style_transfer2_tpu_torch.engine import StyleTransfer
+    from style_transfer2_tpu_torch.models import random_params
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    big = Image.fromarray(rng.randint(0, 256, (768, 1024, 3)).astype(
+        np.uint8))
+    style_img = rng.randint(0, 256, (768, 1024, 3)).astype(np.uint8)
+    st = StyleTransfer(random_params(0), 'bfloat16', device='cuda')
+    st.set_weights(GRAPH_WEIGHTS, GRAPH_SCALARS)
+    st.set_style(style_img)
+    traces = []
+    for rung, hw in enumerate(LADDER_1024):
+        content = np.asarray(big.resize(hw[::-1], Image.LANCZOS))
+        if rung:
+            st.resample_input(hw)
+            st.set_content(content)
+        else:
+            st.set_content(content)
+            st.set_input(np.float32(rng.uniform(0, 255, hw + (3,))))
+            assert st.start()
+        pending = [st.begin_steps(60)]
+        for n in (60, 60, 20):
+            pending.append(st.begin_steps(n))
+            traces += st.collect_steps(pending.pop(0), fetch_image=False)[1]
+        traces += st.collect_steps(pending.pop(0), fetch_image=False)[1]
+    state = {k: v.clone() if torch.is_tensor(v) else v
+             for k, v in st.opt_state.items()}
+    return state, [{k: v for k, v in t.data.items() if k != 'time'}
+                   for t in traces]
+
+
+def _assert_same_iterate(got, want):
+    """Two runs' optimizer states bit for bit, and their trace scalars
+    within 1e-6 (only the glue's loss and trace sums differ in order)."""
+    (state, traces), (state_p, traces_p) = got, want
+    assert state.keys() == state_p.keys()
+    for key, value in state.items():
+        if torch.is_tensor(value):
+            assert torch.equal(value, state_p[key]), key
+        else:
+            assert value == state_p[key], key
+    assert len(traces) == len(traces_p)
+    worst = 0.0
+    for row, row_p in zip(traces, traces_p):
+        assert row.keys() == row_p.keys()
+        for key, value in row.items():
+            if np.isfinite(row_p[key]) and row_p[key] != 0:
+                worst = max(worst, abs(value / row_p[key] - 1))
+            else:
+                assert value == row_p[key] or (np.isnan(value)
+                                               and np.isnan(row_p[key]))
+    assert worst <= 1e-6, worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('seed', [4000000221, 4000000231])
+def test_glue_kernels_keep_the_float32_iterate_bit_for_bit(cuda, seed,
+                                                           monkeypatch):
+    """200 graphed float32 steps at 384x512 from a random start: the same
+    iterate, history and norms with the pool and epilogue kernels as with
+    their plain versions forced on the card."""
+    got = _glue_f32_run(seed)
+    _force_plain_glue(monkeypatch)
+    _assert_same_iterate(got, _glue_f32_run(seed))
+
+
+@pytest.mark.cuda
+def test_glue_kernels_keep_the_bf16_ladder_iterate_bit_for_bit(cuda,
+                                                              monkeypatch):
+    """One 7-rung bf16 image up the 1024px ladder: the same iterate with
+    the pool kernel as with the plain pool forced on the card (the bf16
+    feed takes no tap epilogue)."""
+    from style_transfer2_tpu_torch.ops import epilogue
+    before = epilogue.launches
+    got = _glue_ladder_run(4000000211)
+    assert epilogue.launches == before
+    _force_plain_glue(monkeypatch)
+    _assert_same_iterate(got, _glue_ladder_run(4000000211))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('precision', ['float32', 'bfloat16'])
+def test_glue_launch_counters_advance_on_replay(cuda, precision):
+    """A replayed step credits 3 pool forwards and 3 backwards (pools 1-3
+    below the conv4_2 tap) and, in float32, one tap epilogue a tap (5)."""
+    from style_transfer2_tpu_torch.engine import graphs
+    from style_transfer2_tpu_torch.ops import epilogue, pool
+    st = _single_run((96, 128), precision, 'lbfgs', True)[0]
+    counts = (pool.fwd_launches, pool.bwd_launches, epilogue.launches,
+              graphs.replays)
+    st.collect_steps(st.begin_steps(7), fetch_image=False)
+    assert graphs.replays - counts[3] == 7
+    taps = 5 if precision == 'float32' else 0
+    assert (pool.fwd_launches - counts[0], pool.bwd_launches - counts[1],
+            epilogue.launches - counts[2]) == (21, 21, 7 * taps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [2, 4])
+def test_tap_epilogue_of_a_sharded_tap_launches_once_a_shard(cuda, n):
+    """A Sharded float32 tap on the card (n shards of one card) takes one
+    kernel launch a shard, none of the plain version: its diff is the
+    whole tap's plain cotangent bit for bit, and its sums are within 1e-6
+    of the plain version's shard-order sums."""
+    from style_transfer2_tpu_torch.ops import epilogue
+    from style_transfer2_tpu_torch.parallel import Sharded
+    shape = (1, 96, 128, 256)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    feat = torch.relu(torch.randn(shape, generator=gen, device=cuda))
+    content = torch.relu(torch.randn(shape, generator=gen, device=cuda))
+    s_grad = torch.randn(shape, generator=gen, device=cuda) * 1e-4
+    w = torch.tensor([0.08, 1.0, -0.3], device=cuda)
+    args = dict(c_norm=torch.tensor(3e-3, device=cuda),
+                s_scale=w[1] / torch.tensor(7e-6, device=cuda),
+                d_norm=torch.tensor(1.3e-2, device=cuda))
+    cut = lambda t: Sharded(list(t.split(96 // n, 1)), 1)   # noqa: E731
+    before = epilogue.launches
+    diff, sums = epilogue.tap_epilogue(cut(feat), w, cut(content),
+                                       s_grad=cut(s_grad), **args)
+    assert epilogue.launches == before + n
+    assert isinstance(diff, Sharded) and len(diff.shards) == n
+    want, _ = epilogue.tap_epilogue_plain(feat, w, content, s_grad=s_grad,
+                                          **args)
+    assert torch.equal(_glue_bits(diff.gather()), _glue_bits(want))
+    _, want_sums = epilogue.tap_epilogue_plain(
+        cut(feat), w, cut(content), s_grad=cut(s_grad), **args)
+    np.testing.assert_allclose(sums.cpu().numpy(), want_sums.cpu().numpy(),
+                               rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_glue_kernels_keep_the_sharded_float32_iterate_bit_for_bit(
+        cuda, monkeypatch):
+    """A graphed float32 L-BFGS engine over 4 shards of one card: the
+    pool and the tap epilogue launch once a shard of a sharded map, and
+    through step, a chunk, an objective change, two chunks in flight and
+    step, the images, state and norms are bit for bit those with the plain
+    versions forced on the card, the trace scalars within 1e-6."""
+    from style_transfer2_tpu_torch.ops import epilogue, pool
+    hw = (400, 408)
+    counts = (pool.fwd_launches, epilogue.launches)
+    st, traces, images, state, norms = _single_run(
+        hw, 'float32', 'lbfgs', True, placement=_shards(cuda, 4))
+    # More launches than one a pool and one a tap an evaluation (a step
+    # is one, the prime one more): the sharded levels launch once a shard.
+    steps = len(traces)
+    assert pool.fwd_launches - counts[0] > 3 * steps
+    assert epilogue.launches - counts[1] > 5 * steps
+    _force_plain_glue(monkeypatch)
+    counts = (pool.fwd_launches, epilogue.launches)
+    _, traces_p, images_p, state_p, norms_p = _single_run(
+        hw, 'float32', 'lbfgs', True, placement=_shards(cuda, 4))
+    assert (pool.fwd_launches, epilogue.launches) == counts
+    for got, want in zip(images, images_p):
+        np.testing.assert_array_equal(got, want)
+    assert norms == norms_p
+
+    def untimed(rows):
+        return [{k: v for k, v in row.items() if k != 'time'}
+                for row in rows]
+
+    _assert_same_iterate((state, untimed(traces)),
+                         (state_p, untimed(traces_p)))

@@ -569,8 +569,8 @@ def test_build_dir_is_keyed_by_sources():
     assert d == _build.build_dir()
     assert d.parent == _build.BUILD_ROOT and len(d.name) == 16
     assert {p.name for p in _build._sources()} == {
-        'conv3x3.cu', 'conv3x3_wgmma.cu', 'image.cu', 'reduce.cu',
-        'style.cu'}
+        'conv3x3.cu', 'conv3x3_wgmma.cu', 'epilogue.cu', 'image.cu',
+        'pool.cu', 'reduce.cu', 'style.cu'}
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

@@ -186,6 +186,30 @@ def test_bf16_style_route_and_tap_bytes(hw):
     assert perfmodel.sumsq_cost(10, 'float32') == (20, 44)
 
 
+@pytest.mark.parametrize('shape,precision,want', [
+    ((1, 384, 512, 64), 'float32',
+     4 * 384 * 512 * 64 + 5 * 192 * 256 * 64),
+    ((1, 543, 724, 64), 'bfloat16',
+     2 * 543 * 724 * 64 + 3 * 272 * 362 * 64),
+    ((4, 7, 9, 3), 'float32', 4 * 4 * 7 * 9 * 3 + 5 * 4 * 4 * 5 * 3)])
+def test_pool_cost_counts_map_pooled_map_and_mask(shape, precision, want):
+    """Each pool kernel moves the map once, and the pooled map with a byte
+    of mask a pooled value once (ceil extents); the float32 512px pool1
+    is bound at about 0.0197 ms."""
+    assert perfmodel.pool_cost(*shape, precision) == (0, want)
+    if shape == (1, 384, 512, 64):
+        ms, by = chip_smoke.bound(*perfmodel.pool_cost(*shape, precision))
+        assert by == 'bytes' and abs(ms - 0.0197) < 5e-4
+
+
+@pytest.mark.parametrize('terms,arrays', [
+    ('s', 2), ('c', 3), ('d', 2), ('cs', 4), ('sd', 3), ('csd', 4)])
+def test_epilogue_cost_counts_the_arrays_a_tap_moves(terms, arrays):
+    """The tap epilogue writes the cotangent and reads s_grad, the
+    content target and the tap where its terms need them."""
+    assert perfmodel.epilogue_cost(1000, terms) == (0, 4000 * arrays)
+
+
 def test_mfu_and_share_of_floor_by_hand():
     m = perfmodel.model_step((384, 512), 'float32',
                              content_layers=INITIAL[0],

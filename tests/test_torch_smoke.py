@@ -128,7 +128,11 @@ def test_require_all_launched_needs_graph_replays(monkeypatch):
     (('bfloat16',), 'fused_style_branch', False),
     (('bfloat16',), 'sumsq', True), (('bfloat16',), 'style_grad_bf16', True),
     (('bfloat16', 'float32'), 'fused_style_branch', True),
-    (('bfloat16', 'float32'), 'style_gram_bf16', True)])
+    (('bfloat16', 'float32'), 'style_gram_bf16', True),
+    (('float32',), 'tap_epilogue', True), (('bfloat16',), 'tap_epilogue',
+                                           False),
+    (('float32',), 'pool_fwd', True), (('bfloat16',), 'pool_bwd', True),
+    (('bfloat16', 'float32'), 'tap_epilogue', True)])
 def test_require_all_launched_follows_the_precision(monkeypatch, precisions,
                                                    missing, fails):
     """A float32 run needs the fused style branch and not the bf16 feed's
@@ -143,6 +147,36 @@ def test_require_all_launched_follows_the_precision(monkeypatch, precisions,
             chip_smoke.require_all_launched(counts, 'run', precisions)
     else:
         chip_smoke.require_all_launched(counts, 'run', precisions)
+
+
+@pytest.mark.parametrize('missing,fails', [
+    ('tap_epilogue', False), ('pool_fwd', True), ('pool_bwd', True),
+    ('fused_style_branch', True)])
+def test_require_all_launched_of_a_lanes_run(monkeypatch, missing, fails):
+    """A float32 lanes run (the batched engine keeps the float32 feed's
+    PyTorch terms) needs no tap epilogue, and every other float32 kernel,
+    the pool's two included."""
+    monkeypatch.setattr(chip_smoke, 'replays', lambda: 1)
+    counts = dict(dict.fromkeys(chip_smoke.KERNELS, 1), **{missing: 0})
+    if fails:
+        with pytest.raises(RuntimeError, match='%s never launched'
+                           % missing):
+            chip_smoke.require_all_launched(counts, 'batch float32',
+                                            ('float32',), lanes=True)
+    else:
+        chip_smoke.require_all_launched(counts, 'batch float32',
+                                        ('float32',), lanes=True)
+
+
+def test_counters_name_every_kernel_with_a_source():
+    """counters() reads every kernel of KERNELS, the step glue's included,
+    and each has its sources and the JAX code it replaces."""
+    assert set(chip_smoke.counters()) == set(chip_smoke.KERNELS)
+    for name in chip_smoke.KERNELS:
+        sources, replaces = chip_smoke.SOURCES[name]
+        assert all((chip_smoke.ROOT / f).is_file() for f in sources), name
+        path, line = replaces.rsplit(':', 1)
+        assert (chip_smoke.ROOT / path).is_file() and int(line) > 0, name
 
 
 def _highres_on_the_cpu(monkeypatch, tmp_path):
