@@ -3,7 +3,10 @@
 seed, a run of the cell with a short window (the program's readings against
 the float32 reference), and with --control also the control's readings (the
 reference one precision lower in the program's place, portbench/control.py).
-One JSON line a seed; several seeds in one process share the kernels' build.
+One JSON line a seed, with the verdicts on its non-finite jobs (failed or
+diverged, with the readings at each state held), and with --control the
+control's verdicts on the same jobs (its gradient and step at those
+states); several seeds in one process share the kernels' build.
 
     python3 benchmark/calibrate.py --workload <cell> --seconds <s> \
         --seeds 11 12 13 [--control 11 12 13] [--fault answer]
@@ -32,12 +35,14 @@ from portbench.driver import Driver, now  # noqa: E402
 
 def one_seed(name, seed, seconds, device, program, with_control):
     bench, cell, config, traffic, limits = core.cell_parts(name)
+    spec = core.held_spec(name)
     t0 = now()
     driver = Driver(traffic, config, seed, device, program)
     driver.build()
     warm = core.warm_and_start(driver)
     w0, w1 = driver.window(seconds)
     follow = driver.follow()
+    held, bad, rerun_s = core.rerun_nonfinite(driver, spec)
     driver.st = None
     gc.collect()
     if device.type == 'cuda':
@@ -45,18 +50,23 @@ def one_seed(name, seed, seconds, device, program, with_control):
     ref_mod = core.reference_module(config)
     t_ref = now()
     prog, n = core.compare(ref_mod, config, driver, warm, follow,
-                           driver.answers)
+                           driver.answers, held, spec)
+    failed, diverged = core.tally(prog.verdicts, len(bad))
     out = {'workload': name, 'seed': seed, 'program': prog.values,
            'program_where': prog.where, 'answers': n,
            'answer_gaps': prog.answer_gaps,
            'finished': sum(j['finished'] for j in driver.rec.jobs
                            if w0 <= j['t0'] <= w1),
-           'reference_s': now() - t_ref, 'run_s': now() - t0}
+           'failed': failed, 'diverged': diverged, 'verdicts': prog.verdicts,
+           'rerun_s': rerun_s, 'reference_s': now() - t_ref,
+           'run_s': now() - t0}
     if with_control:
-        cw, cf, ca = control.records(ref_mod, config, driver, warm, follow)
-        r, _ = core.compare(ref_mod, config, driver, cw, cf, ca)
+        cw, cf, ca, ch = control.records(ref_mod, config, driver, warm,
+                                         follow, held)
+        r, _ = core.compare(ref_mod, config, driver, cw, cf, ca, ch, spec)
         out['control'] = r.values
         out['control_where'] = r.where
+        out['control_verdicts'] = r.verdicts
     return out
 
 

@@ -7,9 +7,10 @@ The control makes the same records a run makes (the set-up job's rows and
 iterates, the step it follows after the window, the loss reported with each
 finished job's final image), from the same inputs: it steps from the same
 random starts, computes its own gradient at the program's state as the
-window left it and steps from there, and reports its own loss at the
-program's final images. check.Check then judges those records against the
-float32 reference exactly as it judges a run's.
+window left it and at each state a re-run held (driver.rerun) and steps
+from there, and reports its own loss at the program's final images.
+check.Check then judges those records against the float32 reference
+exactly as it judges a run's.
 """
 
 from . import check
@@ -26,8 +27,11 @@ def _rows(traces):
     return [dict(t) for t in traces]
 
 
-def records(ref_mod, config, driver, warm, follow):
-    """(warm, follow, answers) as the control produces them."""
+def records(ref_mod, config, driver, warm, follow, held=()):
+    """(warm, follow, answers, held) as the control produces them; held:
+    the re-run jobs `held` (driver.rerun's) with each point's gradient the
+    control's at its iterate and its next iterate the control's step from
+    there."""
     ctrl = ref_mod.Reference(config, driver.weights,
                              LOWER[config['precision']])
     ctrl.set_style(driver.style)
@@ -72,6 +76,13 @@ def records(ref_mod, config, driver, warm, follow):
             state[lane] = (opt.x, obj.norms)
         c_warm['rungs'].append(rec)
 
+    def step(x, st, grad):
+        """The control's L-BFGS step over its gradient and the program
+        state's history."""
+        opt = ctrl.lbfgs(x, None, history=check.history(st, ctrl.device))
+        with ctrl.precision.scope():
+            return -opt.step_size * opt.inv_hv(grad)
+
     c_follow = dict(follow, state={}, x_end={})
     for lane, st in follow['state'].items():
         x = check.nchw(st['x']).to(ctrl.device)
@@ -80,15 +91,7 @@ def records(ref_mod, config, driver, warm, follow):
                              norms(job_id(follow['job'], lane), c))
         _, grad, _ = obj(x)
         c_follow['state'][lane] = dict(st, grad=nhwc(grad))
-        n = st['sk'].shape[0]
-        count, pos = int(st['count']), int(st['pos'])
-        history = [(check.nchw(st['sk'][s]).to(ctrl.device),
-                    check.nchw(st['yk'][s]).to(ctrl.device))
-                   for s in ((pos - count + j) % n for j in range(count))]
-        opt = ctrl.lbfgs(x, None, history=history)
-        with ctrl.precision.scope():
-            s = -opt.step_size * opt.inv_hv(grad)
-        c_follow['x_end'][lane] = nhwc(x + s)
+        c_follow['x_end'][lane] = nhwc(x + step(x, st, grad))
 
     c_answers = []
     for a in driver.answers:
@@ -96,4 +99,19 @@ def records(ref_mod, config, driver, warm, follow):
                              norms(a['job'], a['content']))
         loss, _, _ = obj(ctrl.preprocess(a['image']))
         c_answers.append(dict(a, row={'loss': loss}))
-    return c_warm, c_follow, c_answers
+
+    c_held = []
+    for h in held:
+        c = h['lane'] % len(contents)
+        nm = norms(h['job'], c)
+        objs, points = {}, []
+        for p in h['points']:
+            r = p['rung']
+            if r not in objs:
+                objs[r] = ctrl.objective(contents[c][r], nm)
+            x = check.nchw(p['state']['x']).to(ctrl.device)
+            _, grad, _ = objs[r](x)
+            points.append(dict(p, state=dict(p['state'], grad=nhwc(grad)),
+                               next=nhwc(x + step(x, p['state'], grad))))
+        c_held.append(dict(h, points=points))
+    return c_warm, c_follow, c_answers, c_held

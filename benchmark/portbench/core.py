@@ -8,6 +8,9 @@ Everything a cell is made of is found by the names in BENCHMARK.json:
                                       (benchmark/reference/<name>.py)
   benchmark/traffic/<traffic>.json    the mix the driver runs
   benchmark/workloads/<cell>.json     the comparison's limits
+  benchmark/held/<cell>.json          the limits a non-finite job is held
+                                      to (check.classify); a cell without
+                                      one counts every such job failed
   benchmark/end_to_end/<metric>.py    read(ctx) of an end-to-end metric
   benchmark/metrics/<metric>.py       read(ctx) of a per-layer metric
   benchmark/kernels/<class>.json      a kernel class's name patterns
@@ -25,7 +28,7 @@ from pathlib import Path
 import torch
 
 from . import check
-from .driver import Driver, now
+from .driver import RERUNS, Driver, now
 from .trace import Tracer, classify, kernel_classes
 
 BENCH = Path(__file__).resolve().parents[1]
@@ -65,6 +68,12 @@ def cell_parts(name, bench=None):
     traffic = load_json(BENCH / 'traffic' / (cell['traffic'] + '.json'))
     limits = load_json(BENCH / 'workloads' / (name + '.json'))
     return bench, cell, config, traffic, limits
+
+
+def held_spec(name):
+    """The cell's held limits (benchmark/held/<cell>.json), or None."""
+    path = BENCH / 'held' / (name + '.json')
+    return load_json(path) if path.exists() else None
 
 
 def reported(bench, cell, trace):
@@ -133,16 +142,59 @@ def warm_and_start(driver):
     return warm
 
 
-def compare(ref_mod, config, driver, warm, follow, answers):
+def compare(ref_mod, config, driver, warm, follow, answers, held=(),
+            spec=None):
     """The float32 reference's readings of a run's (or the control's)
-    records; (Readings, answers compared)."""
+    records, with its verdicts on the re-run jobs `held` (rerun's) under the
+    cell's held limits `spec`; (Readings, answers compared)."""
     ref = ref_mod.Reference(config, driver.weights, 'float32')
     chk = check.Check(ref, driver)
     out = check.Readings(ladder=len(driver.rungs) > 1)
     chk.start(warm, out)
     chk.follow(follow, out)
     n_answers = chk.answers(answers, out)
+    out.verdicts = [chk.classify(h, spec) for h in held]
     return out, n_answers
+
+
+def rerun_nonfinite(driver, spec):
+    """Runs again the first RERUNS finished jobs whose answers are not
+    finite (driver.rerun), none where the cell has no held limits (spec
+    None). Returns (the re-runs, the non-finite answers, the seconds the
+    re-runs took)."""
+    bad = [a for a in driver.answers if not check.finite(a)]
+    t0 = now()
+    held = [driver.rerun(a) for a in bad[:RERUNS]] if spec else []
+    return held, bad, now() - t0
+
+
+def tally(verdicts, n_bad):
+    """(failed, diverged) of n_bad non-finite jobs: the ones not re-run
+    (past RERUNS, or in a cell without held limits) are failed."""
+    diverged = sum(v['verdict'] == 'diverged' for v in verdicts)
+    return n_bad - diverged, diverged
+
+
+def verdict_line(v, spec):
+    """One line of stderr for a classified job."""
+    head = 'job %d rung %s step %s: %s (%s)' % (v['job'], v['rung'], v['step'],
+                                                v['verdict'], v['why'])
+    if not v['points']:
+        return head
+    lim = spec['limits']
+    steps = [p['step'] for p in v['points']]
+    unresolved = sum(p['step_gap'] is None for p in v['points'])
+    unread = sum(p['grad_share'] is None for p in v['points'])
+    return ('%s; %d states held, steps %s: grad_share %r limit %r, '
+            'step_gap %r limit %r (each [worst, at step]); not read: %d '
+            'gradients the %s yardstick does not resolve (under %r times '
+            'float32), %d steps float32 does not (rounding over %r); the '
+            'reference after its step at step %s: loss %r |grad| %r'
+            % (head, len(steps), ','.join(map(str, steps)), v['grad_share'],
+               lim['held_grad_share'], v['step_gap'], lim['held_step_gap'],
+               unread, spec['yardstick'], spec['yardstick_resolved'],
+               unresolved, spec['step_resolved'], v['at'], v['stepped_loss'],
+               v['stepped_grad']))
 
 
 def _short(kernel):
@@ -183,6 +235,8 @@ def run(argv, t_start):
     if bad:
         raise Refused('modules loaded that the benchmark must not load: %s'
                       % ', '.join(bad))
+    for line in result.pop('held'):
+        print(line, file=sys.stderr)
     for k, v in result.pop('where').items():
         print('worst %s: %s' % (k, v), file=sys.stderr)
     for k, v in result['check'].items():
@@ -262,6 +316,9 @@ def run_cell(bench, cell, config, traffic, limits, seed, seconds, trace,
                 '%s %.4f s' % (_short(n), sec)
                 for sec, n in sorted(found, reverse=True))), file=sys.stderr)
 
+    spec = held_spec(cell['name'])
+    held, bad, rerun_s = rerun_nonfinite(driver, spec)
+
     # The program's state goes before the reference runs on the card.
     driver.st = None
     gc.collect()
@@ -269,17 +326,25 @@ def run_cell(bench, cell, config, traffic, limits, seed, seconds, trace,
         torch.cuda.empty_cache()
     lim = limits['limits']
     readings, n_answers = compare(reference_module(config), config, driver,
-                                  warm, follow, driver.answers)
+                                  warm, follow, driver.answers, held, spec)
     values = readings.values
     correct = n_answers > 0 and all(
         math.isfinite(values[k]) and values[k] <= lim[k] for k in values)
     checks = {k: {'value': values[k], 'limit': lim[k]} for k in values}
-    failed = sum(1 for a in driver.answers if not check.finite(a))
+    failed, diverged = tally(readings.verdicts, len(bad))
     result = {'correct': bool(correct), 'attempted': int(attempted),
-              'failed': int(failed), 'metrics': metrics,
-              'device': device_info}
+              'failed': int(failed), 'diverged': int(diverged),
+              'metrics': metrics, 'device': device_info}
     if breakdown is not None:
         result['breakdown'] = breakdown
+    result['held'] = (
+        ['re-runs: %d of %d non-finite jobs, %.3f s%s'
+         % (len(held), len(bad), rerun_s,
+            '' if spec else ' (the cell has no held limits: every '
+            'non-finite job is failed)')]
+        + [verdict_line(v, spec) for v in readings.verdicts]
+        + ['job %d: failed (not re-run)' % a['job']
+           for a in bad[len(held):]])
     result['where'] = readings.where
     result['check'] = checks
     return result

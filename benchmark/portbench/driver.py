@@ -23,6 +23,11 @@ reset, start, then every rung's iterations; its final image comes to the
 host at its end. Jobs run back to back on one engine. The window starts no
 chunk after its deadline; the chunks in flight are collected and the window
 ends at the last collect. A job cut by the deadline is not finished.
+
+After the window, a finished job whose answer was not finite is run again
+(rerun) to find where it first went non-finite and the program's states
+on the way there, which the comparison holds the reference at
+(check.classify).
 """
 
 import collections
@@ -33,6 +38,10 @@ import torch
 from . import inputs
 
 _EPOCH = time.time_ns() - time.perf_counter_ns()
+RERUNS = 8    # non-finite jobs a run runs again, at most
+KEPT = 3      # finite per-step states a re-run keeps before the first
+              # non-finite one
+EVERY = 10    # and, before those, the state of every EVERY-th step
 
 
 def now():
@@ -47,6 +56,18 @@ def epoch_ns(t):
 def _host(t, dtype=torch.float32):
     """A copy of t on the host (never a view of the engine's buffers)."""
     return t.detach().to('cpu', dtype=dtype or t.dtype, copy=True)
+
+
+def _clone(t):
+    """A copy of t on its device (the engine's next step rewrites its
+    buffers)."""
+    return t.detach().clone()
+
+
+def _on_host(state):
+    """A state's tensors copied to the host in their own dtypes."""
+    return {k: (_host(v, None) if torch.is_tensor(v) else v)
+            for k, v in state.items()}
 
 
 class Record:
@@ -312,22 +333,25 @@ class Driver:
             self.run_job(job, float('inf'))
         tracer.stop()
 
-    def _state(self):
-        """{lane: the optimizer state, on the host}, the single engine's
-        layout (x (1, H, W, 3), history (n_corr, 1, H, W, 3))."""
+    def _lane_state(self, lane, copy):
+        """Lane `lane`'s optimizer state, each tensor through copy, in the
+        single engine's layout (x (1, H, W, 3), history (n_corr, 1, H, W,
+        3))."""
         st = self.st
         if self.t['engine'] == 'single':
-            return {0: {k: (_host(v, None) if torch.is_tensor(v) else v)
-                        for k, v in st.opt_state.items()}}
-        lanes = {}
-        for lane in range(self.lanes):
-            state = {k: _host(v[lane], None) for k, v in st.states.items()}
-            for k in ('x', 'grad'):
-                state[k] = state[k][None]
-            for k in ('sk', 'yk'):
-                state[k] = state[k][:, None]
-            lanes[lane] = state
-        return lanes
+            return {k: (copy(v) if torch.is_tensor(v) else v)
+                    for k, v in st.opt_state.items()}
+        state = {k: copy(v[lane]) for k, v in st.states.items()}
+        for k in ('x', 'grad'):
+            state[k] = state[k][None]
+        for k in ('sk', 'yk'):
+            state[k] = state[k][:, None]
+        return state
+
+    def _state(self):
+        """{lane: the optimizer state, on the host}."""
+        return {lane: self._lane_state(lane, lambda v: _host(v, None))
+                for lane in range(self.lanes)}
 
     def follow(self):
         """After the window: the engine's state as the window left it, then
@@ -353,3 +377,60 @@ class Driver:
         return {'job': self.rec.jobs[-1]['job'],
                 'rung': self.rungs.index(tuple(hw)), 'hw': hw,
                 'state': lanes, 'x_end': self._iterates()}
+
+    def rerun(self, answer):
+        """A finished job whose answer was not finite, run again after the
+        window from its random start, rung by rung as run_job runs it but
+        one iteration a begin (a begin replays the same step graph once a
+        step whether it holds 1 or `chunk`, so the iterates are the
+        window's), until the answer's lane shows a non-finite iterate,
+        gradient or loss. Returns {'job', 'lane', 'rung', 'step', 'points',
+        'image'}: the rung and the step in it (from 1) that first went
+        non-finite, and the points the comparison holds, oldest first: each
+        EVERY-th step's state before the last KEPT, and those KEPT, each a
+        finite state on the host with the iterate the next step made from
+        it ({'rung', 'step', 'state', 'next'}). Where the re-run stays
+        finite to the job's end: rung and step None, no points, and its
+        final image. Nothing of it enters the run's record."""
+        lane = answer['lane']
+        rec, self.rec = self.rec, Record()
+        try:
+            rung, step, points, image = self._first_nonfinite(
+                answer['job'] - lane, lane)
+        finally:
+            self.rec = rec
+        return {'job': answer['job'], 'lane': lane, 'rung': rung,
+                'step': step, 'points': points, 'image': image}
+
+    def _first_nonfinite(self, job, lane):
+        """(rung, step, points, None) where lane `lane` of job `job` first
+        goes non-finite; (None, None, [], its final image) where it stays
+        finite."""
+        self._start_job(job)
+        marks = []     # each EVERY-th step's point
+        for r, hw in enumerate(self.rungs):
+            if r > 0:
+                self._switch_rung(r)
+            kept = collections.deque(maxlen=KEPT + 1)
+            for step in range(1, self.iterations + 1):
+                end = r == len(self.rungs) - 1 and step == self.iterations
+                _, images = self._collect(self._begin(1, hw), fetch=end)
+                state = self._lane_state(lane, _clone)
+                if marks and marks[-1]['next'] is None and (
+                        marks[-1]['rung'] == r):
+                    marks[-1]['next'] = _host(state['x'])
+                kept.append((step, state))
+                if not all(bool(torch.isfinite(state[k]).all())
+                           for k in ('x', 'grad', 'loss')):
+                    first = kept[0][0]
+                    points = [m for m in marks if m['next'] is not None
+                              and (m['rung'], m['step']) < (r, first)]
+                    points += [{'rung': r, 'step': s, 'state': _on_host(st),
+                                'next': _host(nxt['x'])}
+                               for (s, st), (_, nxt) in zip(
+                                   kept, list(kept)[1:])]
+                    return r, step, points, None
+                if step % EVERY == 0:
+                    marks.append({'rung': r, 'step': step,
+                                  'state': _on_host(state), 'next': None})
+        return None, None, [], images[lane]

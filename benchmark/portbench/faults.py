@@ -10,11 +10,15 @@ catches them (benchmark/calibrate.py --fault, and the CPU tests):
   stale    an L-BFGS step whose gradient has the previous step's added to
            it: a wrong backward in the step's graph, which leaves the loss
            it reports right;
+  runaway  an L-BFGS step taken at 1000 times the step size it was given
+           (multiplied as the step receives it, so a captured step graph
+           keeps it): a job that overflows where the reference, stepping
+           from the same state, does not;
   half     the batched engine's step applied to the first half of its
            lanes only (the rest keep their state).
 """
 
-FAULTS = ('answer', 'nan', 'frozen', 'stale', 'half')
+FAULTS = ('answer', 'nan', 'frozen', 'stale', 'runaway', 'half')
 
 
 def plant(fault, setattr=setattr):
@@ -54,6 +58,12 @@ def plant(fault, setattr=setattr):
                 return loss, grad + state['grad'], aux
             return step(state, with_stale_grad, step_size)
         setattr(lbfgs, 'step', stale)
+    elif fault == 'runaway':
+        step = lbfgs.step
+
+        def runaway(state, opfunc, step_size):
+            return step(state, opfunc, step_size * 1000.0)
+        setattr(lbfgs, 'step', runaway)
     elif fault == 'half':
         step_lanes = lbfgs.step_lanes
 

@@ -13,7 +13,9 @@ the first-evaluation norms and every step again.
 'float32' is the reference; 'tf32' (TF32 on) and 'fp8' (each operand rounded
 to float8 e4m3 with a per-tensor scale, float32 accumulation, forward and
 backward alike, and the taps rounded before the losses) are the lower
-precisions that serve as the comparison's controls.
+precisions that serve as the comparison's controls; 'float64' (weights,
+images and every operation in float64) is the yardstick a float32 gradient's
+rounding error is read against (portbench/check.py, classify).
 
 The objective (the original worker's opfunc, in its order):
   * per tapped layer in forward order: content loss cw * mean((f - c)^2) / cn
@@ -66,9 +68,10 @@ class Precision:
     """How the reference runs its convolutions and Gram products."""
 
     def __init__(self, name):
-        if name not in ('float32', 'tf32', 'fp8'):
+        if name not in ('float32', 'tf32', 'fp8', 'float64'):
             raise ValueError('precision %r' % (name,))
         self.name = name
+        self.dtype = torch.float64 if name == 'float64' else torch.float32
 
     @contextlib.contextmanager
     def scope(self):
@@ -128,11 +131,12 @@ class VGG:
         return out
 
 
-def preprocess(image_hwc, device):
-    """An HxWx3 RGB image (uint8 or float) -> (1, 3, H, W) float32 with the
+def preprocess(image_hwc, device, dtype=torch.float32):
+    """An HxWx3 RGB image (uint8 or float) -> (1, 3, H, W) in dtype with the
     VGG mean taken off."""
-    arr = torch.as_tensor(np.asarray(image_hwc, np.float32), device=device)
-    mean = torch.tensor(MEAN_RGB, dtype=torch.float32, device=device)
+    arr = torch.as_tensor(np.asarray(image_hwc, np.float32),
+                          device=device).to(dtype)
+    mean = torch.tensor(MEAN_RGB, dtype=dtype, device=device)
     return (arr - mean).permute(2, 0, 1)[None].contiguous()
 
 
@@ -179,7 +183,7 @@ class Objective:
         x = x.detach().requires_grad_(True)
         feats = self.net.forward(x, self.layers)
         trace, cot = {}, {}
-        scd = torch.zeros((), dtype=torch.float32, device=x.device)
+        scd = torch.zeros((), dtype=x.dtype, device=x.device)
         for layer in self.layers:
             f = self.net.precision.tap(feats[layer].detach())
             size = float(f.numel())
@@ -354,20 +358,22 @@ class Reference:
 
     def __init__(self, config, weights, precision='float32'):
         """weights: {conv name: (w HWIO float32 tensor, b)} on the device
-        the reference runs on; they are laid out NCHW here."""
+        the reference runs on; they are laid out NCHW here, in the
+        precision's dtype."""
         self.config = config
         self.precision = Precision(precision)
+        dtype = self.precision.dtype
         self.net = VGG(config['convs'], {
-            name: (w.permute(3, 2, 0, 1).contiguous().float(), b.float())
+            name: (w.permute(3, 2, 0, 1).contiguous().to(dtype), b.to(dtype))
             for name, (w, b) in weights.items()}, self.precision)
         self.device = next(iter(weights.values()))[0].device
         self.style_grams = None
 
     def preprocess(self, image_hwc):
-        return preprocess(image_hwc, self.device)
+        return preprocess(image_hwc, self.device, self.precision.dtype)
 
     def set_style(self, style_hwc):
-        x = preprocess(style_hwc, self.device)
+        x = self.preprocess(style_hwc)
         layers = list(self.config['objective']['style'])
         with torch.no_grad(), self.precision.scope():
             feats = self.net.forward(x, layers)
@@ -376,8 +382,8 @@ class Reference:
 
     def objective(self, content_hwc, norms=None):
         return Objective(self.net, self.config['objective'],
-                         preprocess(content_hwc, self.device),
-                         self.style_grams, norms)
+                         self.preprocess(content_hwc), self.style_grams,
+                         norms)
 
     def resize(self, x, hw):
         """The warm start of a ladder's next rung: x resized to hw (float64

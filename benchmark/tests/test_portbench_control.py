@@ -42,3 +42,32 @@ def test_the_control_fails_a_limit_the_program_passes(cell, monkeypatch):
     assert out['answers'] > 0
     assert all(v <= limits[k] for k, v in out['program'].items()), out
     assert any(not v <= limits[k] for k, v in out['control'].items()), out
+
+
+@pytest.mark.cuda
+def test_the_control_held_at_overflowing_jobs_is_failed(monkeypatch):
+    """At a step size of 8 float32 jobs overflow within 20 steps, in the
+    reference as in the program: the program's re-run jobs (the first 8
+    non-finite ones; the rest are failed) come out diverged, and the
+    control's gradient and step, held at the same states under the cell's
+    held limits (benchmark/held), failed."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU: TF32 runs on the card')
+    from test_portbench_faults import _small
+    cell = 'f32-512-lbfgs'
+    orig = core.cell_parts
+
+    def overflowing(name, bench=None):
+        b, c, config, traffic, limits = orig(name, bench)
+        config = dict(config, optimizer=dict(config['optimizer'],
+                                             step_size=8.0))
+        return b, c, config, dict(_small(traffic), iterations=20), limits
+
+    monkeypatch.setattr(core, 'cell_parts', overflowing)
+    out = calibrate.one_seed(cell, 2 ** 31 + 23, 6.0, torch.device('cuda'),
+                             core.program_modules(), True)
+    program = [v['verdict'] for v in out['verdicts']]
+    assert program and set(program) == {'diverged'}, out['verdicts']
+    control = [v['verdict'] for v in out['control_verdicts']]
+    assert len(control) == len(program), out['control_verdicts']
+    assert set(control) == {'failed'}, out['control_verdicts']

@@ -22,7 +22,8 @@ SPEC = json.loads((BENCH.parent / 'BENCHMARK.json').read_text())
 CELLS = [w['name'] for w in SPEC['workloads']]
 # The number each fault moves, and how.
 FAULTS = {'frozen': 'start_step_gap', 'answer': 'answer_loss_gap',
-          'stale': 'follow_grad_gap', 'nan': 'failed_share'}
+          'stale': 'follow_grad_gap', 'nan': 'failed_share',
+          'runaway': 'start_step_gap'}
 
 
 def _small(traffic):
